@@ -1,0 +1,484 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``repro_torch`` (never JAX, never the reference package) in phases;
+any failure raises and the script exits non-zero:
+
+1. setup    print the card (``nvidia-smi`` name and power limit) and build
+            the CUDA kernels K1-K4 from ``src/repro_torch/csrc``;
+2. kernels  hold every kernel against its plain PyTorch version on the card
+            (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
+            order differs) at every distinct shape the MobileNet v2
+            ``balanced`` plan launches at 224 px and batch 2, plus edge
+            cases (no bias, each activation, K4 with a residual, ragged
+            tails, a SqueezeNet e3x3 for K3); time each call on the device
+            (``cuda_time_ms``: CUDA events around back-to-back calls, the
+            host's launch overhead held out) beside the plain version, a
+            PyTorch library call computing the same function (timed here
+            only, never used by the port) and the least time the card could
+            take;
+3. forward  the sequential kernel forward (``fuse="group"`` exec plan)
+            against the all-plain forward on the card, at 1e-3 (29 f32
+            layers, each at 1e-4 against its plain version, compound), and
+            the launch counts against the plan;
+4. serving  ``DualCoreEngine`` over the two streams: 8 requests x batch 2 at
+            224 px, outputs bit-equal to the sequential kernel forward,
+            launch counts exactly 8 x the plan's per-request counts;
+5. report   one JSON line of the kernels, the card line, and the final
+            ``{"ok": true, ...}`` line.
+
+Per-shape rows also go to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+MODEL = "mobilenet_v2"
+SCHEME = "balanced"
+IMAGE = 224
+BATCH = 2
+REQUESTS = 8
+KERNEL_TOL = 1e-4
+FORWARD_TOL = 1e-3
+# NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
+# the CUDA cores (no tensor cores) 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rand(gen: np.random.Generator, shape, scale: float = 1.0,
+         device="cuda") -> torch.Tensor:
+    """A standard-normal float32 tensor from ``gen``, times ``scale``."""
+    a = (gen.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """Least time for the work, in ms, and what bounds it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# the kernels, their plain versions and library yardsticks
+# --------------------------------------------------------------------------
+def kernel_table():
+    """Each ported kernel: wrapper, plain version, source, TPU original."""
+    from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
+                                                      matmul_bias_act)
+    from repro_torch.kernels.conv_gemm.ref import (conv2d_ref,
+                                                   matmul_bias_act_ref)
+    from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
+    from repro_torch.kernels.depthwise.ref import depthwise_conv2d_ref
+    from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
+    from repro_torch.kernels.fused_block.ref import fused_dw_pw_ref
+    return {
+        "matmul_bias_act": dict(
+            fn=matmul_bias_act, plain=matmul_bias_act_ref,
+            source="src/repro_torch/csrc/matmul_bias_act.cu",
+            replaces="src/repro/kernels/conv_gemm/kernel.py:74"),
+        "depthwise_conv2d": dict(
+            fn=depthwise_conv2d, plain=depthwise_conv2d_ref,
+            source="src/repro_torch/csrc/depthwise_conv2d.cu",
+            replaces="src/repro/kernels/depthwise/kernel.py:54"),
+        "conv2d_implicit_gemm": dict(
+            fn=conv2d_implicit_gemm, plain=conv2d_ref,
+            source="src/repro_torch/csrc/conv2d_implicit_gemm.cu",
+            replaces="src/repro/kernels/conv_gemm/kernel.py:165"),
+        "fused_dw_pw_conv": dict(
+            fn=fused_dw_pw_conv, plain=fused_dw_pw_ref,
+            source="src/repro_torch/csrc/fused_dw_pw_conv.cu",
+            replaces="src/repro/kernels/fused_block/kernel.py:96"),
+    }
+
+
+def plan_calls(plan, batch: int) -> list[dict]:
+    """The kernel calls one request makes through the exec plan, derived
+    from the plan's steps and the graph's layer specs."""
+    return [step_call(s, batch) for g in plan.groups for s in g.steps]
+
+
+def step_call(step, batch: int) -> dict:
+    """The kernel call one exec-plan step makes, as a dict."""
+    from repro_torch.dualcore.program import ACT_OF
+    from repro_torch.models.zoo import get_graph
+    graph = get_graph(MODEL)
+    act = ACT_OF[MODEL]
+    if len(step.layers) == 2:
+        d, p = (graph.layer(n) for n in step.layers)
+        return dict(kernel="fused_dw_pw_conv", n=batch, h=d.H, w=d.W,
+                    c=d.C_i, co=p.C_o, k=d.K_h, stride=d.stride, pad=d.pad,
+                    dw_act=act(d.name), pw_act=act(p.name), res=False)
+    (name,) = step.layers
+    l = graph.layer(name)
+    if l.op == "dwconv":
+        return dict(kernel="depthwise_conv2d", n=batch, h=l.H, w=l.W,
+                    c=l.C_i, k=l.K_h, stride=l.stride, pad=l.pad,
+                    act=act(name))
+    if l.K_h == 1 and l.K_w == 1 and l.stride == 1 and l.pad == 0:
+        return dict(kernel="matmul_bias_act", m=batch * l.H * l.W, k=l.C_i,
+                    n=l.C_o, act=act(name))
+    return dict(kernel="conv2d_implicit_gemm", n=batch, h=l.H, w=l.W,
+                ci=l.C_i, co=l.C_o, k=l.K_h, stride=l.stride, pad=l.pad,
+                act=act(name))
+
+
+def edge_calls() -> list[dict]:
+    """Edge cases beside the path's shapes: no bias, each activation, K4
+    with a residual, ragged tails, SqueezeNet's e3x3 for K3."""
+    return [
+        dict(kernel="matmul_bias_act", m=77, k=13, n=70, act=None,
+             bias=False),
+        dict(kernel="matmul_bias_act", m=130, k=45, n=129, act="relu"),
+        dict(kernel="depthwise_conv2d", n=1, h=13, w=11, c=37, k=3,
+             stride=2, pad=1, act="relu", bias=False),
+        dict(kernel="depthwise_conv2d", n=2, h=9, w=9, c=40, k=5, stride=1,
+             pad=2, act=None),
+        dict(kernel="conv2d_implicit_gemm", n=2, h=56, w=56, ci=16, co=64,
+             k=3, stride=1, pad=1, act="relu"),
+        dict(kernel="conv2d_implicit_gemm", n=1, h=15, w=13, ci=5, co=70,
+             k=3, stride=2, pad=0, act=None, bias=False),
+        dict(kernel="fused_dw_pw_conv", n=2, h=14, w=14, c=96, co=96, k=3,
+             stride=1, pad=1, dw_act="relu6", pw_act=None, res=True),
+        dict(kernel="fused_dw_pw_conv", n=1, h=11, w=9, c=20, co=70, k=3,
+             stride=2, pad=1, dw_act="relu", pw_act="relu", res=False,
+             bias=False),
+    ]
+
+
+def make_case(call: dict, gen) -> dict:
+    """Inputs, the kernel thunk, the plain thunk, the library thunk, and
+    the bytes and operations of one call."""
+    kt = kernel_table()[call["kernel"]]
+    bias = call.get("bias", True)
+    kind = call["kernel"]
+    if kind == "matmul_bias_act":
+        m, k, n = call["m"], call["k"], call["n"]
+        x = rand(gen, (m, k))
+        w = rand(gen, (k, n), (2.0 / k) ** 0.5)
+        b = rand(gen, (n,), 0.1) if bias else None
+        args, kw = (x, w, b), dict(act=call["act"])
+        plain = lambda: kt["plain"](x, w, b, call["act"])  # noqa: E731
+
+        def library():
+            out = torch.addmm(b, x, w) if b is not None else x @ w
+            return _lib_act(out, call["act"])
+        nbytes = 4 * (m * k + k * n + (n if bias else 0) + m * n)
+        flops = 2 * m * k * n
+    elif kind == "depthwise_conv2d":
+        n, h, wd, c, kk = call["n"], call["h"], call["w"], call["c"], call["k"]
+        s, p = call["stride"], call["pad"]
+        x = rand(gen, (n, h, wd, c))
+        w = rand(gen, (kk, kk, c), (2.0 / (kk * kk)) ** 0.5)
+        b = rand(gen, (c,), 0.1) if bias else None
+        args, kw = (x, w, b), dict(stride=s, pad=p, act=call["act"])
+        plain = lambda: kt["plain"](x, w, b, stride=s, pad=p,  # noqa: E731
+                                    act=call["act"])
+        w_oihw = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+
+        def library():
+            return _lib_act(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, s, p,
+                                     groups=c), call["act"])
+        ho, wo = (h + 2 * p - kk) // s + 1, (wd + 2 * p - kk) // s + 1
+        nbytes = 4 * (n * h * wd * c + kk * kk * c + (c if bias else 0)
+                      + n * ho * wo * c)
+        flops = 2 * kk * kk * n * ho * wo * c
+    elif kind == "conv2d_implicit_gemm":
+        n, h, wd, ci, co = call["n"], call["h"], call["w"], call["ci"], \
+            call["co"]
+        kk, s, p = call["k"], call["stride"], call["pad"]
+        x = rand(gen, (n, h, wd, ci))
+        w = rand(gen, (kk, kk, ci, co), (2.0 / (kk * kk * ci)) ** 0.5)
+        b = rand(gen, (co,), 0.1) if bias else None
+        args, kw = (x, w, b), dict(stride=s, pad=p, act=call["act"])
+        plain = lambda: kt["plain"](x, w, b, stride=s, pad=p,  # noqa: E731
+                                    act=call["act"])
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            return _lib_act(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, s, p),
+                            call["act"])
+        ho, wo = (h + 2 * p - kk) // s + 1, (wd + 2 * p - kk) // s + 1
+        nbytes = 4 * (n * h * wd * ci + kk * kk * ci * co
+                      + (co if bias else 0) + n * ho * wo * co)
+        flops = 2 * n * ho * wo * kk * kk * ci * co
+    else:
+        n, h, wd, c, co = call["n"], call["h"], call["w"], call["c"], \
+            call["co"]
+        kk, s, p = call["k"], call["stride"], call["pad"]
+        ho, wo = (h + 2 * p - kk) // s + 1, (wd + 2 * p - kk) // s + 1
+        x = rand(gen, (n, h, wd, c))
+        dw_w = rand(gen, (kk, kk, c), (2.0 / (kk * kk)) ** 0.5)
+        dw_b = rand(gen, (c,), 0.1) if bias else None
+        pw_w = rand(gen, (c, co), (2.0 / c) ** 0.5)
+        pw_b = rand(gen, (co,), 0.1) if bias else None
+        res = rand(gen, (n, ho, wo, co)) if call["res"] else None
+        acts = dict(dw_act=call["dw_act"], pw_act=call["pw_act"])
+        args = (x, dw_w, dw_b, pw_w, pw_b, res)
+        kw = dict(stride=s, pad=p, **acts)
+        plain = lambda: kt["plain"](*args, **kw)  # noqa: E731
+        w_oihw = dw_w.permute(2, 0, 1).unsqueeze(1).contiguous()
+
+        def library():
+            d = _lib_act(F.conv2d(x.permute(0, 3, 1, 2), w_oihw, dw_b, s, p,
+                                  groups=c), call["dw_act"])
+            d = d.permute(0, 2, 3, 1).reshape(n * ho * wo, c)
+            out = torch.addmm(pw_b, d, pw_w) if pw_b is not None else d @ pw_w
+            out = _lib_act(out, call["pw_act"]).reshape(n, ho, wo, co)
+            return out + res if res is not None else out
+        nbytes = 4 * (n * h * wd * c + kk * kk * c + c * co
+                      + ((c + co) if bias else 0) + n * ho * wo * co
+                      * (2 if call["res"] else 1))
+        flops = 2 * n * ho * wo * c * (kk * kk + co)
+    return dict(kernel=lambda: kt["fn"](*args, **kw), plain=plain,
+                library=library, nbytes=nbytes, flops=flops)
+
+
+def _lib_act(t: torch.Tensor, act: str | None) -> torch.Tensor:
+    if act == "relu":
+        return torch.relu(t)
+    if act == "relu6":
+        return torch.clamp(t, 0.0, 6.0)
+    return t
+
+
+def check_and_time(call: dict, gen, timing: bool) -> dict:
+    """Hold one call against its plain version; time it if asked."""
+    from repro_torch.kernels.util import cuda_time_ms
+    case = make_case(call, gen)
+    got = case["kernel"]()
+    want = case["plain"]()
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{call}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL):
+        raise AssertionError(f"{call}: kernel disagrees with its plain "
+                             f"version, max |err| {err:.3e} "
+                             f"(rtol = atol = {KERNEL_TOL})")
+    row = dict(call, max_abs_err=err)
+    if timing:
+        b_ms, b_by = bound_ms(case["nbytes"], case["flops"])
+        row.update(ms=cuda_time_ms(case["kernel"]),
+                   plain_ms=cuda_time_ms(case["plain"]),
+                   library_ms=cuda_time_ms(case["library"]),
+                   bound_ms=b_ms, bound_by=b_by, bytes=case["nbytes"],
+                   flops=case["flops"])
+    return row
+
+
+def host_enqueue_ms(runner, images: list[torch.Tensor]) -> float:
+    """Host time, in ms per request, to queue every request through every
+    exec group back to back, the device running behind; the waits come
+    after the clock stops.  Best of 3."""
+    from repro_torch.dualcore.runtime import wait_ready
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        envs = []
+        for x in images:
+            env = runner.place_input(x)
+            for h in runner.handles:
+                env = h(env)
+            envs.append(env)
+        best = min(best, time.perf_counter() - t0)
+        for env in envs:
+            wait_ready(env)
+    return best * 1e3 / len(images)
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel's launch count."""
+    return {name: kt["fn"].launches for name, kt in kernel_table().items()}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for kt in kernel_table().values():
+        kt["fn"].launches = 0
+
+
+# --------------------------------------------------------------------------
+def main() -> int:
+    """Run the phases; return the exit code."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.dualcore.program import build_program
+    from repro_torch.dualcore.runtime import DualCoreRunner
+    from repro_torch.kernels.util import timed_build
+    from repro_torch.models.cnn import build_model
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+
+    # 1. setup ------------------------------------------------------------
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[setup] nvidia-smi: {card}")
+    print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}, "
+          f"device {kind}, {torch.cuda.device_count()} device(s)")
+    print(f"[setup] kernels built and loaded in {timed_build():.1f} s")
+
+    params, _, graph = build_model(MODEL, seed=0, device="cuda")
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+    runner = DualCoreRunner(MODEL, params, sched, device="cuda")
+    print(f"[setup] {MODEL} {SCHEME}: {len(runner.groups)} exec groups; "
+          f"{runner.cores.describe()}")
+
+    # 2. kernels ----------------------------------------------------------
+    gen = np.random.default_rng(0)
+    calls = plan_calls(runner.plan, BATCH)
+    per_request: dict[str, int] = {}
+    for c in calls:
+        per_request[c["kernel"]] = per_request.get(c["kernel"], 0) + 1
+    print(f"[kernels] plan launches per request (batch {BATCH}): "
+          f"{per_request}")
+    distinct: dict[str, dict] = {}
+    for c in calls:
+        distinct.setdefault(json.dumps(c, sort_keys=True), c)
+    rows = {}
+    for key, c in distinct.items():
+        rows[key] = check_and_time(c, gen, timing=True)
+        r = rows[key]
+        print(f"[kernels] {r['kernel']:<21} "
+              f"{_shape_str(c):<34} ms {r['ms']:.4f}  plain "
+              f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
+              f"{r['max_abs_err']:.1e}")
+    for c in edge_calls():
+        r = check_and_time(c, gen, timing=False)
+        print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<34} err "
+              f"{r['max_abs_err']:.1e}")
+    print(f"[kernels] all kernels agree with their plain versions "
+          f"(rtol = atol = {KERNEL_TOL})")
+
+    # 3. forward ----------------------------------------------------------
+    x = rand(gen, (BATCH, IMAGE, IMAGE, 3))
+    plain_out = build_program(MODEL, plain=True).run(params, x)
+    reset_counts()
+    (seq_out,) = runner.run_sequential([x])
+    counts = launch_counts()
+    err = (seq_out - plain_out).abs().max().item()
+    if not torch.allclose(seq_out, plain_out, rtol=FORWARD_TOL,
+                          atol=FORWARD_TOL):
+        raise AssertionError(f"kernel forward disagrees with the plain "
+                             f"forward: max |err| {err:.3e}")
+    if counts != {k: per_request.get(k, 0) for k in counts}:
+        raise AssertionError(f"forward launches {counts} != plan "
+                             f"{per_request}")
+    print(f"[forward] kernel forward vs plain forward: max |err| "
+          f"{err:.2e} (tol {FORWARD_TOL}); launches {counts}")
+
+    # 4. serving ----------------------------------------------------------
+    images = [rand(gen, (BATCH, IMAGE, IMAGE, 3)) for _ in range(REQUESTS)]
+    seq = runner.run_sequential(images)
+    reset_counts()
+    engine = DualCoreEngine(runner)
+    res = replay(engine, [Request(im) for im in images])
+    served = launch_counts()
+    want = {k: REQUESTS * per_request.get(k, 0) for k in served}
+    if served != want:
+        raise AssertionError(f"serving launches {served} != {want}")
+    for i, (a, b) in enumerate(zip(res.outputs, seq)):
+        if a.shape != (BATCH, 1000) or not torch.isfinite(a).all():
+            raise AssertionError(f"request {i}: bad output {a.shape}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"request {i}: pipelined output differs "
+                                 f"from the sequential kernel forward")
+    m = res.metrics
+    walls: dict[str, list[float]] = {"pipelined": [], "sequential": []}
+    for mode in ("pipelined", "sequential") * 3:      # in turns
+        walls[mode].append(runner.timed(images, mode)[1])
+    t_pipe, t_seq = min(walls["pipelined"]), min(walls["sequential"])
+    print(f"[serving] {REQUESTS} requests x batch {BATCH} @ {IMAGE}px in "
+          f"{res.stats['slots']} slots: {res.stats['wall_s'] * 1e3:.2f} ms, "
+          f"{REQUESTS * BATCH / res.stats['wall_s']:.1f} img/s, p50 "
+          f"{m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; outputs bit-equal "
+          f"to the sequential kernel forward; launches {served}")
+    print(f"[serving] best of 3, in turns: pipelined {t_pipe * 1e3:.2f} ms "
+          f"({REQUESTS * BATCH / t_pipe:.1f} img/s), sequential "
+          f"{t_seq * 1e3:.2f} ms ({REQUESTS * BATCH / t_seq:.1f} img/s), "
+          f"speedup {t_seq / t_pipe:.3f}x")
+    host_ms = host_enqueue_ms(runner, images)
+    device_ms = sum(rows[json.dumps(c, sort_keys=True)]["ms"] for c in calls)
+    print(f"[serving] per request: host enqueue {host_ms:.3f} ms ({len(calls)}"
+          f" launches; {REQUESTS} requests queued back to back, best of 3), "
+          f"device kernel time {device_ms:.3f} ms (phase 2, summed over the "
+          f"request's calls)")
+
+    # 5. report -----------------------------------------------------------
+    kernels = []
+    for name, kt in kernel_table().items():
+        mine = [rows[json.dumps(c, sort_keys=True)] for c in calls
+                if c["kernel"] == name]
+        tot_bytes = sum(r["bytes"] for r in mine)
+        tot_flops = sum(r["flops"] for r in mine)
+        b_ms, b_by = bound_ms(tot_bytes, tot_flops)
+        kernels.append(dict(
+            name=name, route="cuda", source=kt["source"],
+            replaces=kt["replaces"], launches=served[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=sum(r["ms"] for r in mine),
+            plain_ms=sum(r["plain_ms"] for r in mine),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=sum(r["library_ms"] for r in mine)))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+        card=card, device=kind, torch=torch.__version__,
+        per_request=per_request, rows=list(rows.values()), kernels=kernels,
+        serving=dict(wall_s=res.stats["wall_s"], p50_ms=m.p50_ms(),
+                     p95_ms=m.p95_ms(), pipelined_s=t_pipe,
+                     sequential_s=t_seq, host_enqueue_ms=host_ms,
+                     device_ms=device_ms),
+        forward_max_abs_err=err), indent=1))
+    print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over the "
+          f"calls of one request (batch {BATCH}, {IMAGE}px); launches are "
+          f"the serving run's; {time.perf_counter() - t_start:.1f} s total")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _shape_str(c: dict) -> str:
+    keys = [k for k in ("m", "k", "n", "h", "w", "c", "ci", "co", "stride")
+            if k in c]
+    return " ".join(f"{k}={c[k]}" for k in keys)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""c-core analogue: the tiled GEMM (K1) and the implicit-GEMM conv (K3).
+
+Wrappers of the hand-written CUDA kernels ``csrc/matmul_bias_act.cu`` and
+``csrc/conv2d_implicit_gemm.cu``, which replace the TPU kernels
+``repro/kernels/conv_gemm/kernel.py::matmul_bias_act`` and
+``::conv2d_implicit_gemm``; each source says what bounds the kernel on an
+H100 and what its design does about it.
+
+A wrapper dispatches on the device of its input: a CUDA tensor launches the
+kernel on the current stream (or raises), a CPU tensor runs the plain
+version from ``ref.py``.  Each wrapper counts its launches in its
+``launches`` attribute, a plain integer, incremented only where the kernel
+is launched.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.conv_gemm.ref import conv2d_ref, matmul_bias_act_ref
+from repro_torch.kernels.util import act_code, check_cuda_operands, launch
+
+
+def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor | None = None, *,
+                    act: str | None = None) -> torch.Tensor:
+    """(M, K) @ (K, N) + bias with a fused relu/relu6, in float32 (K1)."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"matmul_bias_act: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if bias is not None and tuple(bias.shape) != (n,):
+        raise ValueError(f"matmul_bias_act: bias {tuple(bias.shape)}, "
+                         f"expected ({n},)")
+    if x.device.type == "cpu":
+        return matmul_bias_act_ref(x, w, bias, act)
+    check_cuda_operands("matmul_bias_act", x.device, x=x, w=w, bias=bias)
+    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    launch("repro_matmul_bias_act", x.device, x, w, bias, out, m, n, k,
+           act_code(act))
+    matmul_bias_act.launches += 1
+    return out
+
+
+matmul_bias_act.launches = 0
+
+
+def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
+                         bias: torch.Tensor | None = None, *,
+                         stride: int = 1, pad: int = 0,
+                         act: str | None = None) -> torch.Tensor:
+    """NHWC KxK conv as an implicit GEMM (K3): patch tiles are gathered
+    per output tile from the unpadded input, never stored.
+
+    x: (N, H, W, C_i); w: (K_h, K_w, C_i, C_o); bias: (C_o,) or None.
+    """
+    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
+        raise ValueError(f"conv2d_implicit_gemm: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    n, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
+    if bias is not None and tuple(bias.shape) != (co,):
+        raise ValueError(f"conv2d_implicit_gemm: bias {tuple(bias.shape)}, "
+                         f"expected ({co},)")
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (wd + 2 * pad - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"conv2d_implicit_gemm: empty output {ho}x{wo}")
+    if x.device.type == "cpu":
+        return conv2d_ref(x, w, bias, stride=stride, pad=pad, act=act)
+    check_cuda_operands("conv2d_implicit_gemm", x.device, x=x, w=w,
+                        bias=bias)
+    out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
+    launch("repro_conv2d_implicit_gemm", x.device, x, w, bias, out, n, h, wd,
+           ci, co, kh, kw, stride, pad, ho, wo, act_code(act))
+    conv2d_implicit_gemm.launches += 1
+    return out
+
+
+conv2d_implicit_gemm.launches = 0

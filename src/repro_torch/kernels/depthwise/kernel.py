@@ -1,0 +1,47 @@
+"""p-core analogue: the depthwise conv (K2).
+
+Wrapper of the hand-written CUDA kernel ``csrc/depthwise_conv2d.cu``, which
+replaces the TPU kernel ``repro/kernels/depthwise/kernel.py::
+depthwise_conv2d``; the source says what bounds it on an H100 (bytes) and
+how its shared-memory halo tiles stand in for the line buffer.
+
+A CUDA tensor launches the kernel on the current stream (or raises); a CPU
+tensor runs the plain version from ``ref.py``.  ``depthwise_conv2d.launches``
+counts the launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.depthwise.ref import depthwise_conv2d_ref
+from repro_torch.kernels.util import act_code, check_cuda_operands, launch
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None, *, stride: int = 1,
+                     pad: int = 1, act: str | None = None) -> torch.Tensor:
+    """NHWC depthwise conv.  x: (N,H,W,C); w: (K_h,K_w,C); bias: (C,)."""
+    if x.dim() != 4 or w.dim() != 3 or w.shape[2] != x.shape[3]:
+        raise ValueError(f"depthwise_conv2d: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    n, h, wd, c = x.shape
+    kh, kw, _ = w.shape
+    if bias is not None and tuple(bias.shape) != (c,):
+        raise ValueError(f"depthwise_conv2d: bias {tuple(bias.shape)}, "
+                         f"expected ({c},)")
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (wd + 2 * pad - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"depthwise_conv2d: empty output {ho}x{wo}")
+    if x.device.type == "cpu":
+        return depthwise_conv2d_ref(x, w, bias, stride=stride, pad=pad,
+                                    act=act)
+    check_cuda_operands("depthwise_conv2d", x.device, x=x, w=w, bias=bias)
+    out = torch.empty((n, ho, wo, c), device=x.device, dtype=torch.float32)
+    launch("repro_depthwise_conv2d", x.device, x, w, bias, out, n, h, wd, c,
+           kh, kw, stride, pad, ho, wo, act_code(act))
+    depthwise_conv2d.launches += 1
+    return out
+
+
+depthwise_conv2d.launches = 0

@@ -1,0 +1,256 @@
+"""Shared helpers of the port's kernel packages.
+
+Counterpart of ``repro/kernels/util.py``: ``cdiv`` and the fused-epilogue
+``apply_act``; a CUDA-event timer in place of ``bench_best_us``; the
+device rule every entry point follows (``resolve_device``); and the build,
+load and launch plumbing of the hand-written CUDA kernels under
+``src/repro_torch/csrc/``.
+
+The kernels are compiled at first use by ``nvcc`` into one shared library
+with a plain C interface and called through ``ctypes``: each ``.cu`` file
+is compiled on its own, all at once, then linked.  The library lands in
+``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
+so a changed source rebuilds and an unchanged one loads what is there.
+Every failure (no ``nvcc``, a compile error, a refused launch) raises:
+nothing falls back to the plain versions on a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "librepro_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC")
+
+ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
+# cycles of ``torch.cuda._sleep`` per millisecond, at 2 GHz (above the
+# H100's top SM clock, so a sleep lasts at least as long as asked)
+SLEEP_CYCLES_PER_MS = 2_000_000
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division (grid sizing)."""
+    return -(-a // b)
+
+
+def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
+    """The shared fused-epilogue activation (None | 'relu' | 'relu6')."""
+    if act == "relu":
+        return torch.clamp_min(x, 0.0)
+    if act == "relu6":
+        return torch.clamp(x, 0.0, 6.0)
+    if act is None:
+        return x
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def act_code(act: str | None) -> int:
+    """The C kernels' activation code for ``act``."""
+    try:
+        return ACT_CODES[act]
+    except KeyError:
+        raise ValueError(f"unknown activation {act!r}") from None
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` needs a card and
+    raises without one: entry points run on the CPU only when the caller
+    passes ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to "
+                           "run the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` call on the current stream, in ms: CUDA
+    events around ``reps`` back-to-back calls, over ``reps``, after
+    ``warmup`` untimed calls.
+
+    A sleep kernel queued ahead of the start event holds the device while
+    the host enqueues every call, so the host's launch overhead is not
+    counted; if the device reached the start event before the last call
+    was queued, the measurement is repeated with a longer sleep.  Inputs
+    stay where the previous call left them (in L2 at the path's sizes)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 2.0 * reps * host_ms + 1.0
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()     # the device is still asleep
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        sleep_ms *= 4
+    raise RuntimeError("cuda_time_ms: the device caught up with the host "
+                       "under every sleep; does fn() synchronise?")
+
+
+# --------------------------------------------------------------------------
+# build and load
+# --------------------------------------------------------------------------
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, then ``PATH``, then /usr/local/cuda."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(Path(on_path))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    """Hash of every kernel source and header, and of the nvcc flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile the kernels (one ``nvcc`` per source, all in parallel), link
+    them into one shared library, and return its path.  Reuses a library
+    already built from identical sources."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for src, _obj, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{log}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _src, obj, _p in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)       # atomic: a racing build sees all
+    return lib                         # or nothing
+
+
+# C signatures: 'p' a device pointer (or NULL), 'i' an int, 's' the stream.
+SIGNATURES = {
+    "repro_matmul_bias_act": "p" * 4 + "i" * 4 + "s",
+    "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 12 + "s",
+    "repro_depthwise_conv2d": "p" * 4 + "i" * 11 + "s",
+    "repro_fused_dw_pw_conv": "p" * 7 + "i" * 13 + "s",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "s": ctypes.c_void_p}
+
+
+@functools.cache
+def kernel_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry's
+    argument types declared.  Raises if the build or the load fails."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, sig in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def timed_build() -> float:
+    """Build and load the kernel library; return the seconds it took."""
+    t0 = time.perf_counter()
+    kernel_library()
+    return time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
+# launching
+# --------------------------------------------------------------------------
+def check_cuda_operands(name: str, device: torch.device,
+                        **tensors: torch.Tensor | None) -> None:
+    """Raise unless every given tensor is a contiguous float32 tensor on
+    ``device`` (a CUDA device)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA or CPU tensor, got "
+                         f"{device}")
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry ``entry`` on the current stream of ``device``.
+    Tensors pass as device pointers, None as NULL; raises on a tensor past
+    the kernels' 32-bit element indexing, and on a non-zero ``cudaError_t``
+    (a refused launch never runs, and no later synchronisation would
+    report it)."""
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.numel() >= 2 ** 31:
+            raise ValueError(f"{entry}: a tensor of {a.numel()} elements is "
+                             f"past the kernels' 32-bit indexing")
+    lib = kernel_library()
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*c_args, stream)
+    if rc != 0:
+        msg = lib.repro_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")

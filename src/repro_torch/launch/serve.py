@@ -1,0 +1,120 @@
+"""Serving launcher: the dual-core CNN pipeline on one CUDA card.
+
+Port of the ``cnn`` subcommand of ``repro/launch/serve.py``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve cnn mobilenet_v2 \\
+      --image-size 224 --requests 8 [--batch 2] [--scheme balanced] \\
+      [--arrival-rate 1.0] [--max-queue 64] [--device cuda]
+
+Builds the dual-core schedule and the exec plan, places the seeded weights
+on the card, and streams the requests through a ``DualCoreEngine``: each
+scheduler slot advances every in-flight image one exec group (the Fig.4b
+one-slot offset) and refills the drained group-0 slot from the queue.  The
+c-core and the p-core are two CUDA streams sharing all SMs of the card.
+Prints the plan's modelled two-batch latency T_b2 (the instruction-level
+simulator is not ported yet), images per second, p50/p95 request latency,
+and the strictly sequential run's wall time beside the pipelined one.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+from repro_torch.core.scheduler import best_schedule, build_schedule
+from repro_torch.dualcore.runtime import DualCoreRunner
+from repro_torch.models.cnn import build_model
+from repro_torch.serving.api import Request, poisson_arrivals, replay
+from repro_torch.serving.cnn import DualCoreEngine
+
+CNN_MODELS = ("mobilenet_v1", "mobilenet_v2", "squeezenet")
+CNN_SCHEMES = ("layer_type", "greedy", "round_robin", "balanced", "best")
+
+
+def _arrivals(n: int, rate: float) -> list[int]:
+    """Arrival trace for n requests: Poisson-ish at ``rate`` per slot, or
+    everything at slot 0 when the rate is infinite."""
+    if rate == float("inf"):
+        return [0] * n
+    return poisson_arrivals(n, rate=rate, seed=0)
+
+
+def serve_cnn(args) -> int:
+    """``cnn`` subcommand: streaming CNN serving on the c/p streams."""
+    board = BoardModel()
+    params, _, graph = build_model(args.model, device=args.device)
+    if args.scheme == "best":
+        sched = best_schedule(graph, DUAL_BASELINE, board)
+    else:
+        sched = build_schedule(graph, DUAL_BASELINE, board, args.scheme)
+    runner = DualCoreRunner(args.model, params, sched, device=args.device)
+    es = runner.plan.exec_schedule
+    n = args.requests
+    rng = np.random.default_rng(0)
+    images = [torch.from_numpy(rng.standard_normal(
+        (args.batch, args.image_size, args.image_size, 3),
+        dtype=np.float32)).to(runner.device) for _ in range(n)]
+    runner.run_sequential(images[:1])              # warm-up (kernel build)
+
+    engine = DualCoreEngine(runner, max_queue=args.max_queue)
+    res = replay(engine, [Request(x) for x in images],
+                 _arrivals(n, args.arrival_rate))
+    _, t_seq = runner.timed(images, "sequential", reps=2)
+
+    print(f"[serve] cnn {args.model} scheme={sched.scheme}: "
+          f"{len(es.groups)} exec groups; {runner.cores.describe()}")
+    print(f"[serve] model-side: T_b2={es.t_b2():,} cyc "
+          f"({board.cycles_to_seconds(es.t_b2())*1e3:.2f} ms "
+          f"@{board.freq_mhz:.0f}MHz on the modelled FPGA), "
+          f"pipeline speedup {2*sum(es.group_latencies)/es.t_b2():.2f}x")
+    s = res.stats
+    print(f"[serve] streamed {n} request(s) x batch {args.batch} @ "
+          f"{args.image_size}px on {runner.device} in {s['slots']} slots: "
+          f"{s['wall_s']*1e3:.1f} ms ({n*args.batch/s['wall_s']:.2f} img/s), "
+          f"sequential {t_seq*1e3:.1f} ms ({t_seq/s['wall_s']:.2f}x)")
+    m = res.metrics
+    print(f"[serve] latency: p50 {m.p50_ms():.1f} ms, p95 {m.p95_ms():.1f} "
+          f"ms over {m.completed} requests")
+    return 0
+
+
+def main(argv=None):
+    """Parse the command line and run the subcommand."""
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.serve",
+        description="Serve a CNN through the dual-core streaming engine on "
+                    "one CUDA card.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    cnn = sub.add_parser("cnn", help="dual-core CNN streaming pipeline")
+    cnn.add_argument("model", choices=CNN_MODELS)
+    cnn.add_argument("--scheme", choices=CNN_SCHEMES, default="balanced",
+                     help="dual-core allocation scheme")
+    cnn.add_argument("--image-size", type=int, default=64,
+                     help="input H=W (224 = paper size)")
+    cnn.add_argument("--requests", type=int, default=2,
+                     help="number of requests to serve (>= 1)")
+    cnn.add_argument("--batch", type=int, default=2)
+    cnn.add_argument("--arrival-rate", type=float, default=float("inf"),
+                     help="Poisson-ish arrivals per scheduler slot "
+                          "(default inf: everything at slot 0)")
+    cnn.add_argument("--max-queue", type=int, default=None,
+                     help="bounded request queue (backpressure beyond it)")
+    cnn.add_argument("--device", default="cuda",
+                     help="'cuda' (default; raises without a card) or "
+                          "'cpu' (the plain versions)")
+    cnn.set_defaults(func=serve_cnn)
+    args = ap.parse_args(argv)
+    if args.requests < 1:
+        ap.error(f"--requests must be >= 1, got {args.requests}")
+    if args.max_queue is not None and args.max_queue < 1:
+        ap.error(f"--max-queue must be >= 1, got {args.max_queue}")
+    if not args.arrival_rate > 0:
+        ap.error(f"--arrival-rate must be > 0, got {args.arrival_rate}")
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,137 @@
+"""Streaming CNN engine: online admission for the dual-core pipeline.
+
+Port of ``repro/serving/cnn.py``.  Requests queue up (bounded, with
+:class:`~repro_torch.serving.api.QueueFull` backpressure), and every
+scheduler slot the engine
+
+  1. advances each in-flight stream by one exec group, oldest stream first
+     (stream admitted at slot ``s`` runs group ``k - s`` at slot ``k``: the
+     paper's one-slot offset, so neighbouring streams occupy different
+     cores by the alternation invariant);
+  2. admits at most one queued request into the freed group-0 slot;
+  3. retires streams that cleared the last group, waiting on each output's
+     ready event only after every launch of the slot is queued, so the wait
+     never serializes the cross-core overlap.
+
+On a card the launches of one slot go to the two cores' streams and run
+concurrently; the host only enqueues.  Capacity equals the number of exec
+groups.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from repro_torch.dualcore.runtime import READY, DualCoreRunner
+from repro_torch.serving.api import (AdmissionPolicy, Completion,
+                                     EngineBase, FixedRateAdmission,
+                                     Metrics, RequestMetrics, ServeResult,
+                                     Ticket)
+
+
+@dataclasses.dataclass
+class _Flight:
+    """One in-flight stream: its env and the next group it will run."""
+
+    rid: int
+    env: dict
+    next_group: int
+    ticket: Ticket
+    metrics: RequestMetrics
+
+
+class DualCoreEngine(EngineBase):
+    """Continuous-streaming front end over a :class:`DualCoreRunner`.
+
+    ``record``, when given, receives ``(slot, rid, group, core)`` tuples in
+    dispatch order.
+    """
+
+    def __init__(self, runner: DualCoreRunner, *,
+                 policy: AdmissionPolicy | None = None,
+                 max_queue: int | None = None,
+                 record: list | None = None):
+        super().__init__(max_queue=max_queue)
+        self.runner = runner
+        self.policy = policy or FixedRateAdmission(1)
+        self.capacity = len(runner.groups)
+        self._handles = runner.handles
+        self._record = record
+        self._flight: list[_Flight] = []      # admission order: oldest first
+        self._slot = 0
+
+    @property
+    def has_work(self) -> bool:
+        """True while any queued or in-flight work remains."""
+        return bool(self._pending or self._flight)
+
+    def _dispatch(self, f: _Flight) -> None:
+        """Run flight ``f``'s next group via the runner's group handle."""
+        gi = f.next_group
+        h = self._handles[gi]
+        f.env = h(f.env)
+        if self._record is not None:
+            self._record.append((self._slot, f.rid, gi, h.core))
+        f.next_group = gi + 1
+
+    def step(self) -> list[Completion]:
+        """Advance the pipeline by one slot (see module docstring)."""
+        return self.retire(self.advance())
+
+    def advance(self) -> list[_Flight]:
+        """Dispatch phase of one slot: advance every in-flight stream and
+        admit into the freed group-0 slot; return the flights that cleared
+        the last group without waiting for them."""
+        self._start_clock()
+        finished: list[_Flight] = []
+        kept: list[_Flight] = []
+        for f in self._flight:
+            self._dispatch(f)
+            (finished if f.next_group >= self.capacity else kept).append(f)
+        self._flight = kept
+        n = self.policy.admit(queued=len(self._pending),
+                              in_flight=len(self._flight),
+                              capacity=self.capacity)
+        n = max(0, min(n, 1, self.capacity - len(self._flight),
+                       len(self._pending)))
+        if n:
+            req, ticket = self._pop_admission()
+            self._metrics[req.rid].started_at = time.perf_counter()
+            f = _Flight(rid=req.rid,
+                        env=self.runner.place_input(req.payload),
+                        next_group=0, ticket=ticket,
+                        metrics=self._metrics[req.rid])
+            self._dispatch(f)
+            if f.next_group >= self.capacity:   # single-group chain
+                finished.append(f)
+            else:
+                self._flight.append(f)
+        self._slot += 1
+        return finished
+
+    def retire(self, finished: list[_Flight]) -> list[Completion]:
+        """Wait for the outputs of flights returned by :meth:`advance` and
+        file their completions."""
+        return [self._finish(f.rid, f.env["out"], f.env.get(READY))
+                for f in finished]
+
+    def _extra_stats(self, metrics: Metrics) -> dict:
+        return {"engine": "dualcore", "slots": self._slot,
+                "capacity": self.capacity,
+                "completed": metrics.completed,
+                "queued": len(self._pending),
+                "in_flight": len(self._flight),
+                "fps": metrics.requests_per_s()}
+
+
+def stream_images(runner: DualCoreRunner, images, *,
+                  policy: AdmissionPolicy | None = None,
+                  max_queue: int | None = None,
+                  record: list | None = None) -> ServeResult:
+    """Serve a ready list of images through a fresh engine (everything
+    arrives at slot 0; admission staggers entry one slot apart)."""
+    eng = DualCoreEngine(runner, policy=policy, max_queue=max_queue,
+                         record=record)
+    for x in images:
+        eng.submit(x)
+    return eng.drain()

@@ -1,0 +1,119 @@
+"""The CUDA kernels and the dual-core runtime on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA card (the
+``card`` fixture decides, when the test runs).  On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+The file imports neither JAX nor the reference package.  TF32 is off, so the
+kernels and their plain versions are both full f32 and agree at rtol = atol
+= 1e-4 (only the summation order differs).
+"""
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+from repro_torch.core.scheduler import build_schedule
+from repro_torch.dualcore.program import build_program
+from repro_torch.dualcore.runtime import DualCoreRunner
+from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
+                                                  matmul_bias_act)
+from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
+from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
+from repro_torch.models.cnn import build_model
+from repro_torch.serving.cnn import stream_images
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+WRAPPERS = {"K1": matmul_bias_act, "K2": depthwise_conv2d,
+            "K3": conv2d_implicit_gemm, "K4": fused_dw_pw_conv}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: python -m pytest -m cuda "
+                    "tests/test_torch_cuda.py on a machine with one")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _arrays(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(s) * scale)
+                             .astype(np.float32)) for s in shapes]
+
+
+def _case(kernel):
+    if kernel == "K1":
+        x, w, b = _arrays(5, (300, 70), (70, 130), (130,))
+        return (x, w, b), dict(act="relu6")
+    if kernel == "K2":
+        x, w, b = _arrays(5, (2, 30, 29, 70), (3, 3, 70), (70,))
+        return (x, w, b), dict(stride=2, pad=1, act="relu")
+    if kernel == "K3":
+        x, w, b = _arrays(5, (2, 33, 31, 3), (3, 3, 3, 40), (40,))
+        return (x, w, b), dict(stride=2, pad=1, act="relu6")
+    x, dw, db, pw, pb, r = _arrays(5, (2, 15, 15, 40), (3, 3, 40), (40,),
+                                   (40, 70), (70,), (2, 15, 15, 70),
+                                   scale=0.5)
+    return (x, dw, db, pw, pb, r), dict(stride=1, pad=1, dw_act="relu6",
+                                        pw_act=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_kernel_matches_plain_on_card(kernel, card):
+    fn = WRAPPERS[kernel]
+    args, kw = _case(kernel)
+    before = fn.launches
+    got = fn(*(a.to(card) for a in args), **kw)
+    want = fn(*args, **kw)                   # CPU tensors: the plain version
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_operands_on_card(card):
+    x, w = (t.to(card) for t in _arrays(6, (8, 4), (4, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_bias_act(x, w.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32"):
+        matmul_bias_act(x.double(), w.double())
+    with pytest.raises(ValueError, match="is on"):
+        matmul_bias_act(x, w.cpu())
+
+
+@pytest.mark.cuda
+def test_two_streams_pipelined_equals_sequential_on_card(card):
+    """mobilenet_v2 ``balanced`` at 64 px: the engine over the two streams
+    gives the sequential kernel forward's bits, launches exactly the plan's
+    kernels per image, and agrees with the all-plain forward at 1e-3."""
+    params, _, graph = build_model("mobilenet_v2", seed=1, device=card)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
+    runner = DualCoreRunner("mobilenet_v2", params, sched, device=card)
+    assert runner.cores.distinct
+    images = [t.to(card) for t in _arrays(7, *[(1, 64, 64, 3)] * 3)]
+    seq = runner.run_sequential(images)
+    per_image = Counter()
+    for g in runner.groups:
+        for s in g.steps:
+            l = graph.layer(s.layers[0])
+            per_image[fused_dw_pw_conv if len(s.layers) == 2
+                      else depthwise_conv2d if l.op == "dwconv"
+                      else conv2d_implicit_gemm if l.K_h > 1
+                      else matmul_bias_act] += 1
+    before = {fn: fn.launches for fn in WRAPPERS.values()}
+    res = stream_images(runner, images)
+    for fn in WRAPPERS.values():
+        assert fn.launches - before[fn] == 3 * per_image[fn]
+    plain = build_program("mobilenet_v2", plain=True)
+    for x, a, b in zip(images, res.outputs, seq):
+        assert torch.equal(a, b)
+        assert a.shape == (1, 1000) and torch.isfinite(a).all()
+        torch.testing.assert_close(a, plain.run(params, x), rtol=1e-3,
+                                   atol=1e-3)

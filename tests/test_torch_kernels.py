@@ -1,0 +1,196 @@
+"""K1-K4: the port's plain versions against the reference Pallas kernels run
+in interpret mode, on the same numpy inputs.
+
+Tolerance rtol = atol = 1e-4, the reference's own for its kernel sweeps:
+both sides are float32 and only the order of the sums differs.  On a CPU
+tensor every wrapper runs its plain version and counts no launch; the CUDA
+kernels are held against the plain versions in ``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.conv_gemm.kernel import (
+    conv2d_implicit_gemm as ref_implicit_gemm,
+    matmul_bias_act as ref_matmul)
+from repro.kernels.depthwise.kernel import depthwise_conv2d as ref_depthwise
+from repro.kernels.fused_block.kernel import fused_dw_pw_conv as ref_fused
+from repro_torch.kernels.conv_gemm import ops as conv_ops
+from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
+                                                  matmul_bias_act)
+from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
+from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
+from repro_torch.kernels.fused_block.ops import fused_inverted_residual
+from repro_torch.kernels.util import check_cuda_operands, find_nvcc
+from repro_torch.models.zoo import get_graph
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ACTS = (None, "relu", "relu6")
+
+
+def _arrays(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * scale).astype(np.float32)
+            for s in shapes]
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _same(port, ref):
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **TOL)
+
+
+# --------------------------------------------------------------------------
+# K1 matmul_bias_act
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n", [(64, 32, 48), (77, 13, 70)])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("act", ACTS)
+def test_k1_matmul_matches_reference(m, k, n, bias, act):
+    x, w, b = _arrays(1, (m, k), (k, n), (n,))
+    b = b if bias else None
+    before = matmul_bias_act.launches
+    out = matmul_bias_act(_t(x), _t(w), _t(b), act=act)
+    ref = ref_matmul(_j(x), _j(w), _j(b), act=act, interpret=True)
+    _same(out, ref)
+    assert matmul_bias_act.launches == before     # CPU: plain, no launch
+
+
+# --------------------------------------------------------------------------
+# K2 depthwise_conv2d
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("h,w,c,k,stride", [
+    (12, 12, 16, 3, 1), (13, 11, 24, 3, 2), (9, 9, 8, 5, 1)])
+@pytest.mark.parametrize("bias,act", [(True, "relu6"), (False, None),
+                                      (True, "relu")])
+def test_k2_depthwise_matches_reference(h, w, c, k, stride, bias, act):
+    pad = k // 2
+    x, wt, b = _arrays(2, (2, h, w, c), (k, k, c), (c,))
+    b = b if bias else None
+    out = depthwise_conv2d(_t(x), _t(wt), _t(b), stride=stride, pad=pad,
+                           act=act)
+    ref = ref_depthwise(_j(x), _j(wt), _j(b), stride=stride, pad=pad,
+                        act=act, interpret=True)
+    _same(out, ref)
+
+
+# --------------------------------------------------------------------------
+# K3 conv2d_implicit_gemm
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("h,w,ci,co,stride,pad", [
+    (16, 16, 3, 32, 2, 1),       # the MobileNet stem, at 16 px
+    (10, 10, 8, 24, 1, 1),       # a SqueezeNet e3x3
+    (15, 13, 5, 20, 2, 0)])      # ragged, no pad
+@pytest.mark.parametrize("bias,act", [(True, "relu"), (False, None),
+                                      (True, "relu6")])
+def test_k3_implicit_gemm_matches_reference(h, w, ci, co, stride, pad, bias,
+                                            act):
+    x, wt, b = _arrays(3, (2, h, w, ci), (3, 3, ci, co), (co,), scale=0.5)
+    b = b if bias else None
+    out = conv2d_implicit_gemm(_t(x), _t(wt), _t(b), stride=stride,
+                               pad=pad, act=act)
+    ref = ref_implicit_gemm(_j(x), _j(wt), _j(b), stride=stride, pad=pad,
+                            act=act, interpret=True)
+    _same(out, ref)
+
+
+# --------------------------------------------------------------------------
+# K4 fused_dw_pw_conv
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("h,w,c,co,stride", [
+    (12, 12, 16, 24, 1), (13, 11, 24, 40, 2)])
+@pytest.mark.parametrize("bias,res,dw_act,pw_act", [
+    (True, False, "relu6", None),
+    (True, True, "relu6", None),
+    (False, False, "relu", "relu"),
+    (False, True, None, "relu6")])
+def test_k4_fused_dw_pw_matches_reference(h, w, c, co, stride, bias, res,
+                                          dw_act, pw_act):
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x, dw_w, dw_b, pw_w, pw_b, r = _arrays(
+        4, (2, h, w, c), (3, 3, c), (c,), (c, co), (co,), (2, ho, wo, co),
+        scale=0.5)
+    dw_b, pw_b = (dw_b, pw_b) if bias else (None, None)
+    r = r if res else None
+    out = fused_dw_pw_conv(_t(x), _t(dw_w), _t(dw_b), _t(pw_w), _t(pw_b),
+                           _t(r), stride=stride, pad=1, dw_act=dw_act,
+                           pw_act=pw_act)
+    ref = ref_fused(_j(x), _j(dw_w), _j(dw_b), _j(pw_w), _j(pw_b), _j(r),
+                    stride=stride, pad=1, dw_act=dw_act, pw_act=pw_act,
+                    interpret=True)
+    _same(out, ref)
+
+
+def test_k5_raises_instead_of_falling_back():
+    x = torch.zeros((1, 4, 4, 8))
+    with pytest.raises(NotImplementedError, match="K5"):
+        fused_inverted_residual(x, None, None, None, None, None, None)
+
+
+# --------------------------------------------------------------------------
+# dispatch rules
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("model", ["mobilenet_v1", "mobilenet_v2",
+                                   "squeezenet"])
+def test_conv_dispatch_rule(model, monkeypatch):
+    """A 1x1 conv with stride 1 and pad 0 (and the fc head) goes to K1,
+    every other conv to K3: the reference's ``conv_gemm/ops.py`` rule."""
+    calls = []
+    monkeypatch.setattr(conv_ops, "matmul_bias_act",
+                        lambda *a, **k: calls.append("K1") or a[0] @ a[1])
+    monkeypatch.setattr(conv_ops, "conv2d_implicit_gemm",
+                        lambda x, w, *a, **k: calls.append("K3"))
+    for l in get_graph(model).layers:
+        if l.op == "dwconv":
+            continue
+        x = torch.zeros((1, 3, 3, l.C_i))
+        w = torch.zeros((l.K_h, l.K_w, l.C_i, l.C_o))
+        conv_ops.conv2d_gemm(x, w, None, stride=l.stride, pad=l.pad)
+        want = ("K1" if (l.K_h, l.K_w, l.stride, l.pad) == (1, 1, 1, 0)
+                else "K3")
+        assert calls.pop() == want, l.name
+        if l.op == "fc":
+            assert want == "K1"
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros((4, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        matmul_bias_act(x, torch.zeros((4, 4), device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        check_cuda_operands("k", torch.device("cpu"), x=torch.zeros(1))
+
+
+def test_launch_refuses_tensors_past_32_bit_indexing(monkeypatch):
+    import repro_torch.kernels.util as util
+    monkeypatch.setattr(util, "kernel_library", _never_built)
+    big = torch.empty(2 ** 31, device="meta")
+    with pytest.raises(ValueError, match="32-bit"):
+        util.launch("repro_matmul_bias_act", torch.device("cuda"), big)
+
+
+def _never_built():
+    raise AssertionError("the size check must come before the build")
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    import repro_torch.kernels.util as util
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(util, "Path", _NoNvccPath)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        find_nvcc()
+
+
+class _NoNvccPath(type(__import__("pathlib").Path())):
+    """A Path whose /usr/local/cuda/bin/nvcc never exists."""
+
+    def is_file(self):
+        return False

@@ -1,0 +1,247 @@
+"""The port's models, exec plans, runner and engine against the reference.
+
+Weights are seeded He-init numpy arrays (``init_params``), handed to the
+reference as ``jnp`` arrays and to the port through ``params_from_numpy``;
+images come from numpy seeds.
+The port runs with ``device="cpu"``, where every kernel wrapper takes its
+plain PyTorch version.
+
+Logits are compared at rtol = atol = 1e-3: each layer agrees at the
+kernels' 1e-4 (f32, only the summation order differs: XLA's convolutions
+against im2col GEMMs), and the differences compound through up to 53 layers.
+Within the port, pipelined and sequential runs are equal bit for bit.
+"""
+import sys
+from collections import Counter
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.arch import DUAL_BASELINE as REF_DUAL, BoardModel as RefBoard
+from repro.core.scheduler import build_schedule as ref_build_schedule
+from repro.dualcore.program import build_program as ref_build_program
+from repro.dualcore.runtime import (DualCoreRunner as RefRunner,
+                                    build_exec_plan as ref_build_exec_plan)
+from repro.models.cnn import FORWARDS as REF_FORWARDS
+from repro.models.zoo import get_graph as ref_get_graph
+from repro.serving import DualCoreEngine as RefEngine
+from repro.serving import Request as RefRequest
+from repro.serving import percentile as ref_percentile
+from repro.serving import poisson_arrivals as ref_poisson_arrivals
+from repro.serving import replay as ref_replay
+from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+from repro_torch.core.scheduler import build_schedule
+from repro_torch.dualcore.program import build_program
+from repro_torch.dualcore.runtime import DualCoreRunner, build_exec_plan
+from repro_torch.models.cnn import FORWARDS, init_params, params_from_numpy
+from repro_torch.models.zoo import get_graph
+from repro_torch.serving.api import (EngineBase, FixedRateAdmission,
+                                     GreedyAdmission, Request, percentile,
+                                     poisson_arrivals, replay)
+from repro_torch.serving.cnn import DualCoreEngine
+
+MODELS = ("mobilenet_v1", "mobilenet_v2", "squeezenet")
+SCHEMES = ("layer_type", "greedy", "round_robin", "balanced")
+TOL = dict(rtol=1e-3, atol=1e-3)
+SIZE = 32
+
+
+def _images(seed, n, size=SIZE, batch=2):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((batch, size, size, 3)).astype(np.float32)
+            for _ in range(n)]
+
+
+def _jnp(params):
+    return {n: {k: jnp.asarray(v) for k, v in p.items()}
+            for n, p in params.items()}
+
+
+def _schedules(model, scheme):
+    ref = ref_build_schedule(ref_get_graph(model), REF_DUAL, RefBoard(),
+                             scheme)
+    port = build_schedule(get_graph(model), DUAL_BASELINE, BoardModel(),
+                          scheme)
+    return ref, port
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """Per model: seeded numpy weights, one input batch, and the
+    reference's eager XLA forward of it (logits and collected shapes),
+    computed once for the module."""
+    out = {}
+    for i, model in enumerate(MODELS):
+        np_params = init_params(get_graph(model), seed=i)
+        (x,) = _images(i, 1)
+        collect = {}
+        logits = np.asarray(REF_FORWARDS[model](
+            _jnp(np_params), jnp.asarray(x), use_pallas=False,
+            collect=collect))
+        out[model] = dict(params=np_params, x=x, logits=logits,
+                          collect=collect)
+    return out
+
+
+# --------------------------------------------------------------------------
+# sequential forwards
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("model", MODELS)
+def test_forward_matches_reference(model, reference):
+    ref = reference[model]
+    params = params_from_numpy(ref["params"], "cpu")
+    collect = {}
+    logits = FORWARDS[model](params, torch.from_numpy(ref["x"]),
+                             collect=collect)
+    assert logits.shape == (2, 1000) and logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.numpy(), ref["logits"], **TOL)
+    assert collect == ref["collect"]
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_plain_program_equals_wrapper_program_on_cpu(model, reference):
+    """On CPU tensors the wrappers take the plain versions, so the program
+    over the wrappers and the all-plain program give the same bits."""
+    ref = reference[model]
+    params = params_from_numpy(ref["params"], "cpu")
+    x = torch.from_numpy(ref["x"])
+    a = build_program(model).run(params, x)
+    b = build_program(model, plain=True).run(params, x)
+    assert torch.equal(a, b)
+
+
+def test_init_params_is_seeded_he_init():
+    g = get_graph("mobilenet_v2")
+    a, b = init_params(g, seed=3), init_params(g, seed=3)
+    assert a.keys() == {l.name for l in g.layers}
+    for l in g.layers:
+        np.testing.assert_array_equal(a[l.name]["w"], b[l.name]["w"])
+        assert a[l.name]["w"].dtype == np.float32
+        assert a[l.name]["b"].shape == (l.C_o,)
+    w = a["conv_last"]["w"]
+    fan_in = w.shape[0] * w.shape[1] * w.shape[2]
+    assert abs(w.std() - (2.0 / fan_in) ** 0.5) < 0.05 * (2.0 / fan_in) ** 0.5
+    assert not np.array_equal(init_params(g, seed=4)["fc"]["w"],
+                              a["fc"]["w"])
+
+
+# --------------------------------------------------------------------------
+# exec plans
+# --------------------------------------------------------------------------
+def _plan_view(plan):
+    return ([(g.core, [s.name for s in g.steps],
+              [tuple(s.layers) for s in g.steps],
+              [(tuple(s.reads), tuple(s.writes)) for s in g.steps])
+             for g in plan.groups],
+            [set(live) for live in plan.live_after],
+            plan.exec_schedule.t_b2())
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("model", MODELS)
+def test_exec_plan_matches_reference(model, scheme):
+    ref_sched, port_sched = _schedules(model, scheme)
+    ref = ref_build_exec_plan(
+        ref_build_program(model, use_pallas=True, fuse=False), ref_sched,
+        group_fusion=True)
+    port = build_exec_plan(build_program(model, fuse=False), port_sched,
+                           group_fusion=True)
+    assert _plan_view(port) == _plan_view(ref)
+
+
+def test_mobilenet_v2_balanced_plan_launches_four_kernels():
+    """The main path's per-request launches, as ``chip_smoke.py`` derives
+    them from the exec plan: K1 x29, K2 x11, K3 x1, K4 x6 over 16 groups."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    sched = build_schedule(get_graph("mobilenet_v2"), DUAL_BASELINE,
+                           BoardModel(), "balanced")
+    plan = build_exec_plan(build_program("mobilenet_v2"), sched,
+                           group_fusion=True)
+    assert len(plan.groups) == 16
+    calls = Counter(c["kernel"] for c in chip_smoke.plan_calls(plan, 2))
+    assert calls == {"matmul_bias_act": 29, "depthwise_conv2d": 11,
+                     "conv2d_implicit_gemm": 1, "fused_dw_pw_conv": 6}
+
+
+# --------------------------------------------------------------------------
+# the runner and the engine
+# --------------------------------------------------------------------------
+def test_cpu_runner_mobilenet_v2_balanced(reference):
+    """fuse='group' on the CPU: pipelined equals sequential bit for bit,
+    and the first image matches the reference forward."""
+    ref = reference["mobilenet_v2"]
+    params = params_from_numpy(ref["params"], "cpu")
+    _, sched = _schedules("mobilenet_v2", "balanced")
+    runner = DualCoreRunner("mobilenet_v2", params, sched, device="cpu")
+    assert not runner.cores.distinct
+    images = [torch.from_numpy(ref["x"])] + [
+        torch.from_numpy(x) for x in _images(7, 2)]
+    record = []
+    piped = runner.run_pipelined(images, record=record)
+    seq = runner.run_sequential(images)
+    for a, b in zip(piped, seq):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(piped[0].numpy(), ref["logits"], **TOL)
+    n_g = len(runner.groups)
+    assert [(s, i, g) for s, i, g, _ in record] == [
+        (slot, i, slot - i) for slot in range(n_g + 2)
+        for i in range(3) if 0 <= slot - i < n_g]
+
+
+def test_engine_dispatch_trace_matches_reference_squeezenet(reference):
+    """Same arrivals, same queue bound: the port's engine dispatches the
+    same (slot, request, group, core) sequence as the reference's, and its
+    outputs agree with the reference engine's."""
+    ref = reference["squeezenet"]
+    ref_sched, port_sched = _schedules("squeezenet", "balanced")
+    ref_runner = RefRunner("squeezenet", _jnp(ref["params"]), ref_sched,
+                           use_pallas=False, fuse=False, jit_groups=False)
+    runner = DualCoreRunner("squeezenet",
+                            params_from_numpy(ref["params"], "cpu"),
+                            port_sched, device="cpu")
+    assert len(runner.groups) == len(ref_runner.groups) == 3
+    images = _images(11, 6)
+    arrivals = [0, 0, 0, 1, 5, 5]
+    ref_rec, rec = [], []
+    ref_res = ref_replay(RefEngine(ref_runner, max_queue=2, record=ref_rec),
+                         [RefRequest(jnp.asarray(x)) for x in images],
+                         arrivals)
+    res = replay(DualCoreEngine(runner, max_queue=2, record=rec),
+                 [Request(torch.from_numpy(x)) for x in images], arrivals)
+    assert rec == ref_rec
+    assert res.stats["slots"] == ref_res.stats["slots"]
+    assert res.metrics.completed == 6
+    for a, b in zip(res.outputs, ref_res.outputs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_serving_api_matches_reference():
+    assert poisson_arrivals(16, rate=0.7, seed=3) == \
+        ref_poisson_arrivals(16, rate=0.7, seed=3)
+    xs = [3.0, 1.0, 4.0, 1.5, 9.0]
+    for q in (0, 50, 95, 100):
+        assert percentile(xs, q) == ref_percentile(xs, q)
+    assert GreedyAdmission().admit(queued=5, in_flight=2, capacity=4) == 2
+    assert GreedyAdmission().admit(queued=1, in_flight=4, capacity=4) == 0
+    assert FixedRateAdmission().admit(queued=5, in_flight=0, capacity=4) == 1
+    with pytest.raises(ValueError, match="max_queue"):
+        EngineBase(max_queue=0)
+    with pytest.raises(ValueError, match="rate"):
+        poisson_arrivals(4, rate=0.0)
+
+
+def test_serve_cli_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["cnn", "squeezenet", "--device", "cpu", "--image-size",
+                 "32", "--requests", "3", "--batch", "1",
+                 "--arrival-rate", "1.0"]) == 0
+    out = capsys.readouterr().out
+    assert "3 exec groups" in out and "T_b2=" in out
+    assert "streamed 3 request(s)" in out and "p95" in out
+    assert "alias one cpu queue" in out
