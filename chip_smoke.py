@@ -6,29 +6,36 @@ Drives ``repro_torch`` (never JAX, never the reference package) in phases;
 any failure raises and the script exits non-zero:
 
 1. setup    print the card (``nvidia-smi`` name and power limit) and build
-            the CUDA kernels K1-K4 from ``src/repro_torch/csrc``;
+            the CUDA kernels K1-K5 from ``src/repro_torch/csrc`` (one
+            ``nvcc`` per source, all at once);
 2. kernels  hold every kernel against its plain PyTorch version on the card
             (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
-            order differs) at every distinct shape the MobileNet v2
-            ``balanced`` plan launches at 224 px and batch 2, plus edge
-            cases (no bias, each activation, K4 with a residual, ragged
-            tails, a SqueezeNet e3x3 for K3); time each call on the device
-            (``cuda_time_ms``: CUDA events around back-to-back calls, the
-            host's launch overhead held out) beside the plain version, a
-            PyTorch library call computing the same function (timed here
-            only, never used by the port) and the least time the card could
-            take;
-3. forward  the sequential kernel forward (``fuse="group"`` exec plan)
-            against the all-plain forward on the card, at 1e-3 (29 f32
-            layers, each at 1e-4 against its plain version, compound), and
-            the launch counts against the plan;
-4. serving  ``DualCoreEngine`` over the two streams: 8 requests x batch 2 at
-            224 px, outputs bit-equal to the sequential kernel forward,
-            launch counts exactly 8 x the plan's per-request counts;
-5. report   one JSON line of the kernels, the card line, and the final
+            order differs) at every distinct shape the four paths below
+            launch at 224 px and batch 2, plus edge cases (no bias, each
+            activation, residuals, ragged tails, stride 2, K5's nonzero
+            expand bias against a zero-padded halo); time each path call on
+            the device (``cuda_time_ms``: CUDA events around back-to-back
+            calls, the host's launch overhead held out) beside the plain
+            version, a PyTorch library call or chain computing the same
+            function (timed here only, never used by the port) and the least
+            time the card could take;
+3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
+            ``balanced`` (``fuse="group"`` exec plans): the sequential
+            kernel forward against the all-plain forward at 1e-3 (up to 53
+            f32 layers, each at 1e-4 against its plain version, compound),
+            then ``DualCoreEngine`` over the two streams, 8 requests x batch
+            2 at 224 px, outputs bit-equal to the sequential kernel forward,
+            launch counts reset just before the engine run and read just
+            after, exactly 8 x the plan's per-request counts; pipelined and
+            sequential walls in turns, and the host's enqueue time.  Then
+            MobileNet v2's ``fuse=True`` sequential forward (16 inverted
+            residuals on K5) against the plain fused program at 1e-3, its
+            launches counted the same way;
+4. report   one JSON line of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line.
 
 Per-shape rows also go to ``chiprun_out/chip_smoke.json``.
+The same file holds each path's launch counts, walls and kernel sums.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,7 +53,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-MODEL = "mobilenet_v2"
+SERVED = ("mobilenet_v2", "mobilenet_v1", "squeezenet")
+FUSED = "mobilenet_v2"          # the fuse=True sequential forward
 SCHEME = "balanced"
 IMAGE = 224
 BATCH = 2
@@ -92,8 +101,10 @@ def kernel_table():
                                                    matmul_bias_act_ref)
     from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
     from repro_torch.kernels.depthwise.ref import depthwise_conv2d_ref
-    from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
-    from repro_torch.kernels.fused_block.ref import fused_dw_pw_ref
+    from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
+                                                        fused_pw_dw_pw_conv)
+    from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
+                                                     fused_pw_dw_pw_ref)
     return {
         "matmul_bias_act": dict(
             fn=matmul_bias_act, plain=matmul_bias_act_ref,
@@ -111,21 +122,38 @@ def kernel_table():
             fn=fused_dw_pw_conv, plain=fused_dw_pw_ref,
             source="src/repro_torch/csrc/fused_dw_pw_conv.cu",
             replaces="src/repro/kernels/fused_block/kernel.py:96"),
+        "fused_pw_dw_pw_conv": dict(
+            fn=fused_pw_dw_pw_conv, plain=fused_pw_dw_pw_ref,
+            source="src/repro_torch/csrc/fused_pw_dw_pw_conv.cu",
+            replaces="src/repro/kernels/fused_block/kernel.py:218"),
     }
 
 
-def plan_calls(plan, batch: int) -> list[dict]:
-    """The kernel calls one request makes through the exec plan, derived
-    from the plan's steps and the graph's layer specs."""
-    return [step_call(s, batch) for g in plan.groups for s in g.steps]
+def plan_calls(plan, graph, batch: int) -> list[dict]:
+    """The kernel calls one request makes through the exec plan."""
+    return step_calls([s for g in plan.groups for s in g.steps], graph,
+                      batch)
 
 
-def step_call(step, batch: int) -> dict:
-    """The kernel call one exec-plan step makes, as a dict."""
+def step_calls(steps, graph, batch: int) -> list[dict]:
+    """The kernel calls one request makes through ``steps`` (a program's
+    or an exec plan's), derived from the steps and ``graph``'s layer
+    specs."""
+    return [step_call(s, graph, batch) for s in steps]
+
+
+def step_call(step, graph, batch: int) -> dict:
+    """The kernel call one step of ``graph``'s program makes, as a dict."""
     from repro_torch.dualcore.program import ACT_OF
-    from repro_torch.models.zoo import get_graph
-    graph = get_graph(MODEL)
-    act = ACT_OF[MODEL]
+    act = ACT_OF[graph.name]
+    if len(step.layers) == 3:
+        e, d, p = (graph.layer(n) for n in step.layers)
+        return dict(kernel="fused_pw_dw_pw_conv", n=batch, h=e.H, w=e.W,
+                    ci=e.C_i, cm=e.C_o, co=p.C_o, k=d.K_h, stride=d.stride,
+                    pad=d.pad, exp_act=act(e.name), dw_act=act(d.name),
+                    proj_act=act(p.name),
+                    res=("add" in p.fused and d.stride == 1
+                         and e.C_i == p.C_o))
     if len(step.layers) == 2:
         d, p = (graph.layer(n) for n in step.layers)
         return dict(kernel="fused_dw_pw_conv", n=batch, h=d.H, w=d.W,
@@ -146,8 +174,8 @@ def step_call(step, batch: int) -> dict:
 
 
 def edge_calls() -> list[dict]:
-    """Edge cases beside the path's shapes: no bias, each activation, K4
-    with a residual, ragged tails, SqueezeNet's e3x3 for K3."""
+    """Edge cases beside the paths' shapes: no bias, each activation, K4
+    and K5 with a residual, ragged tails, stride 2, K5's expand bias."""
     return [
         dict(kernel="matmul_bias_act", m=77, k=13, n=70, act=None,
              bias=False),
@@ -165,6 +193,27 @@ def edge_calls() -> list[dict]:
         dict(kernel="fused_dw_pw_conv", n=1, h=11, w=9, c=20, co=70, k=3,
              stride=2, pad=1, dw_act="relu", pw_act="relu", res=False,
              bias=False),
+        # K5: no biases; a positive expand bias alone (the halo outside the
+        # image must read 0, not act(exp_b)); stride 2 with a ragged Ci;
+        # residuals; ragged Cm and Co; each act through None/relu/relu6
+        dict(kernel="fused_pw_dw_pw_conv", n=2, h=14, w=14, ci=24, cm=96,
+             co=40, k=3, stride=1, pad=1, exp_act="relu6", dw_act="relu6",
+             proj_act=None, res=False, bias=False),
+        dict(kernel="fused_pw_dw_pw_conv", n=2, h=9, w=13, ci=16, cm=64,
+             co=24, k=3, stride=1, pad=1, exp_act="relu6", dw_act=None,
+             proj_act=None, res=False, bias="exp"),
+        dict(kernel="fused_pw_dw_pw_conv", n=1, h=15, w=17, ci=20, cm=48,
+             co=32, k=3, stride=2, pad=1, exp_act=None, dw_act="relu",
+             proj_act="relu6", res=False, bias="exp"),
+        dict(kernel="fused_pw_dw_pw_conv", n=2, h=12, w=11, ci=24, cm=72,
+             co=24, k=3, stride=1, pad=1, exp_act="relu", dw_act="relu6",
+             proj_act="relu", res=True),
+        dict(kernel="fused_pw_dw_pw_conv", n=1, h=10, w=9, ci=13, cm=37,
+             co=70, k=3, stride=2, pad=1, exp_act="relu", dw_act=None,
+             proj_act="relu", res=False),
+        dict(kernel="fused_pw_dw_pw_conv", n=2, h=9, w=10, ci=12, cm=37,
+             co=12, k=3, stride=1, pad=1, exp_act=None, dw_act="relu",
+             proj_act="relu6", res=True),
     ]
 
 
@@ -224,6 +273,8 @@ def make_case(call: dict, gen) -> dict:
         nbytes = 4 * (n * h * wd * ci + kk * kk * ci * co
                       + (co if bias else 0) + n * ho * wo * co)
         flops = 2 * n * ho * wo * kk * kk * ci * co
+    elif kind == "fused_pw_dw_pw_conv":
+        return _fused_ir_case(kt, call, gen)
     else:
         n, h, wd, c, co = call["n"], call["h"], call["w"], call["c"], \
             call["co"]
@@ -254,6 +305,47 @@ def make_case(call: dict, gen) -> dict:
         flops = 2 * n * ho * wo * c * (kk * kk + co)
     return dict(kernel=lambda: kt["fn"](*args, **kw), plain=plain,
                 library=library, nbytes=nbytes, flops=flops)
+
+
+def _fused_ir_case(kt: dict, call: dict, gen) -> dict:
+    """K5's case.  ``bias``: True (all three), False (none) or "exp" (a
+    positive expand bias alone)."""
+    n, h, wd, ci, cm, co = (call[k] for k in ("n", "h", "w", "ci", "cm",
+                                              "co"))
+    kk, s, p = call["k"], call["stride"], call["pad"]
+    bias = call.get("bias", True)
+    ho, wo = (h + 2 * p - kk) // s + 1, (wd + 2 * p - kk) // s + 1
+    x = rand(gen, (n, h, wd, ci))
+    exp_w = rand(gen, (ci, cm), (2.0 / ci) ** 0.5)
+    exp_b = (rand(gen, (cm,), 0.1) if bias is True
+             else rand(gen, (cm,)).abs() + 0.5 if bias == "exp" else None)
+    dw_w = rand(gen, (kk, kk, cm), (2.0 / (kk * kk)) ** 0.5)
+    dw_b = rand(gen, (cm,), 0.1) if bias is True else None
+    proj_w = rand(gen, (cm, co), (2.0 / cm) ** 0.5)
+    proj_b = rand(gen, (co,), 0.1) if bias is True else None
+    res = rand(gen, (n, ho, wo, co)) if call["res"] else None
+    args = (x, exp_w, exp_b, dw_w, dw_b, proj_w, proj_b, res)
+    kw = dict(stride=s, pad=p, exp_act=call["exp_act"],
+              dw_act=call["dw_act"], proj_act=call["proj_act"])
+    w_oihw = dw_w.permute(2, 0, 1).unsqueeze(1).contiguous()
+
+    def library():
+        xm = x.reshape(n * h * wd, ci)
+        e = torch.addmm(exp_b, xm, exp_w) if exp_b is not None else xm @ exp_w
+        e = _lib_act(e, call["exp_act"]).reshape(n, h, wd, cm)
+        d = _lib_act(F.conv2d(e.permute(0, 3, 1, 2), w_oihw, dw_b, s, p,
+                              groups=cm), call["dw_act"])
+        d = d.permute(0, 2, 3, 1).reshape(n * ho * wo, cm)
+        out = torch.addmm(proj_b, d, proj_w) if proj_b is not None \
+            else d @ proj_w
+        out = _lib_act(out, call["proj_act"]).reshape(n, ho, wo, co)
+        return out + res if res is not None else out
+    nbytes = 4 * sum(t.numel() for t in args if t is not None) \
+        + 4 * n * ho * wo * co
+    flops = 2 * n * (h * wd * ci * cm + ho * wo * cm * (kk * kk + co))
+    return dict(kernel=lambda: kt["fn"](*args, **kw),
+                plain=lambda: kt["plain"](*args, **kw), library=library,
+                nbytes=nbytes, flops=flops)
 
 
 def _lib_act(t: torch.Tensor, act: str | None) -> torch.Tensor:
@@ -323,6 +415,145 @@ def reset_counts() -> None:
 
 
 # --------------------------------------------------------------------------
+def check_counts(what: str, got: dict[str, int], want: dict[str, int],
+                 times: int = 1) -> None:
+    """Raise unless ``got`` is ``times`` x ``want`` for every kernel."""
+    full = {k: times * want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got} != {full}")
+
+
+def kernel_sums(rows: dict, calls: list[dict]) -> dict[str, dict]:
+    """Per kernel, the phase-2 numbers summed over one request's calls."""
+    out: dict[str, dict] = {}
+    for c in calls:
+        r = rows[json.dumps(c, sort_keys=True)]
+        acc = out.setdefault(c["kernel"], dict(
+            calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
+            flops=0, max_abs_err=0.0))
+        acc["calls"] += 1
+        for k in ("ms", "plain_ms", "library_ms", "bytes", "flops"):
+            acc[k] += r[k]
+        acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
+    return out
+
+
+def serve_path(model: str, gen, rows: dict) -> dict:
+    """One model's ``balanced`` serving path: the forward check, then the
+    engine over the two streams with its launches counted.  Returns the
+    path's numbers."""
+    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.dualcore.program import build_program
+    from repro_torch.dualcore.runtime import DualCoreRunner
+    from repro_torch.models.cnn import build_model
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+
+    params, _, graph = build_model(model, seed=0, device="cuda")
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+    runner = DualCoreRunner(model, params, sched, device="cuda")
+    calls = plan_calls(runner.plan, graph, BATCH)
+    per_request = dict(Counter(c["kernel"] for c in calls))
+    tag = f"[{model}]"
+    print(f"{tag} {SCHEME}: {len(runner.groups)} exec groups; launches per "
+          f"request {per_request}")
+
+    # the sequential kernel forward against the all-plain forward
+    x = rand(gen, (BATCH, IMAGE, IMAGE, 3))
+    plain_out = build_program(model, plain=True).run(params, x)
+    reset_counts()
+    (seq_out,) = runner.run_sequential([x])
+    counts = launch_counts()
+    err = (seq_out - plain_out).abs().max().item()
+    if not torch.allclose(seq_out, plain_out, rtol=FORWARD_TOL,
+                          atol=FORWARD_TOL):
+        raise AssertionError(f"{model}: kernel forward disagrees with the "
+                             f"plain forward: max |err| {err:.3e}")
+    check_counts(f"{model} forward", counts, per_request)
+    print(f"{tag} kernel forward vs plain forward: max |err| {err:.2e} "
+          f"(tol {FORWARD_TOL})")
+
+    # serving
+    images = [rand(gen, (BATCH, IMAGE, IMAGE, 3)) for _ in range(REQUESTS)]
+    seq = runner.run_sequential(images)
+    reset_counts()
+    engine = DualCoreEngine(runner)
+    res = replay(engine, [Request(im) for im in images])
+    served = launch_counts()
+    check_counts(f"{model} serving", served, per_request, REQUESTS)
+    for i, (a, b) in enumerate(zip(res.outputs, seq)):
+        if a.shape != (BATCH, 1000) or not torch.isfinite(a).all():
+            raise AssertionError(f"{model} request {i}: bad output "
+                                 f"{a.shape}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{model} request {i}: pipelined output "
+                                 f"differs from the sequential kernel "
+                                 f"forward")
+    m = res.metrics
+    walls: dict[str, list[float]] = {"pipelined": [], "sequential": []}
+    for mode in ("pipelined", "sequential") * 3:      # in turns
+        walls[mode].append(runner.timed(images, mode)[1])
+    t_pipe, t_seq = min(walls["pipelined"]), min(walls["sequential"])
+    print(f"{tag} {REQUESTS} requests x batch {BATCH} @ {IMAGE}px in "
+          f"{res.stats['slots']} slots: {res.stats['wall_s'] * 1e3:.2f} ms, "
+          f"{REQUESTS * BATCH / res.stats['wall_s']:.1f} img/s, p50 "
+          f"{m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; outputs bit-equal "
+          f"to the sequential kernel forward; launches {served}")
+    print(f"{tag} best of 3, in turns: pipelined {t_pipe * 1e3:.2f} ms "
+          f"({REQUESTS * BATCH / t_pipe:.1f} img/s), sequential "
+          f"{t_seq * 1e3:.2f} ms ({REQUESTS * BATCH / t_seq:.1f} img/s), "
+          f"speedup {t_seq / t_pipe:.3f}x")
+    host_ms = host_enqueue_ms(runner, images)
+    sums = kernel_sums(rows, calls)
+    device_ms = sum(v["ms"] for v in sums.values())
+    print(f"{tag} per request: host enqueue {host_ms:.3f} ms ({len(calls)} "
+          f"launches; {REQUESTS} requests queued back to back, best of 3), "
+          f"device kernel time {device_ms:.3f} ms (phase 2, summed over the "
+          f"request's calls)")
+    return dict(model=model, groups=len(runner.groups),
+                per_request=per_request, launches=served, kernels=sums,
+                forward_max_abs_err=err, wall_s=res.stats["wall_s"],
+                p50_ms=m.p50_ms(), p95_ms=m.p95_ms(), pipelined_s=t_pipe,
+                sequential_s=t_seq, host_enqueue_ms=host_ms,
+                device_ms=device_ms)
+
+
+def fused_forward_path(gen, rows: dict) -> dict:
+    """MobileNet v2's ``fuse=True`` sequential forward (K5 on every
+    inverted residual) against the plain fused program, one request."""
+    from repro_torch.dualcore.program import build_program
+    from repro_torch.models.cnn import FORWARDS, build_model
+
+    params, _, graph = build_model(FUSED, seed=0, device="cuda")
+    calls = step_calls(build_program(FUSED, fuse=True).steps, graph, BATCH)
+    per_request = dict(Counter(c["kernel"] for c in calls))
+    if per_request.get("fused_pw_dw_pw_conv") != 16:
+        raise AssertionError(f"fused forward: {per_request}")
+    x = rand(gen, (BATCH, IMAGE, IMAGE, 3))
+    plain_out = build_program(FUSED, fuse=True, plain=True).run(params, x)
+    reset_counts()
+    out = FORWARDS[FUSED](params, x, fuse=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_counts(f"{FUSED} fuse=True forward", launches, per_request)
+    err = (out - plain_out).abs().max().item()
+    if (out.shape != (BATCH, 1000) or not torch.isfinite(out).all()
+            or not torch.allclose(out, plain_out, rtol=FORWARD_TOL,
+                                  atol=FORWARD_TOL)):
+        raise AssertionError(f"{FUSED} fuse=True forward disagrees with the "
+                             f"plain fused program: max |err| {err:.3e}")
+    sums = kernel_sums(rows, calls)
+    device_ms = sum(v["ms"] for v in sums.values())
+    print(f"[{FUSED} fuse=True] one request: max |err| {err:.2e} against "
+          f"the plain fused program (tol {FORWARD_TOL}); launches "
+          f"{launches}; device kernel time {device_ms:.3f} ms (phase 2, "
+          f"summed over the request's calls)")
+    return dict(model=FUSED, fuse=True, per_request=per_request,
+                launches=launches, kernels=sums, forward_max_abs_err=err,
+                device_ms=device_ms)
+
+
 def main() -> int:
     """Run the phases; return the exit code."""
     if not torch.cuda.is_available():
@@ -336,11 +567,9 @@ def main() -> int:
     from repro_torch.core.arch import DUAL_BASELINE, BoardModel
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.dualcore.program import build_program
-    from repro_torch.dualcore.runtime import DualCoreRunner
+    from repro_torch.dualcore.runtime import build_exec_plan
     from repro_torch.kernels.util import timed_build
-    from repro_torch.models.cnn import build_model
-    from repro_torch.serving.api import Request, replay
-    from repro_torch.serving.cnn import DualCoreEngine
+    from repro_torch.models.zoo import get_graph
 
     # 1. setup ------------------------------------------------------------
     card = card_line()
@@ -350,104 +579,51 @@ def main() -> int:
           f"device {kind}, {torch.cuda.device_count()} device(s)")
     print(f"[setup] kernels built and loaded in {timed_build():.1f} s")
 
-    params, _, graph = build_model(MODEL, seed=0, device="cuda")
-    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
-    runner = DualCoreRunner(MODEL, params, sched, device="cuda")
-    print(f"[setup] {MODEL} {SCHEME}: {len(runner.groups)} exec groups; "
-          f"{runner.cores.describe()}")
-
     # 2. kernels ----------------------------------------------------------
     gen = np.random.default_rng(0)
-    calls = plan_calls(runner.plan, BATCH)
-    per_request: dict[str, int] = {}
-    for c in calls:
-        per_request[c["kernel"]] = per_request.get(c["kernel"], 0) + 1
-    print(f"[kernels] plan launches per request (batch {BATCH}): "
-          f"{per_request}")
+    path_calls = []
+    for model in SERVED:
+        graph = get_graph(model)
+        sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+        plan = build_exec_plan(build_program(model), sched,
+                               group_fusion=True)
+        path_calls += plan_calls(plan, graph, BATCH)
+    path_calls += step_calls(build_program(FUSED, fuse=True).steps,
+                             get_graph(FUSED), BATCH)
     distinct: dict[str, dict] = {}
-    for c in calls:
+    for c in path_calls:
         distinct.setdefault(json.dumps(c, sort_keys=True), c)
     rows = {}
     for key, c in distinct.items():
         rows[key] = check_and_time(c, gen, timing=True)
         r = rows[key]
         print(f"[kernels] {r['kernel']:<21} "
-              f"{_shape_str(c):<34} ms {r['ms']:.4f}  plain "
+              f"{_shape_str(c):<40} ms {r['ms']:.4f}  plain "
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
               f"{r['max_abs_err']:.1e}")
     for c in edge_calls():
         r = check_and_time(c, gen, timing=False)
-        print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<34} err "
+        print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<40} err "
               f"{r['max_abs_err']:.1e}")
     print(f"[kernels] all kernels agree with their plain versions "
-          f"(rtol = atol = {KERNEL_TOL})")
+          f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes and "
+          f"{len(edge_calls())} edge cases")
 
-    # 3. forward ----------------------------------------------------------
-    x = rand(gen, (BATCH, IMAGE, IMAGE, 3))
-    plain_out = build_program(MODEL, plain=True).run(params, x)
-    reset_counts()
-    (seq_out,) = runner.run_sequential([x])
-    counts = launch_counts()
-    err = (seq_out - plain_out).abs().max().item()
-    if not torch.allclose(seq_out, plain_out, rtol=FORWARD_TOL,
-                          atol=FORWARD_TOL):
-        raise AssertionError(f"kernel forward disagrees with the plain "
-                             f"forward: max |err| {err:.3e}")
-    if counts != {k: per_request.get(k, 0) for k in counts}:
-        raise AssertionError(f"forward launches {counts} != plan "
-                             f"{per_request}")
-    print(f"[forward] kernel forward vs plain forward: max |err| "
-          f"{err:.2e} (tol {FORWARD_TOL}); launches {counts}")
+    # 3. paths ------------------------------------------------------------
+    paths = [serve_path(model, gen, rows) for model in SERVED]
+    paths.append(fused_forward_path(gen, rows))
 
-    # 4. serving ----------------------------------------------------------
-    images = [rand(gen, (BATCH, IMAGE, IMAGE, 3)) for _ in range(REQUESTS)]
-    seq = runner.run_sequential(images)
-    reset_counts()
-    engine = DualCoreEngine(runner)
-    res = replay(engine, [Request(im) for im in images])
-    served = launch_counts()
-    want = {k: REQUESTS * per_request.get(k, 0) for k in served}
-    if served != want:
-        raise AssertionError(f"serving launches {served} != {want}")
-    for i, (a, b) in enumerate(zip(res.outputs, seq)):
-        if a.shape != (BATCH, 1000) or not torch.isfinite(a).all():
-            raise AssertionError(f"request {i}: bad output {a.shape}")
-        if not torch.equal(a, b):
-            raise AssertionError(f"request {i}: pipelined output differs "
-                                 f"from the sequential kernel forward")
-    m = res.metrics
-    walls: dict[str, list[float]] = {"pipelined": [], "sequential": []}
-    for mode in ("pipelined", "sequential") * 3:      # in turns
-        walls[mode].append(runner.timed(images, mode)[1])
-    t_pipe, t_seq = min(walls["pipelined"]), min(walls["sequential"])
-    print(f"[serving] {REQUESTS} requests x batch {BATCH} @ {IMAGE}px in "
-          f"{res.stats['slots']} slots: {res.stats['wall_s'] * 1e3:.2f} ms, "
-          f"{REQUESTS * BATCH / res.stats['wall_s']:.1f} img/s, p50 "
-          f"{m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; outputs bit-equal "
-          f"to the sequential kernel forward; launches {served}")
-    print(f"[serving] best of 3, in turns: pipelined {t_pipe * 1e3:.2f} ms "
-          f"({REQUESTS * BATCH / t_pipe:.1f} img/s), sequential "
-          f"{t_seq * 1e3:.2f} ms ({REQUESTS * BATCH / t_seq:.1f} img/s), "
-          f"speedup {t_seq / t_pipe:.3f}x")
-    host_ms = host_enqueue_ms(runner, images)
-    device_ms = sum(rows[json.dumps(c, sort_keys=True)]["ms"] for c in calls)
-    print(f"[serving] per request: host enqueue {host_ms:.3f} ms ({len(calls)}"
-          f" launches; {REQUESTS} requests queued back to back, best of 3), "
-          f"device kernel time {device_ms:.3f} ms (phase 2, summed over the "
-          f"request's calls)")
-
-    # 5. report -----------------------------------------------------------
+    # 4. report -----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
-        mine = [rows[json.dumps(c, sort_keys=True)] for c in calls
-                if c["kernel"] == name]
-        tot_bytes = sum(r["bytes"] for r in mine)
-        tot_flops = sum(r["flops"] for r in mine)
-        b_ms, b_by = bound_ms(tot_bytes, tot_flops)
+        mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
+        b_ms, b_by = bound_ms(sum(r["bytes"] for r in mine),
+                              sum(r["flops"] for r in mine))
         kernels.append(dict(
             name=name, route="cuda", source=kt["source"],
-            replaces=kt["replaces"], launches=served[name],
+            replaces=kt["replaces"],
+            launches=sum(p["launches"][name] for p in paths),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine),
             plain_ms=sum(r["plain_ms"] for r in mine),
@@ -457,15 +633,11 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, torch=torch.__version__,
-        per_request=per_request, rows=list(rows.values()), kernels=kernels,
-        serving=dict(wall_s=res.stats["wall_s"], p50_ms=m.p50_ms(),
-                     p95_ms=m.p95_ms(), pipelined_s=t_pipe,
-                     sequential_s=t_seq, host_enqueue_ms=host_ms,
-                     device_ms=device_ms),
-        forward_max_abs_err=err), indent=1))
-    print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over the "
-          f"calls of one request (batch {BATCH}, {IMAGE}px); launches are "
-          f"the serving run's; {time.perf_counter() - t_start:.1f} s total")
+        rows=list(rows.values()), paths=paths, kernels=kernels), indent=1))
+    print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
+          f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
+          f"the kernel; launches are the paths' counted runs; "
+          f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -475,8 +647,8 @@ def main() -> int:
 
 
 def _shape_str(c: dict) -> str:
-    keys = [k for k in ("m", "k", "n", "h", "w", "c", "ci", "co", "stride")
-            if k in c]
+    keys = [k for k in ("m", "k", "n", "h", "w", "c", "ci", "cm", "co",
+                        "stride", "res") if k in c]
     return " ".join(f"{k}={c[k]}" for k in keys)
 
 

@@ -1,4 +1,4 @@
-// Shared helpers of the hand-written f32 kernels (K1-K4).
+// Shared helpers of the hand-written f32 kernels (K1-K5).
 //
 // Every kernel computes in full f32 on the CUDA cores (no TF32, no tensor
 // cores), accumulates in a fixed per-thread order and uses no atomics, so a
@@ -17,7 +17,9 @@ __device__ __forceinline__ float repro_act(float v, int act) {
   return v;
 }
 
-static inline int repro_cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int repro_cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 // Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.
 template <typename Kernel>

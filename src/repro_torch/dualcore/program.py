@@ -38,7 +38,8 @@ from repro_torch.kernels.depthwise.ops import depthwise
 from repro_torch.kernels.depthwise.ref import depthwise_conv2d_ref
 from repro_torch.kernels.fused_block.ops import (fused_dw_pw,
                                                  fused_inverted_residual)
-from repro_torch.kernels.fused_block.ref import fused_dw_pw_ref
+from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
+                                                 fused_pw_dw_pw_ref)
 from repro_torch.models.zoo import get_graph
 
 Params = dict[str, dict[str, torch.Tensor]]
@@ -182,12 +183,15 @@ def fused_step(graph: LayerGraph, kind: str, names: tuple[str, ...],
     elif kind == "pw_dw_pw":
         e, d, p = (graph.layer(nm) for nm in names)
         with_res = ("add" in p.fused and d.stride == 1 and e.C_i == p.C_o)
+        pw_dw_pw = fused_pw_dw_pw_ref if plain else fused_inverted_residual
 
         def fn(params, env, collect):
             res = env["h"] if with_res else None
             pe, pd, pp = params[e.name], params[d.name], params[p.name]
-            env["h"] = fused_inverted_residual(
-                env["h"], pe["w"], pe["b"], pd["w"], pd["b"], pp["w"],
+            exp_w = pe["w"].reshape(pe["w"].shape[-2], pe["w"].shape[-1])
+            proj_w = pp["w"].reshape(pp["w"].shape[-2], pp["w"].shape[-1])
+            env["h"] = pw_dw_pw(
+                env["h"], exp_w, pe["b"], pd["w"], pd["b"], proj_w,
                 pp["b"], res, stride=d.stride, pad=d.pad,
                 exp_act=act_of(e.name), dw_act=act_of(d.name),
                 proj_act=act_of(p.name))
@@ -365,8 +369,8 @@ def build_program(name_or_graph: str | LayerGraph, *, fuse: bool = False,
     ``fuse=False`` gives one step per layer (the sequential default, as the
     reference's default forward is per-layer); ``fuse=True`` runs the
     fusion plan's dw->pw / pw->dw->pw groups as single fused launches
-    (MobileNet v2's pw->dw->pw groups raise until K5 is ported).
-    ``plain=True`` builds the steps over the plain PyTorch versions.
+    (K4 and K5).  ``plain=True`` builds every step, fused ones included,
+    over the plain PyTorch versions: no kernel wrapper is reached.
     Programs by name are cached: steps close over specs and read params per
     call.
     """

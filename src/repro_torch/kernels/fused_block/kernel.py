@@ -1,22 +1,23 @@
-"""Fused depthwise -> pointwise block (K4), the dw map kept on chip.
+"""Fused MobileNet blocks: dw -> pw (K4) and pw -> dw -> pw (K5), the
+intermediate maps kept on chip.
 
-Wrapper of the hand-written CUDA kernel ``csrc/fused_dw_pw_conv.cu``, which
-replaces the TPU kernel ``repro/kernels/fused_block/kernel.py::
-fused_dw_pw_conv``; the source says what bounds it on an H100 and how it
-tiles space and channels so that the dw values live only in shared memory.
-
-The reference's second fused kernel, ``fused_pw_dw_pw_conv`` (K5, the
-inverted residual), is not ported yet: see ``ops.fused_inverted_residual``.
+Wrappers of the hand-written CUDA kernels ``csrc/fused_dw_pw_conv.cu`` and
+``csrc/fused_pw_dw_pw_conv.cu``, which replace the TPU kernels
+``repro/kernels/fused_block/kernel.py::fused_dw_pw_conv`` and
+``::fused_pw_dw_pw_conv``; each source says what bounds it on an H100 and
+how it tiles space and channels so that the intermediate maps live only in
+shared memory.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``fused_dw_pw_conv.launches``
-counts the launches.
+and ``fused_pw_dw_pw_conv.launches`` count the launches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_block.ref import fused_dw_pw_ref
+from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
+                                                 fused_pw_dw_pw_ref)
 from repro_torch.kernels.util import act_code, check_cuda_operands, launch
 
 
@@ -63,3 +64,58 @@ def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
 
 
 fused_dw_pw_conv.launches = 0
+
+
+def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
+                        exp_b: torch.Tensor | None, dw_w: torch.Tensor,
+                        dw_b: torch.Tensor | None, proj_w: torch.Tensor,
+                        proj_b: torch.Tensor | None,
+                        residual: torch.Tensor | None = None, *,
+                        stride: int = 1, pad: int = 1,
+                        exp_act: str | None = "relu6",
+                        dw_act: str | None = "relu6",
+                        proj_act: str | None = None) -> torch.Tensor:
+    """pw-expand -> dw(KhxKw, stride) -> pw-project in one launch (the
+    MobileNet v2 inverted residual; ``residual`` is added after proj_act).
+
+    x: (N,H,W,Ci); exp_w: (Ci,Cm); dw_w: (Kh,Kw,Cm); proj_w: (Cm,Co);
+    biases (Cm,)/(Cm,)/(Co,) or None; residual: (N,Ho,Wo,Co) or None.
+    """
+    if (x.dim() != 4 or exp_w.dim() != 2 or dw_w.dim() != 3
+            or proj_w.dim() != 2 or exp_w.shape[0] != x.shape[3]
+            or dw_w.shape[2] != exp_w.shape[1]
+            or proj_w.shape[0] != exp_w.shape[1]):
+        raise ValueError(f"fused_pw_dw_pw_conv: x {tuple(x.shape)}, exp_w "
+                         f"{tuple(exp_w.shape)}, dw_w {tuple(dw_w.shape)}, "
+                         f"proj_w {tuple(proj_w.shape)}")
+    n, h, wd, ci = x.shape
+    kh, kw, cm = dw_w.shape
+    co = proj_w.shape[1]
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (wd + 2 * pad - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"fused_pw_dw_pw_conv: empty output {ho}x{wo}")
+    for key, t, shape in (("exp_b", exp_b, (cm,)), ("dw_b", dw_b, (cm,)),
+                          ("proj_b", proj_b, (co,)),
+                          ("residual", residual, (n, ho, wo, co))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"fused_pw_dw_pw_conv: {key} "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if x.device.type == "cpu":
+        return fused_pw_dw_pw_ref(x, exp_w, exp_b, dw_w, dw_b, proj_w,
+                                  proj_b, residual, stride=stride, pad=pad,
+                                  exp_act=exp_act, dw_act=dw_act,
+                                  proj_act=proj_act)
+    check_cuda_operands("fused_pw_dw_pw_conv", x.device, x=x, exp_w=exp_w,
+                        exp_b=exp_b, dw_w=dw_w, dw_b=dw_b, proj_w=proj_w,
+                        proj_b=proj_b, residual=residual)
+    out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
+    launch("repro_fused_pw_dw_pw_conv", x.device, x, exp_w, exp_b, dw_w,
+           dw_b, proj_w, proj_b, residual, out, n, h, wd, ci, cm, co, kh,
+           kw, stride, pad, ho, wo, act_code(exp_act), act_code(dw_act),
+           act_code(proj_act))
+    fused_pw_dw_pw_conv.launches += 1
+    return out
+
+
+fused_pw_dw_pw_conv.launches = 0

@@ -1,13 +1,14 @@
-"""Dispatch wrappers for the fused MobileNet-block kernels.
+"""Dispatch wrappers for the fused MobileNet-block kernels (K4, K5).
 
-Counterpart of ``repro/kernels/fused_block/ops.py``.  The CUDA kernel uses
+Counterpart of ``repro/kernels/fused_block/ops.py``.  The CUDA kernels use
 fixed tiles, so the reference's block-shape choice has no counterpart.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
+from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
+                                                    fused_pw_dw_pw_conv)
 
 
 def fused_dw_pw(x: torch.Tensor, dw_w: torch.Tensor, dw_b,
@@ -20,13 +21,20 @@ def fused_dw_pw(x: torch.Tensor, dw_w: torch.Tensor, dw_b,
                             pw_act=pw_act)
 
 
-def fused_inverted_residual(*args, **kwargs) -> torch.Tensor:
-    """pw-expand -> dw -> pw-project in one launch: the TPU kernel
-    ``repro/kernels/fused_block/kernel.py::fused_pw_dw_pw_conv`` (K5).
-
-    Not ported yet, and never replaced by unfused steps: it raises."""
-    raise NotImplementedError(
-        "fused_inverted_residual needs K5 (fused_pw_dw_pw_conv), which is "
-        "not ported yet (ROADMAP.md, queue 2, K5); run with fuse=False, "
-        "or with fuse='group' on a plan whose groups hold no pw->dw->pw "
-        "chain (MobileNet v2 under 'balanced')")
+def fused_inverted_residual(x: torch.Tensor, exp_w: torch.Tensor, exp_b,
+                            dw_w: torch.Tensor, dw_b, proj_w: torch.Tensor,
+                            proj_b, residual=None, *, stride: int = 1,
+                            pad: int = 1, exp_act: str | None = "relu6",
+                            dw_act: str | None = "relu6",
+                            proj_act: str | None = None) -> torch.Tensor:
+    """pw-expand -> dw -> pw-project fused block (MobileNet-v2 style), one
+    launch of K5.  exp_w: (Ci,Cm) or (1,1,Ci,Cm); proj_w: (Cm,Co) or
+    (1,1,Cm,Co)."""
+    if exp_w.dim() == 4:
+        exp_w = exp_w.reshape(exp_w.shape[2], exp_w.shape[3])
+    if proj_w.dim() == 4:
+        proj_w = proj_w.reshape(proj_w.shape[2], proj_w.shape[3])
+    return fused_pw_dw_pw_conv(x, exp_w, exp_b, dw_w, dw_b, proj_w, proj_b,
+                               residual, stride=stride, pad=pad,
+                               exp_act=exp_act, dw_act=dw_act,
+                               proj_act=proj_act)

@@ -188,6 +188,7 @@ SIGNATURES = {
     "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 12 + "s",
     "repro_depthwise_conv2d": "p" * 4 + "i" * 11 + "s",
     "repro_fused_dw_pw_conv": "p" * 7 + "i" * 13 + "s",
+    "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 15 + "s",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "s": ctypes.c_void_p}
 

@@ -1,19 +1,22 @@
 """Serving launcher: the dual-core CNN pipeline on one CUDA card.
 
-Port of the ``cnn`` subcommand of ``repro/launch/serve.py``:
+Port of the ``cnn`` subcommand of ``repro/launch/serve.py``; it serves all
+three of the paper's models:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve cnn mobilenet_v2 \\
+  PYTHONPATH=src python -m repro_torch.launch.serve cnn mobilenet_v1 \\
       --image-size 224 --requests 8 [--batch 2] [--scheme balanced] \\
       [--arrival-rate 1.0] [--max-queue 64] [--device cuda]
 
-Builds the dual-core schedule and the exec plan, places the seeded weights
-on the card, and streams the requests through a ``DualCoreEngine``: each
-scheduler slot advances every in-flight image one exec group (the Fig.4b
-one-slot offset) and refills the drained group-0 slot from the queue.  The
-c-core and the p-core are two CUDA streams sharing all SMs of the card.
-Prints the plan's modelled two-batch latency T_b2 (the instruction-level
-simulator is not ported yet), images per second, p50/p95 request latency,
-and the strictly sequential run's wall time beside the pipelined one.
+(``mobilenet_v2`` and ``squeezenet`` likewise).  Builds the dual-core
+schedule and the exec plan, places the seeded weights on the card, and
+streams the requests through a ``DualCoreEngine``: each scheduler slot
+advances every in-flight image one exec group (the Fig.4b one-slot offset)
+and refills the drained group-0 slot from the queue.  The c-core and the
+p-core are two CUDA streams sharing all SMs of the card.  Prints the
+plan's modelled two-batch latency T_b2 beside the instruction-level
+simulator's cycles for two images (``core/simulator.py``, on the modelled
+FPGA), images per second, p50/p95 request latency, and the strictly
+sequential run's wall time beside the pipelined one.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.core.arch import DUAL_BASELINE, BoardModel
 from repro_torch.core.scheduler import best_schedule, build_schedule
+from repro_torch.core.simulator import simulate_dual_core
 from repro_torch.dualcore.runtime import DualCoreRunner
 from repro_torch.models.cnn import build_model
 from repro_torch.serving.api import Request, poisson_arrivals, replay
@@ -64,10 +68,12 @@ def serve_cnn(args) -> int:
                  _arrivals(n, args.arrival_rate))
     _, t_seq = runner.timed(images, "sequential", reps=2)
 
+    sim = simulate_dual_core(es)
     print(f"[serve] cnn {args.model} scheme={sched.scheme}: "
           f"{len(es.groups)} exec groups; {runner.cores.describe()}")
     print(f"[serve] model-side: T_b2={es.t_b2():,} cyc "
-          f"({board.cycles_to_seconds(es.t_b2())*1e3:.2f} ms "
+          f"(sim {sim.cycles_two_images:,} cyc, "
+          f"{board.cycles_to_seconds(sim.cycles_two_images)*1e3:.2f} ms "
           f"@{board.freq_mhz:.0f}MHz on the modelled FPGA), "
           f"pipeline speedup {2*sum(es.group_latencies)/es.t_b2():.2f}x")
     s = res.stats

@@ -22,13 +22,15 @@ from repro_torch.dualcore.runtime import DualCoreRunner
 from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
                                                   matmul_bias_act)
 from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
-from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
+from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
+                                                    fused_pw_dw_pw_conv)
 from repro_torch.models.cnn import build_model
 from repro_torch.serving.cnn import stream_images
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 WRAPPERS = {"K1": matmul_bias_act, "K2": depthwise_conv2d,
-            "K3": conv2d_implicit_gemm, "K4": fused_dw_pw_conv}
+            "K3": conv2d_implicit_gemm, "K4": fused_dw_pw_conv,
+            "K5": fused_pw_dw_pw_conv}
 
 
 @pytest.fixture
@@ -57,11 +59,19 @@ def _case(kernel):
     if kernel == "K3":
         x, w, b = _arrays(5, (2, 33, 31, 3), (3, 3, 3, 40), (40,))
         return (x, w, b), dict(stride=2, pad=1, act="relu6")
-    x, dw, db, pw, pb, r = _arrays(5, (2, 15, 15, 40), (3, 3, 40), (40,),
-                                   (40, 70), (70,), (2, 15, 15, 70),
-                                   scale=0.5)
-    return (x, dw, db, pw, pb, r), dict(stride=1, pad=1, dw_act="relu6",
-                                        pw_act=None)
+    if kernel == "K4":
+        x, dw, db, pw, pb, r = _arrays(5, (2, 15, 15, 40), (3, 3, 40),
+                                       (40,), (40, 70), (70,),
+                                       (2, 15, 15, 70), scale=0.5)
+        return (x, dw, db, pw, pb, r), dict(stride=1, pad=1, dw_act="relu6",
+                                            pw_act=None)
+    # K5: a residual, nonzero biases (the expand bias positive, so a halo
+    # padded with act(exp_b) instead of 0 would show), ragged Cm and Co
+    x, ew, eb, dw, db, pw, pb, r = _arrays(
+        5, (2, 15, 13, 24), (24, 70), (70,), (3, 3, 70), (70,), (70, 24),
+        (24,), (2, 15, 13, 24), scale=0.5)
+    return (x, ew, eb.abs() + 0.5, dw, db, pw, pb, r), dict(
+        stride=1, pad=1, exp_act="relu6", dw_act="relu6", proj_act=None)
 
 
 @pytest.mark.cuda
@@ -88,32 +98,49 @@ def test_wrappers_refuse_bad_operands_on_card(card):
         matmul_bias_act(x, w.cpu())
 
 
-@pytest.mark.cuda
-def test_two_streams_pipelined_equals_sequential_on_card(card):
-    """mobilenet_v2 ``balanced`` at 64 px: the engine over the two streams
-    gives the sequential kernel forward's bits, launches exactly the plan's
-    kernels per image, and agrees with the all-plain forward at 1e-3."""
-    params, _, graph = build_model("mobilenet_v2", seed=1, device=card)
+def _kernel_of(step, graph):
+    if len(step.layers) == 3:
+        return fused_pw_dw_pw_conv
+    if len(step.layers) == 2:
+        return fused_dw_pw_conv
+    l = graph.layer(step.layers[0])
+    return (depthwise_conv2d if l.op == "dwconv"
+            else conv2d_implicit_gemm if l.K_h > 1 else matmul_bias_act)
+
+
+def _check_two_streams(model, card):
+    params, _, graph = build_model(model, seed=1, device=card)
     sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
-    runner = DualCoreRunner("mobilenet_v2", params, sched, device=card)
+    runner = DualCoreRunner(model, params, sched, device=card)
     assert runner.cores.distinct
     images = [t.to(card) for t in _arrays(7, *[(1, 64, 64, 3)] * 3)]
     seq = runner.run_sequential(images)
-    per_image = Counter()
-    for g in runner.groups:
-        for s in g.steps:
-            l = graph.layer(s.layers[0])
-            per_image[fused_dw_pw_conv if len(s.layers) == 2
-                      else depthwise_conv2d if l.op == "dwconv"
-                      else conv2d_implicit_gemm if l.K_h > 1
-                      else matmul_bias_act] += 1
+    per_image = Counter(_kernel_of(s, graph) for g in runner.groups
+                        for s in g.steps)
     before = {fn: fn.launches for fn in WRAPPERS.values()}
     res = stream_images(runner, images)
     for fn in WRAPPERS.values():
         assert fn.launches - before[fn] == 3 * per_image[fn]
-    plain = build_program("mobilenet_v2", plain=True)
+    plain = build_program(model, plain=True)
     for x, a, b in zip(images, res.outputs, seq):
         assert torch.equal(a, b)
         assert a.shape == (1, 1000) and torch.isfinite(a).all()
         torch.testing.assert_close(a, plain.run(params, x), rtol=1e-3,
                                    atol=1e-3)
+    return per_image
+
+
+@pytest.mark.cuda
+def test_two_streams_pipelined_equals_sequential_on_card(card):
+    """mobilenet_v2 ``balanced`` at 64 px: the engine over the two streams
+    gives the sequential kernel forward's bits, launches exactly the plan's
+    kernels per image, and agrees with the all-plain forward at 1e-3."""
+    _check_two_streams("mobilenet_v2", card)
+
+
+@pytest.mark.cuda
+def test_two_streams_mobilenet_v1_on_card(card):
+    """mobilenet_v1 ``balanced`` at 64 px, the same checks; its four
+    pw->dw->pw chains run on K5."""
+    per_image = _check_two_streams("mobilenet_v1", card)
+    assert per_image[fused_pw_dw_pw_conv] == 4

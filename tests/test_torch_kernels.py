@@ -1,4 +1,4 @@
-"""K1-K4: the port's plain versions against the reference Pallas kernels run
+"""K1-K5: the port's plain versions against the reference Pallas kernels run
 in interpret mode, on the same numpy inputs.
 
 Tolerance rtol = atol = 1e-4, the reference's own for its kernel sweeps:
@@ -16,11 +16,14 @@ from repro.kernels.conv_gemm.kernel import (
     matmul_bias_act as ref_matmul)
 from repro.kernels.depthwise.kernel import depthwise_conv2d as ref_depthwise
 from repro.kernels.fused_block.kernel import fused_dw_pw_conv as ref_fused
+from repro.kernels.fused_block.kernel import (
+    fused_pw_dw_pw_conv as ref_fused_ir)
 from repro_torch.kernels.conv_gemm import ops as conv_ops
 from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
                                                   matmul_bias_act)
 from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
-from repro_torch.kernels.fused_block.kernel import fused_dw_pw_conv
+from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
+                                                    fused_pw_dw_pw_conv)
 from repro_torch.kernels.fused_block.ops import fused_inverted_residual
 from repro_torch.kernels.util import check_cuda_operands, find_nvcc
 from repro_torch.models.zoo import get_graph
@@ -128,10 +131,67 @@ def test_k4_fused_dw_pw_matches_reference(h, w, c, co, stride, bias, res,
     _same(out, ref)
 
 
-def test_k5_raises_instead_of_falling_back():
-    x = torch.zeros((1, 4, 4, 8))
-    with pytest.raises(NotImplementedError, match="K5"):
-        fused_inverted_residual(x, None, None, None, None, None, None)
+# --------------------------------------------------------------------------
+# K5 fused_pw_dw_pw_conv
+# --------------------------------------------------------------------------
+K5_ACTS = [("relu6", "relu6", None), (None, "relu", "relu6"),
+           ("relu", None, "relu")]
+
+
+def _k5_inputs(seed, h, w, ci, cm, co, stride, res, biases):
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x, ew, eb, dw, db, pw, pb, r = _arrays(
+        seed, (2, h, w, ci), (ci, cm), (cm,), (3, 3, cm), (cm,), (cm, co),
+        (co,), (2, ho, wo, co), scale=0.5)
+    if biases == "none":
+        eb = db = pb = None
+    elif biases == "exp_only":      # the zero-padding trap: the pad of the
+        db = pb = None              # expanded map is 0, not act(exp_b)
+        eb = np.abs(eb) + 0.5
+    return x, ew, eb, dw, db, pw, pb, (r if res else None)
+
+
+@pytest.mark.parametrize("h,w,ci,cm,co,stride,res", [
+    (12, 12, 16, 48, 24, 1, False),   # a MobileNet v2 block, narrow
+    (12, 12, 16, 48, 16, 1, True),    # ... with its residual
+    (13, 11, 8, 40, 20, 2, False),    # stride 2, odd sizes
+    (9, 10, 12, 37, 70, 1, False),    # ragged Cm and Co
+    (9, 10, 12, 37, 12, 1, True)])    # ragged Cm, residual
+@pytest.mark.parametrize("biases", ["all", "none", "exp_only"])
+@pytest.mark.parametrize("acts", K5_ACTS)
+def test_k5_fused_inverted_residual_matches_reference(h, w, ci, cm, co,
+                                                      stride, res, biases,
+                                                      acts):
+    exp_act, dw_act, proj_act = acts
+    args = _k5_inputs(5, h, w, ci, cm, co, stride, res, biases)
+    kw = dict(stride=stride, pad=1, exp_act=exp_act, dw_act=dw_act,
+              proj_act=proj_act)
+    before = fused_pw_dw_pw_conv.launches
+    out = fused_inverted_residual(*(_t(a) for a in args), **kw)
+    ref = ref_fused_ir(*(_j(a) for a in args), **kw, interpret=True)
+    _same(out, ref)
+    assert fused_pw_dw_pw_conv.launches == before  # CPU: plain, no launch
+
+
+def test_k5_takes_4d_and_2d_pointwise_weights_alike():
+    x, ew, eb, dw, db, pw, pb, r = (
+        _t(a) for a in _k5_inputs(6, 10, 10, 8, 24, 8, 1, True, "all"))
+    kw = dict(stride=1, pad=1, exp_act="relu6", dw_act="relu6",
+              proj_act=None)
+    a = fused_inverted_residual(x, ew, eb, dw, db, pw, pb, r, **kw)
+    b = fused_inverted_residual(x, ew.reshape(1, 1, 8, 24), eb, dw, db,
+                                pw.reshape(1, 1, 24, 8), pb, r, **kw)
+    assert torch.equal(a, b)
+
+
+def test_k5_wrapper_rejects_bad_shapes():
+    x, ew, eb, dw, db, pw, pb, _ = (
+        _t(a) for a in _k5_inputs(7, 8, 8, 8, 16, 8, 1, False, "all"))
+    with pytest.raises(ValueError, match="fused_pw_dw_pw_conv"):
+        fused_pw_dw_pw_conv(x, ew, eb, dw[..., :8], db, pw, pb)
+    with pytest.raises(ValueError, match="residual"):
+        fused_pw_dw_pw_conv(x, ew, eb, dw, db, pw, pb,
+                            torch.zeros((2, 4, 4, 8)))
 
 
 # --------------------------------------------------------------------------

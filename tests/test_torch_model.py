@@ -152,32 +152,83 @@ def test_exec_plan_matches_reference(model, scheme):
     assert _plan_view(port) == _plan_view(ref)
 
 
-def test_mobilenet_v2_balanced_plan_launches_four_kernels():
-    """The main path's per-request launches, as ``chip_smoke.py`` derives
-    them from the exec plan: K1 x29, K2 x11, K3 x1, K4 x6 over 16 groups."""
+def _chip_smoke():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
+    return chip_smoke
 
-    sched = build_schedule(get_graph("mobilenet_v2"), DUAL_BASELINE,
-                           BoardModel(), "balanced")
-    plan = build_exec_plan(build_program("mobilenet_v2"), sched,
-                           group_fusion=True)
-    assert len(plan.groups) == 16
-    calls = Counter(c["kernel"] for c in chip_smoke.plan_calls(plan, 2))
-    assert calls == {"matmul_bias_act": 29, "depthwise_conv2d": 11,
-                     "conv2d_implicit_gemm": 1, "fused_dw_pw_conv": 6}
+
+@pytest.mark.parametrize("model,n_groups,launches", [
+    ("mobilenet_v1", 11, {"matmul_bias_act": 3, "depthwise_conv2d": 6,
+                          "conv2d_implicit_gemm": 1, "fused_dw_pw_conv": 3,
+                          "fused_pw_dw_pw_conv": 4}),
+    ("mobilenet_v2", 16, {"matmul_bias_act": 29, "depthwise_conv2d": 11,
+                          "conv2d_implicit_gemm": 1, "fused_dw_pw_conv": 6}),
+    ("squeezenet", 3, {"matmul_bias_act": 17, "conv2d_implicit_gemm": 9})])
+def test_balanced_plan_launches(model, n_groups, launches):
+    """The main paths' per-request launches, as ``chip_smoke.py`` derives
+    them from the exec plan and the graph's layer specs."""
+    graph = get_graph(model)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
+    plan = build_exec_plan(build_program(model), sched, group_fusion=True)
+    assert len(plan.groups) == n_groups
+    calls = _chip_smoke().plan_calls(plan, graph, 2)
+    assert Counter(c["kernel"] for c in calls) == launches
+
+
+def test_mobilenet_v2_fused_forward_launches():
+    """The ``fuse=True`` sequential forward: 16 inverted residuals on K5,
+    b1's dw->pw on K4, the stem on K3, conv_last and fc on K1."""
+    graph = get_graph("mobilenet_v2")
+    calls = _chip_smoke().step_calls(
+        build_program("mobilenet_v2", fuse=True).steps, graph, 2)
+    assert Counter(c["kernel"] for c in calls) == {
+        "matmul_bias_act": 2, "conv2d_implicit_gemm": 1,
+        "fused_dw_pw_conv": 1, "fused_pw_dw_pw_conv": 16}
+    assert sum(c["kernel"] == "fused_pw_dw_pw_conv" and c["res"]
+               for c in calls) == 10
+
+
+def test_mobilenet_v2_fused_forward_matches_reference(reference):
+    ref = reference["mobilenet_v2"]
+    params = params_from_numpy(ref["params"], "cpu")
+    collect = {}
+    logits = FORWARDS["mobilenet_v2"](params, torch.from_numpy(ref["x"]),
+                                      collect=collect, fuse=True)
+    np.testing.assert_allclose(logits.numpy(), ref["logits"], **TOL)
+    assert collect and all(ref["collect"][k] == v
+                           for k, v in collect.items())
+
+
+def test_plain_fused_program_reaches_no_kernel_wrapper(reference,
+                                                       monkeypatch):
+    """``plain=True`` holds for the fused steps too: with every kernel
+    wrapper the program can reach made to raise, the plain fused program
+    of MobileNet v2 still runs, and matches the reference."""
+    import repro_torch.dualcore.program as program
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain program reached a kernel wrapper")
+
+    for name in ("conv2d_gemm", "depthwise", "fused_dw_pw",
+                 "fused_inverted_residual"):
+        monkeypatch.setattr(program, name, refuse)
+    ref = reference["mobilenet_v2"]
+    params = params_from_numpy(ref["params"], "cpu")
+    prog = build_program(get_graph("mobilenet_v2"), fuse=True, plain=True)
+    assert sum(len(s.layers) == 3 for s in prog.steps) == 16
+    out = prog.run(params, torch.from_numpy(ref["x"]))
+    np.testing.assert_allclose(out.numpy(), ref["logits"], **TOL)
 
 
 # --------------------------------------------------------------------------
 # the runner and the engine
 # --------------------------------------------------------------------------
-def test_cpu_runner_mobilenet_v2_balanced(reference):
-    """fuse='group' on the CPU: pipelined equals sequential bit for bit,
-    and the first image matches the reference forward."""
-    ref = reference["mobilenet_v2"]
+def _check_cpu_runner(model, reference):
+    ref = reference[model]
     params = params_from_numpy(ref["params"], "cpu")
-    _, sched = _schedules("mobilenet_v2", "balanced")
-    runner = DualCoreRunner("mobilenet_v2", params, sched, device="cpu")
+    _, sched = _schedules(model, "balanced")
+    runner = DualCoreRunner(model, params, sched, device="cpu")
     assert not runner.cores.distinct
     images = [torch.from_numpy(ref["x"])] + [
         torch.from_numpy(x) for x in _images(7, 2)]
@@ -191,6 +242,22 @@ def test_cpu_runner_mobilenet_v2_balanced(reference):
     assert [(s, i, g) for s, i, g, _ in record] == [
         (slot, i, slot - i) for slot in range(n_g + 2)
         for i in range(3) if 0 <= slot - i < n_g]
+    return runner
+
+
+def test_cpu_runner_mobilenet_v2_balanced(reference):
+    """fuse='group' on the CPU: pipelined equals sequential bit for bit,
+    and the first image matches the reference forward."""
+    _check_cpu_runner("mobilenet_v2", reference)
+
+
+def test_cpu_runner_mobilenet_v1_balanced(reference):
+    """MobileNet v1 under 'balanced' fuses four pw->dw->pw chains inside
+    its groups (K5 on the card): pipelined equals sequential bit for bit,
+    and the first image matches the reference forward."""
+    runner = _check_cpu_runner("mobilenet_v1", reference)
+    assert sum(len(s.layers) == 3 for g in runner.groups
+               for s in g.steps) == 4
 
 
 def test_engine_dispatch_trace_matches_reference_squeezenet(reference):
@@ -242,6 +309,6 @@ def test_serve_cli_on_cpu(capsys):
                  "32", "--requests", "3", "--batch", "1",
                  "--arrival-rate", "1.0"]) == 0
     out = capsys.readouterr().out
-    assert "3 exec groups" in out and "T_b2=" in out
+    assert "3 exec groups" in out and "T_b2=" in out and "(sim " in out
     assert "streamed 3 request(s)" in out and "p95" in out
     assert "alias one cpu queue" in out
