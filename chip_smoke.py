@@ -6,18 +6,22 @@ Drives ``repro_torch`` (never JAX, never the reference package) in phases;
 any failure raises and the script exits non-zero:
 
 1. setup    print the card (``nvidia-smi`` name and power limit) and build
-            the CUDA kernels K1-K5 from ``src/repro_torch/csrc`` (one
+            the CUDA kernels K1-K7 from ``src/repro_torch/csrc`` (one
             ``nvcc`` per source, all at once);
 2. kernels  hold every kernel against its plain PyTorch version on the card
             (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
-            order differs) at every distinct shape the four paths below
-            launch at 224 px and batch 2, plus edge cases (no bias, each
-            activation, residuals, ragged tails, stride 2, K5's nonzero
-            expand bias against a zero-padded halo); time each path call on
-            the device (``cuda_time_ms``: CUDA events around back-to-back
-            calls, the host's launch overhead held out) beside the plain
-            version, a PyTorch library call or chain computing the same
-            function (timed here only, never used by the port) and the least
+            order differs) at every distinct shape the paths below launch
+            (the CNNs at 224 px and batch 2; Qwen2-0.5B's prefill of 2 x 512
+            tokens and its decode steps at cache lengths 513..575), plus
+            edge cases (no bias, each activation, residuals, ragged tails,
+            stride 2, K5's nonzero expand bias against a zero-padded halo;
+            K6 at one row and an odd width; K7 at Sq = 37, a chunk against
+            a cache, a padding mask, ragged ``kv_len`` and D = 8); time each
+            path call on the device (``cuda_time_ms``: CUDA events around
+            back-to-back calls, the host's launch overhead held out) beside
+            the plain version, a PyTorch library call or chain computing the
+            same function (timed here only, never used by the port:
+            ``F.rms_norm``, ``scaled_dot_product_attention``) and the least
             time the card could take;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the sequential
@@ -31,7 +35,22 @@ any failure raises and the script exits non-zero:
             MobileNet v2's ``fuse=True`` sequential forward (16 inverted
             residuals on K5) against the plain fused program at 1e-3, its
             launches counted the same way;
-4. report   one JSON line of the kernels, the card line, and the final
+4. lm       Qwen2-0.5B at its published width (24 layers, d 896, 14/2
+            heads, vocab 151936), random weights from seed 0: a 16-token
+            prompt's chunked prefill and decode steps on the card against
+            the same on the CPU (plain versions) at 1e-3; then
+            ``DualMeshEngine`` serves 8 requests of batch 2, prompt 512, 64
+            generated tokens, all arriving at slot 0, prefill on the c
+            stream and fused decode groups on the p stream: launch counts
+            reset just before and read just after equal the plan (per
+            prefill forward K6 49 and K7 flash 24, per decode step K6 49 and
+            K7 decode 24), and the tokens equal those of the same engine
+            with both cores on one stream; tokens/s, p50/p95, the fused
+            sizes, the per-stage trace, the host's enqueue time per decode
+            step against its device time (one step timed with the host
+            held out) and the K6 and K7 device time in it, and the card's
+            f32 matmul and copy rates (the cost model's ceilings);
+5. report   one JSON line of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line.
 
 Per-shape rows also go to ``chiprun_out/chip_smoke.json``.
@@ -61,6 +80,15 @@ BATCH = 2
 REQUESTS = 8
 KERNEL_TOL = 1e-4
 FORWARD_TOL = 1e-3
+DEV = "cuda"
+LM_ARCH = "qwen2_0_5b"
+LM_REQUESTS = 8
+LM_BATCH = 2
+LM_PROMPT = 512
+LM_GEN = 64
+LM_THETA = 0.5
+LM_MAX_LEN = LM_PROMPT + LM_GEN + 8    # the CLI's cache length
+LM_CHECK_PROMPT = 16                    # card against CPU, full width
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
 # the CUDA cores (no tensor cores) 67 TFLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
@@ -77,10 +105,11 @@ def card_line() -> str:
 
 
 def rand(gen: np.random.Generator, shape, scale: float = 1.0,
-         device="cuda") -> torch.Tensor:
-    """A standard-normal float32 tensor from ``gen``, times ``scale``."""
+         device=None) -> torch.Tensor:
+    """A standard-normal float32 tensor from ``gen``, times ``scale``, on
+    ``device`` (default the card)."""
     a = (gen.standard_normal(shape) * scale).astype(np.float32)
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a).to(device or DEV)
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -105,6 +134,12 @@ def kernel_table():
                                                         fused_pw_dw_pw_conv)
     from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
                                                      fused_pw_dw_pw_ref)
+    from repro_torch.kernels.attention.kernel import (decode_attention,
+                                                      flash_attention)
+    from repro_torch.kernels.attention.ref import (decode_attention_ref,
+                                                   flash_attention_ref)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     return {
         "matmul_bias_act": dict(
             fn=matmul_bias_act, plain=matmul_bias_act_ref,
@@ -126,6 +161,18 @@ def kernel_table():
             fn=fused_pw_dw_pw_conv, plain=fused_pw_dw_pw_ref,
             source="src/repro_torch/csrc/fused_pw_dw_pw_conv.cu",
             replaces="src/repro/kernels/fused_block/kernel.py:218"),
+        "rmsnorm": dict(
+            fn=rmsnorm, plain=rmsnorm_ref,
+            source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm/kernel.py:28"),
+        "flash_attention": dict(
+            fn=flash_attention, plain=flash_attention_ref,
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/attention/kernel.py:74"),
+        "decode_attention": dict(
+            fn=decode_attention, plain=decode_attention_ref,
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/attention/kernel.py:133"),
     }
 
 
@@ -275,6 +322,8 @@ def make_case(call: dict, gen) -> dict:
         flops = 2 * n * ho * wo * kk * kk * ci * co
     elif kind == "fused_pw_dw_pw_conv":
         return _fused_ir_case(kt, call, gen)
+    elif kind in ("rmsnorm", "flash_attention", "decode_attention"):
+        return _lm_case(kt, call, gen)
     else:
         n, h, wd, c, co = call["n"], call["h"], call["w"], call["c"], \
             call["co"]
@@ -346,6 +395,70 @@ def _fused_ir_case(kt: dict, call: dict, gen) -> dict:
     return dict(kernel=lambda: kt["fn"](*args, **kw),
                 plain=lambda: kt["plain"](*args, **kw), library=library,
                 nbytes=nbytes, flops=flops)
+
+
+def _lm_case(kt: dict, call: dict, gen) -> dict:
+    """K6's and K7's cases.  K7's k and v are the first ``sk`` rows of a
+    cache of ``cap`` rows, as the LM path reads them."""
+    kind = call["kernel"]
+    if kind == "rmsnorm":
+        rows, d = call["rows"], call["d"]
+        x = rand(gen, (rows, d))
+        w = rand(gen, (d,), 0.5) + 1.0
+        return dict(kernel=lambda: kt["fn"](x, w, eps=1e-6),
+                    plain=lambda: kt["plain"](x, w, 1e-6),
+                    library=lambda: F.rms_norm(x, (d,), w, 1e-6),
+                    nbytes=4 * (2 * rows * d + d), flops=4 * rows * d)
+    b, hq, hkv, sk, d = (call[k] for k in ("b", "hq", "hkv", "sk", "d"))
+    g = hq // hkv
+    k = rand(gen, (b, hkv, call["cap"], d))[:, :, :sk]
+    v = rand(gen, (b, hkv, call["cap"], d))[:, :, :sk]
+    if kind == "decode_attention":
+        q = rand(gen, (b, hq, 1, d))
+        lens = call.get("kv_len")
+        kv_len = (None if lens is None
+                  else torch.tensor(lens, dtype=torch.int32, device=DEV))
+        mask = (None if lens is None else
+                (torch.arange(sk, device=DEV)[None, :]
+                 < kv_len[:, None].long())[:, None, None, :])
+        seen = sum(lens) if lens is not None else b * sk
+        return dict(kernel=lambda: kt["fn"](q, k, v, kv_len),
+                    plain=lambda: kt["plain"](q, k, v, kv_len),
+                    library=_sdpa(q, k, v, mask, False, g),
+                    nbytes=4 * (2 * b * hq * d + 2 * hkv * d * seen),
+                    flops=4 * hq * d * seen)
+    sq, causal, off = call["sq"], call["causal"], call["q_offset"]
+    sk_valid = call.get("sk_valid")
+    kv_end = sk if sk_valid is None else min(sk, sk_valid)
+    q = rand(gen, (b, hq, sq, d))
+    kw = dict(causal=causal, q_offset=off, sk_valid=sk_valid)
+    qpos = off + torch.arange(sq, device=DEV)[:, None]
+    kpos = torch.arange(sk, device=DEV)[None, :]
+    vis = kpos < kv_end
+    if causal:
+        vis = vis & (kpos <= qpos)
+    pairs = int(vis.sum().item())
+    keys = min(kv_end, off + sq) if causal else kv_end
+    plain_causal = causal and off == 0 and sq == sk and sk_valid is None
+    return dict(kernel=lambda: kt["fn"](q, k, v, **kw),
+                plain=lambda: kt["plain"](q, k, v, **kw),
+                library=_sdpa(q, k, v, None if plain_causal else vis,
+                              plain_causal, g),
+                nbytes=4 * (2 * b * hq * sq * d + 2 * b * hkv * keys * d),
+                flops=4 * d * pairs * b * hq)
+
+
+def _sdpa(q, k, v, mask, is_causal: bool, g: int):
+    """``scaled_dot_product_attention`` over the same inputs: GQA folded by
+    the library where this PyTorch has ``enable_gqa`` (2.5 on), else on k
+    and v repeated per group ahead of the timed call."""
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+    kr = k.repeat_interleave(g, dim=1)
+    vr = v.repeat_interleave(g, dim=1)
+    return lambda: F.scaled_dot_product_attention(
+        q, kr, vr, attn_mask=mask, is_causal=is_causal)
 
 
 def _lib_act(t: torch.Tensor, act: str | None) -> torch.Tensor:
@@ -554,6 +667,282 @@ def fused_forward_path(gen, rows: dict) -> dict:
                 device_ms=device_ms)
 
 
+# --------------------------------------------------------------------------
+# the LM path
+# --------------------------------------------------------------------------
+def lm_group_sizes() -> list[int]:
+    """The fused decode groups the LM path forms: the card cost model's
+    group size for its queue (``DualMeshRunner.planned_group_size``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.cost import CardModel
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.schedule import plan_admission
+    gs = plan_admission(get_arch(LM_ARCH), split_streams(DEV, LM_THETA),
+                        CardModel(), LM_BATCH, LM_PROMPT, LM_GEN,
+                        LM_REQUESTS).group_size
+    return [min(gs, LM_REQUESTS - i) for i in range(0, LM_REQUESTS, gs)]
+
+
+def _k6(rows: int, d: int = 896) -> dict:
+    return dict(kernel="rmsnorm", rows=rows, d=d)
+
+
+def _flash(b, sq, sk, cap, q_offset=0, sk_valid=None, causal=True, d=64,
+           hq=14, hkv=2) -> dict:
+    return dict(kernel="flash_attention", b=b, hq=hq, hkv=hkv, sq=sq, sk=sk,
+                d=d, cap=cap, causal=causal, q_offset=q_offset,
+                sk_valid=sk_valid)
+
+
+def _decode(b, sk, cap, kv_len=None, d=64, hq=14, hkv=2) -> dict:
+    return dict(kernel="decode_attention", b=b, hq=hq, hkv=hkv, sk=sk, d=d,
+                cap=cap, kv_len=kv_len)
+
+
+def lm_request_calls(size: int) -> list[tuple[dict, float]]:
+    """One LM request's kernel calls with their weights: its prefill
+    forward (48 norms over the 2 x 512 prompt rows, the final norm over the
+    last position's 2 rows, 24 flash calls), and its share 1/size of the
+    63 decode steps of a group of ``size`` requests (49 norms over the
+    group's rows and 24 decode calls at cache lengths 513..575)."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(LM_ARCH)
+    L, rows = cfg.n_layers, LM_BATCH * size
+    calls = [(_k6(LM_BATCH * LM_PROMPT), 2 * L), (_k6(LM_BATCH), 1),
+             (_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN), L)]
+    steps = LM_GEN - 1
+    calls.append((_k6(rows), (2 * L + 1) * steps / size))
+    calls += [(_decode(rows, LM_PROMPT + 1 + t, LM_MAX_LEN), L / size)
+              for t in range(steps)]
+    return calls
+
+
+def lm_edge_calls() -> list[dict]:
+    """K6 at one row, at an odd width and past a warp's reach; K7 flash at
+    Sq = 37, a chunk against a cache, a padding mask and D = 8; K7 decode
+    at a cache of 576, ragged ``kv_len`` and D = 8."""
+    return [_k6(1), _k6(16), _k6(16, 897), _k6(3, 12288),
+            _flash(1, 37, 37, 37), _flash(2, 128, 512, LM_MAX_LEN, 384),
+            _flash(1, 64, 200, 200, sk_valid=150, causal=False),
+            _flash(2, 33, 33, 33, d=8),
+            _decode(2, 576, LM_MAX_LEN),
+            _decode(4, 576, LM_MAX_LEN, kv_len=[513, 1, 576, 300]),
+            _decode(3, 100, 100, kv_len=[100, 37, 1], d=8)]
+
+
+def weighted_sums(rows: dict, calls: list[tuple[dict, float]]) -> dict:
+    """Per kernel, the phase-2 numbers summed over weighted calls."""
+    out: dict[str, dict] = {}
+    for c, wgt in calls:
+        r = rows[json.dumps(c, sort_keys=True)]
+        acc = out.setdefault(c["kernel"], dict(
+            calls=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+            flops=0.0, max_abs_err=0.0))
+        acc["calls"] += wgt
+        for k in ("ms", "plain_ms", "library_ms", "bytes", "flops"):
+            acc[k] += wgt * r[k]
+        acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
+    return out
+
+
+def card_rates() -> dict:
+    """What the cost model's ceilings would read: the f32 matmul rate at
+    the prefill's up projection (1024 x 896 @ 896 x 4864, TF32 off) and a
+    1 GiB device copy's rate (read + write)."""
+    from repro_torch.kernels.util import cuda_time_ms
+    a = torch.randn(LM_BATCH * LM_PROMPT, 896, device=DEV)
+    b = torch.randn(896, 4864, device=DEV)
+    mm_ms = cuda_time_ms(lambda: a @ b)
+    src = torch.empty(2 ** 28, device=DEV)
+    dst = torch.empty_like(src)
+    cp_ms = cuda_time_ms(lambda: dst.copy_(src), reps=10)
+    return dict(matmul_tflops=2 * a.shape[0] * 896 * 4864 / mm_ms / 1e9,
+                copy_tb_per_s=2 * 4 * src.numel() / cp_ms / 1e9)
+
+
+def lm_card_vs_cpu(cfg, params, host) -> float:
+    """A 16-token prompt at full width: a 12-token prefill, a 4-token chunk
+    against the cache (K7 flash at q_offset 12) and 3 decode steps (K7
+    decode), on the card against the plain versions on the CPU, fed the
+    CPU's tokens.  Returns the largest logit difference."""
+    from repro_torch.dualmesh.runtime import random_prompts
+    from repro_torch.lm.model import decode_step, init_cache, \
+        params_from_numpy
+    cpu = params_from_numpy(host, "cpu")
+    tokens = random_prompts(cfg, 1, LM_BATCH, LM_CHECK_PROMPT, seed=2)[0]
+    cc = init_cache(cfg, LM_BATCH, 32, "cpu")
+    gc = init_cache(cfg, LM_BATCH, 32, DEV)
+    feeds = [tokens[:, :12], tokens[:, 12:]]
+    worst = 0.0
+    for i in range(len(feeds) + 3):
+        feed = feeds[i] if i < len(feeds) else nxt
+        want, cc = decode_step(cpu, cfg, feed, cc)
+        got, gc = decode_step(params, cfg, feed.to(DEV), gc)
+        got = got.cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"lm step {i}: logits {tuple(got.shape)}")
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=FORWARD_TOL, atol=FORWARD_TOL):
+            raise AssertionError(f"lm step {i}: the card's logits differ "
+                                 f"from the CPU's plain ones by {err:.3e}")
+        worst = max(worst, err)
+        nxt = torch.argmax(want[:, -1, :cfg.vocab], dim=-1)[:, None]
+    return worst
+
+
+def lm_device_ms(cfg, params, rows_dec: int) -> tuple[float, float]:
+    """Device ms of one decode step of ``rows_dec`` rows at cache length
+    ``LM_PROMPT + LM_GEN // 2`` and of one prefill forward of the path's
+    prompt, the host's launch cost held out (``cuda_time_ms``)."""
+    from repro_torch.kernels.util import cuda_time_ms
+    from repro_torch.lm.model import decode_step, init_cache
+    cache = init_cache(cfg, rows_dec, LM_MAX_LEN, DEV)._replace(
+        pos=LM_PROMPT + LM_GEN // 2)
+    tok = torch.zeros((rows_dec, 1), dtype=torch.int64, device=DEV)
+    step = cuda_time_ms(lambda: decode_step(params, cfg, tok, cache), reps=4)
+    pcache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, DEV)
+    ptok = torch.zeros((LM_BATCH, LM_PROMPT), dtype=torch.int64, device=DEV)
+    prefill = cuda_time_ms(lambda: decode_step(params, cfg, ptok, pcache,
+                                               last_only=True), reps=2)
+    return step, prefill
+
+
+def lm_path(rows: dict) -> dict:
+    """Qwen2-0.5B served through ``DualMeshEngine`` on the two streams."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+    from repro_torch.lm.model import init_params, params_from_numpy
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.lm import DualMeshEngine
+
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    host = init_params(cfg, seed=0)
+    params = params_from_numpy(host, DEV)
+    n_params = sum(a.size for a in _leaves(host))
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab} "
+          f"(padded {cfg.padded_vocab}); {n_params / 1e6:.1f} M parameters "
+          f"({4 * n_params / 1e9:.2f} GB f32) from seed 0, on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    err = lm_card_vs_cpu(cfg, params, host)
+    print(f"[lm] card against CPU plain versions, 16-token prompt (prefill "
+          f"12, chunk 4, 3 decode steps): max |logit err| {err:.2e} (tol "
+          f"{FORWARD_TOL})")
+
+    prompts = random_prompts(cfg, LM_REQUESTS, LM_BATCH, LM_PROMPT, seed=1,
+                             device=DEV)
+    runners = {}
+    for name, one in (("two", False), ("one", True)):
+        r = DualMeshRunner(cfg, params,
+                           split_streams(DEV, LM_THETA, one_stream=one),
+                           max_len=LM_MAX_LEN)
+        r.serve(prompts[:1], gen_steps=2, group_size=1)     # warm-up
+        runners[name] = r
+    torch.cuda.synchronize()
+    runner = runners["two"]
+    gs = runner.planned_group_size(prompts, [LM_GEN] * LM_REQUESTS)
+    print(f"[lm] {runner.dual.cores.describe()}; planned group size {gs}")
+
+    def run(name):
+        r = runners[name]
+        start = len(r.trace)
+        res = replay(DualMeshEngine(r, group_size=gs),
+                     [Request(p, gen_steps=LM_GEN) for p in prompts])
+        return res, r.trace_stream_ms()[start:]
+
+    reset_counts()
+    res, stream_ms = run("two")
+    launches = launch_counts()
+    L = cfg.n_layers
+    n_groups = len(res.stats["fused_sizes"])
+    steps = (LM_GEN - 1) * n_groups
+    want = {"rmsnorm": (LM_REQUESTS + steps) * (2 * L + 1),
+            "flash_attention": LM_REQUESTS * L,
+            "decode_attention": steps * L}
+    check_counts("lm serving", launches, want)
+    if res.stats["fused_sizes"] != lm_group_sizes():
+        raise AssertionError(f"lm serving formed decode groups "
+                             f"{res.stats['fused_sizes']}, but phase 2 "
+                             f"checked K7 decode at {lm_group_sizes()}")
+    for i, (out, p) in enumerate(zip(res.outputs, prompts)):
+        if (out.shape != (LM_BATCH, LM_PROMPT + LM_GEN)
+                or out.dtype != torch.int64
+                or not torch.equal(out[:, :LM_PROMPT], p)
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
+            raise AssertionError(f"lm request {i}: bad output "
+                                 f"{tuple(out.shape)} {out.dtype}")
+    res_one, _ = run("one")
+    for i, (a, b) in enumerate(zip(res.outputs, res_one.outputs)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"lm request {i}: two streams and one "
+                                 f"stream generated different tokens")
+    walls = {"two": [res.stats["wall_s"]], "one": [res_one.stats["wall_s"]]}
+    for name in ("one", "two"):                         # in turns
+        walls[name].append(run(name)[0].stats["wall_s"])
+    s, m = res.stats, res.metrics
+    print(f"[lm] {LM_REQUESTS} requests x batch {LM_BATCH}, prompt "
+          f"{LM_PROMPT}, {LM_GEN} generated: {s['wall_s'] * 1e3:.2f} ms, "
+          f"{s['tokens_per_s']:.1f} tokens/s ({s['total_tokens']} tokens: "
+          f"{s['prefill_tokens']} prefill, {s['decode_tokens']} generated), "
+          f"p50 {m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; fused sizes "
+          f"{s['fused_sizes']}; launches {launches} (the plan's)")
+    print(f"[lm] tokens equal on two streams and on one; walls two "
+          f"{[round(w * 1e3, 2) for w in walls['two']]} ms, one "
+          f"{[round(w * 1e3, 2) for w in walls['one']]} ms (runs 1 and 2 "
+          f"of each, in turns)")
+    for (kind, core, host_s), sms in zip(res.trace, stream_ms):
+        print(f"[lm]   {kind:<8} on {core}  host {host_s * 1e3:9.2f} ms  "
+              f"on its stream {sms:9.2f} ms")
+    dec = [(h, d) for (kind, _, h), d in zip(res.trace, stream_ms)
+           if kind == "decode"]
+    host_step = sum(h for h, _ in dec) * 1e3 / steps
+    stream_step = sum(d for _, d in dec) / steps
+    rows_dec = LM_BATCH * gs
+    dev_step, dev_prefill = lm_device_ms(cfg, params, rows_dec)
+    k6_step = (2 * L + 1) * rows[json.dumps(_k6(rows_dec),
+                                            sort_keys=True)]["ms"]
+    k7_step = L * sum(rows[json.dumps(_decode(rows_dec, LM_PROMPT + 1 + t,
+                                              LM_MAX_LEN),
+                                      sort_keys=True)]["ms"]
+                      for t in range(LM_GEN - 1)) / (LM_GEN - 1)
+    print(f"[lm] per decode step ({rows_dec} rows): host enqueue "
+          f"{host_step:.3f} ms and {stream_step:.3f} ms on the p stream "
+          f"(events around each decode stage, over {steps} steps); device "
+          f"{dev_step:.3f} ms (one step at cache {LM_PROMPT + LM_GEN // 2}, "
+          f"host held out), of it K6 {k6_step:.4f} ms (49 calls) and K7 "
+          f"decode {k7_step:.4f} ms (24 calls, phase 2); one prefill "
+          f"forward (2 x {LM_PROMPT}) {dev_prefill:.3f} ms on the device")
+    rates = card_rates()
+    print(f"[lm] card rates: f32 matmul 1024x896x4864 "
+          f"{rates['matmul_tflops']:.2f} TFLOP/s "
+          f"({rates['matmul_tflops'] / (PEAK_F32_FLOP_PER_S / 1e12):.3f} of "
+          f"67), 1 GiB copy {rates['copy_tb_per_s']:.3f} TB/s "
+          f"({rates['copy_tb_per_s'] / (PEAK_BYTES_PER_S / 1e12):.3f} of "
+          f"3.35)")
+    return dict(model=LM_ARCH, launches=launches,
+                kernels=weighted_sums(rows, lm_request_calls(
+                    s["fused_sizes"][0])),
+                group_size=gs, fused_sizes=s["fused_sizes"],
+                wall_s=s["wall_s"], tokens_per_s=s["tokens_per_s"],
+                p50_ms=m.p50_ms(), p95_ms=m.p95_ms(), walls=walls,
+                trace=[[k, c, h, d] for (k, c, h), d in zip(res.trace,
+                                                             stream_ms)],
+                host_ms_per_step=host_step, stream_ms_per_step=stream_step,
+                device_ms_per_step=dev_step, device_ms_prefill=dev_prefill,
+                k6_ms_per_step=k6_step, k7_decode_ms_per_step=k7_step,
+                card_vs_cpu_max_abs_err=err, rates=rates)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     """Run the phases; return the exit code."""
     if not torch.cuda.is_available():
@@ -590,6 +979,8 @@ def main() -> int:
         path_calls += plan_calls(plan, graph, BATCH)
     path_calls += step_calls(build_program(FUSED, fuse=True).steps,
                              get_graph(FUSED), BATCH)
+    for size in sorted(set(lm_group_sizes())):
+        path_calls += [c for c, _ in lm_request_calls(size)]
     distinct: dict[str, dict] = {}
     for c in path_calls:
         distinct.setdefault(json.dumps(c, sort_keys=True), c)
@@ -602,19 +993,23 @@ def main() -> int:
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
               f"{r['max_abs_err']:.1e}")
-    for c in edge_calls():
+    edges = edge_calls() + lm_edge_calls()
+    for c in edges:
         r = check_and_time(c, gen, timing=False)
         print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<40} err "
               f"{r['max_abs_err']:.1e}")
     print(f"[kernels] all kernels agree with their plain versions "
           f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes and "
-          f"{len(edge_calls())} edge cases")
+          f"{len(edges)} edge cases")
 
     # 3. paths ------------------------------------------------------------
     paths = [serve_path(model, gen, rows) for model in SERVED]
     paths.append(fused_forward_path(gen, rows))
 
-    # 4. report -----------------------------------------------------------
+    # 4. lm ---------------------------------------------------------------
+    paths.append(lm_path(rows))
+
+    # 5. report -----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -636,7 +1031,8 @@ def main() -> int:
         rows=list(rows.values()), paths=paths, kernels=kernels), indent=1))
     print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
           f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
-          f"the kernel; launches are the paths' counted runs; "
+          f"the kernel (an LM request: its prefill and its share of its "
+          f"decode group's steps); launches are the paths' counted runs; "
           f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -648,7 +1044,9 @@ def main() -> int:
 
 def _shape_str(c: dict) -> str:
     keys = [k for k in ("m", "k", "n", "h", "w", "c", "ci", "cm", "co",
-                        "stride", "res") if k in c]
+                        "stride", "res", "rows", "d", "b", "hq", "hkv",
+                        "sq", "sk", "q_offset", "sk_valid", "kv_len")
+            if k in c and c[k] is not None]
     return " ".join(f"{k}={c[k]}" for k in keys)
 
 

@@ -1,0 +1,32 @@
+"""Registry of the architectures the port can run.
+
+Port of ``repro/configs/registry.py``.  The reference registers ten LM
+architectures; the port lists only those whose blocks it has (dense
+transformers so far).  Asking for any other raises ``KeyError`` naming the
+ones the port has.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("qwen2_0_5b",)
+
+CNN_IDS = ("mobilenet_v1", "mobilenet_v2", "squeezenet")
+
+
+def _module(name: str):
+    if name not in ARCH_IDS:
+        raise KeyError(f"architecture {name!r} is not in the port; the port "
+                       f"has {ARCH_IDS} (the other blocks are ROADMAP item "
+                       f"11)")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_arch(name: str):
+    """The published configuration of ``name``."""
+    return _module(name).full()
+
+
+def get_smoke(name: str):
+    """The reduced configuration of ``name`` (CPU tests)."""
+    return _module(name).smoke()

@@ -1,4 +1,4 @@
-// Shared helpers of the hand-written f32 kernels (K1-K5).
+// Shared helpers of the hand-written f32 kernels (K1-K7).
 //
 // Every kernel computes in full f32 on the CUDA cores (no TF32, no tensor
 // cores), accumulates in a fixed per-thread order and uses no atomics, so a

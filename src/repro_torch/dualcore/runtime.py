@@ -137,30 +137,41 @@ def build_exec_plan(program: Program, schedule: Schedule,
 class DualCores:
     """The c-core and the p-core of one device.
 
-    On CUDA: two streams of the same card.  They share every SM: ``theta``
-    is recorded for the printout and does not split SMs yet.  On the CPU:
-    both cores alias the one eager queue (no overlap)."""
+    On CUDA: two streams of the same card (one stream for both with
+    ``one_stream``, the no-overlap baseline).  They share every SM:
+    ``theta`` is recorded for the printout and does not split SMs yet.  On
+    the CPU: both cores alias the one eager queue (no overlap)."""
 
-    def __init__(self, device: torch.device, theta: float = 0.5):
+    def __init__(self, device: torch.device, theta: float = 0.5,
+                 one_stream: bool = False):
         self.device = device
         self.theta = theta
         if device.type == "cuda":
-            self.streams = {"c": torch.cuda.Stream(device),
-                            "p": torch.cuda.Stream(device)}
+            c = torch.cuda.Stream(device)
+            p = c if one_stream else torch.cuda.Stream(device)
+            self.streams = {"c": c, "p": p}
         else:
             self.streams = {"c": None, "p": None}
 
     @property
+    def on_card(self) -> bool:
+        """True when the cores are CUDA streams (events order them)."""
+        return self.streams["c"] is not None
+
+    @property
     def distinct(self) -> bool:
         """True when the two cores are separate queues (two streams)."""
-        return self.streams["c"] is not None
+        return self.on_card and self.streams["c"] is not self.streams["p"]
 
     def describe(self) -> str:
         """One line for the printout: what the two cores are."""
-        if not self.distinct:
+        if not self.on_card:
             return (f"c/p cores alias one {self.device.type} queue "
                     f"(degenerate: no overlap)")
         name = torch.cuda.get_device_name(self.device)
+        if not self.distinct:
+            return (f"c/p cores share one CUDA stream on one {name} "
+                    f"(no overlap)")
         sms = torch.cuda.get_device_properties(self.device) \
             .multi_processor_count
         return (f"c/p cores are two CUDA streams on one {name}; both "
@@ -278,7 +289,7 @@ class DualCoreRunner:
         if x.device != self.device:
             x = x.to(self.device)
         env: Env = {"h": x.contiguous()}
-        if self.cores.distinct:
+        if self.cores.on_card:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
             env[READY] = ready

@@ -1,0 +1,126 @@
+"""GQA attention: flash for prefill and decode for one new token (K7).
+
+Wrappers of the hand-written CUDA kernels in ``csrc/flash_attention.cu``,
+which replace the TPU kernels ``repro/kernels/attention/kernel.py::
+flash_attention`` and ``::decode_attention`` (whose ragged ``kv_len`` case
+the reference leaves to jnp); the source says what bounds each on an H100
+and how the key loop inside a block stands in for the TPU's sequential k
+grid axis.
+
+k and v may be the first Sk rows of a longer cache (a view cut along the
+sequence axis): the kernels read the cache in place.  q must be
+contiguous.  A CUDA tensor launches the kernel on the current stream (or
+raises); a CPU tensor runs the plain version from ``ref.py``.
+``flash_attention.launches`` and ``decode_attention.launches`` count the
+launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.attention.ref import (decode_attention_ref,
+                                               flash_attention_ref)
+from repro_torch.kernels.util import cdiv, check_cuda_operands, launch
+
+MAX_D = 128           # the kernels' widest head
+MAX_G = 8             # the decode kernel's widest GQA group
+KEYS_PER_SPLIT = 128  # the decode kernel's keys per block (split-K)
+
+
+def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or k.shape[1] < 1 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    return b, hq, k.shape[1], sq, k.shape[2], d
+
+
+def _kv_capacity(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> int:
+    """Rows per (batch, kv head) of the cache k and v are cut from; raises
+    unless both are f32 on q's device with rows of D contiguous floats and
+    heads and batches evenly strided (a contiguous tensor, or one cut
+    along the sequence axis)."""
+    b, hkv, sk, d = k.shape
+    for key, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {t.dtype} on {t.device}, "
+                            f"expected float32 on {q.device}")
+        st = t.stride()
+        if (st[3] != 1 or (sk > 1 and st[2] != d) or st[1] % d
+                or st[1] // d < sk or (b > 1 and st[0] != hkv * st[1])):
+            raise ValueError(f"{name}: {key} strides {st} are not a "
+                             f"(possibly cut) contiguous cache")
+    if k.stride() != v.stride():
+        raise ValueError(f"{name}: k strides {k.stride()} != v strides "
+                         f"{v.stride()}")
+    return k.stride(1) // d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    sk_valid: int | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); Hq % Hkv == 0 (GQA).
+
+    Query row i sits at key position ``q_offset + i``; keys at or past
+    ``sk_valid`` (default Sk) are masked.  Returns (B, Hq, Sq, D)."""
+    b, hq, hkv, sq, sk, d = _shapes("flash_attention", q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   sk_valid=sk_valid)
+    check_cuda_operands("flash_attention", q.device, q=q)
+    if d > MAX_D:
+        raise ValueError(f"flash_attention: D {d} > {MAX_D}")
+    kv_cap = _kv_capacity("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    launch("repro_flash_attention", q.device, q, k, v, out, b, hq, hkv, sq,
+           sk, d, kv_cap, int(causal), int(q_offset),
+           sk if sk_valid is None else int(sk_valid), 1.0 / math.sqrt(d))
+    flash_attention.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-token decode: q (B, Hq, 1, D) against k/v (B, Hkv, S, D).
+
+    ``kv_len`` (B,) int32, optional, masks each row's cache to its first
+    ``kv_len[b]`` positions (ragged decode)."""
+    b, hq, hkv, sq, sk, d = _shapes("decode_attention", q, k, v)
+    if sq != 1:
+        raise ValueError(f"decode_attention: Sq {sq} != 1")
+    if kv_len is not None and tuple(kv_len.shape) != (b,):
+        raise ValueError(f"decode_attention: kv_len {tuple(kv_len.shape)}, "
+                         f"expected ({b},)")
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kv_len)
+    check_cuda_operands("decode_attention", q.device, q=q)
+    if d > MAX_D or hq // hkv > MAX_G:
+        raise ValueError(f"decode_attention: D {d} > {MAX_D} or group "
+                         f"{hq // hkv} > {MAX_G}")
+    if kv_len is not None and (kv_len.device != q.device
+                               or kv_len.dtype != torch.int32
+                               or not kv_len.is_contiguous()):
+        raise TypeError(f"decode_attention: kv_len must be contiguous int32 "
+                        f"on {q.device}")
+    kv_cap = _kv_capacity("decode_attention", q, k, v)
+    out = torch.empty_like(q)
+    n_split = cdiv(sk, KEYS_PER_SPLIT) if sk > 0 else 1
+    # each split's softmax per query head: m, l, acc[D]
+    part = (torch.empty(b * hq * n_split * (d + 2), device=q.device)
+            if n_split > 1 else None)
+    launch("repro_decode_attention", q.device, q, k, v, kv_len, out, part, b,
+           hq, hkv, sk, d, kv_cap, n_split, 1.0 / math.sqrt(d))
+    decode_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+decode_attention.launches = 0

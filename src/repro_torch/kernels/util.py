@@ -74,6 +74,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
                            "run the plain PyTorch versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        # name the card by index, so it compares equal to a tensor's device
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -84,8 +87,10 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
     A sleep kernel queued ahead of the start event holds the device while
     the host enqueues every call, so the host's launch overhead is not
-    counted; if the device reached the start event before the last call
-    was queued, the measurement is repeated with a longer sleep.  Inputs
+    counted.  If the device reached the start event before the last call
+    was queued, the measurement is repeated with a longer sleep and half
+    the calls: the host may have waited on a full launch queue (about a
+    thousand pending launches), which a longer sleep cannot cure.  Inputs
     stay where the previous call left them (in L2 at the path's sizes)."""
     for _ in range(warmup):
         fn()
@@ -95,7 +100,7 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     sleep_ms = 2.0 * reps * host_ms + 1.0
-    for _ in range(4):
+    for _ in range(8):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
@@ -107,7 +112,8 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         if ahead:
             return start.elapsed_time(end) / reps
-        sleep_ms *= 4
+        sleep_ms *= 2                 # 4x the sleep per call
+        reps = max(1, reps // 2)
     raise RuntimeError("cuda_time_ms: the device caught up with the host "
                        "under every sleep; does fn() synchronise?")
 
@@ -182,15 +188,20 @@ def build_library() -> Path:
     return lib                         # or nothing
 
 
-# C signatures: 'p' a device pointer (or NULL), 'i' an int, 's' the stream.
+# C signatures: 'p' a device pointer (or NULL), 'i' an int, 'f' a float,
+# 's' the stream.
 SIGNATURES = {
     "repro_matmul_bias_act": "p" * 4 + "i" * 4 + "s",
     "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 12 + "s",
     "repro_depthwise_conv2d": "p" * 4 + "i" * 11 + "s",
     "repro_fused_dw_pw_conv": "p" * 7 + "i" * 13 + "s",
     "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 15 + "s",
+    "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",
+    "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "s",
+    "repro_decode_attention": "p" * 6 + "i" * 7 + "f" + "s",
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "s": ctypes.c_void_p}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "s": ctypes.c_void_p}
 
 
 @functools.cache

@@ -1,0 +1,137 @@
+"""Transformer building blocks of the dense LM.
+
+Port of the dense-transformer part of ``repro/lm/modules.py``: RoPE, the
+KV cache, GQA attention and the SwiGLU MLP, over plain dictionaries of
+tensors with weights in the reference's (d_in, d_out) layout.  The
+reference's ``rms_norm`` has no counterpart here: ``lm/model.py`` calls
+K6's wrapper ``rmsnorm`` itself.
+
+Where the reference calls the kernels' oracles (``rmsnorm_ref``, and XLA
+einsums for attention), the port calls its kernels: every RMSNorm goes to
+K6 and every attention to K7, flash for a block of queries and decode for
+one new token.  On a CPU tensor each runs its plain version.  The
+reference's sharding hints have no counterpart on one card, and its
+``Q_CHUNK`` query blocking is dropped: the flash kernel bounds the score
+memory itself.  The projections stay ``torch.matmul`` in f32; the entry
+points keep TF32 off (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's
+default), so the card computes them in full f32 as XLA does on the CPU.
+
+The KV cache is written in place: a block's k/v go into the cache rows at
+``cache_pos`` with one copy, and attention reads the cache cut to its
+filled prefix without copying it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.attention.kernel import (decode_attention,
+                                                  flash_attention)
+
+
+# --------------------------------------------------------------------------
+# Rotary embeddings
+# --------------------------------------------------------------------------
+def rope_freqs(d_head: int, theta: float,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., S) int -> cos/sin (..., S, d_head//2) f32."""
+    half = d_head // 2
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=positions.device) / half))
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, S, D); cos/sin: (B, S, D//2) or (S, D//2)."""
+    if cos.dim() == 2:
+        cos = cos[None]
+        sin = sin[None]
+    cos = cos[:, None]          # (B, 1, S, D/2)
+    sin = sin[:, None]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention (GQA, optional bias, optional KV cache)
+# --------------------------------------------------------------------------
+class KVCache(NamedTuple):
+    """One layer's cache: k and v (B, Hkv, S_max, Dh)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, q_offset: int | None = None
+                     ) -> torch.Tensor:
+    """GQA attention of q (B, Hq, Sq, D) over k/v (B, Hkv, Sk, D): K7.
+
+    ``q_offset`` positions the query block inside the key sequence (query
+    row i at key ``q_offset + i``; default ``Sk - Sq``, the bottom-right
+    alignment).  One query row goes to the decode kernel, which needs no
+    mask when every key up to the row is visible: with a cache that is
+    ``q_offset = Sk - 1``, the only case the model makes."""
+    sq, sk = q.shape[2], k.shape[2]
+    off = sk - sq if q_offset is None else q_offset
+    q = q.contiguous()
+    if sq == 1 and (not causal or off == sk - 1):
+        return decode_attention(q, k, v)
+    return flash_attention(q, k, v, causal=causal, q_offset=off)
+
+
+def gqa_attention(params: dict, x: torch.Tensor, cfg,
+                  positions: torch.Tensor,
+                  cache: KVCache | None = None,
+                  cache_pos: int | None = None,
+                  causal: bool = True,
+                  rope: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Full attention block: qkv proj -> rope -> attention -> out proj.
+
+    Returns (out, cache).  With a cache, the block's k/v are written in
+    place at ``cache_pos`` and attention runs over the cache cut to
+    ``cache_pos + S``.  ``rope`` passes the (cos, sin) of ``positions``
+    when the caller has them already (one per forward, not per layer)."""
+    b, s, _ = x.shape
+    q = torch.matmul(x, params["wq"])
+    k = torch.matmul(x, params["wk"])
+    v = torch.matmul(x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    cos, sin = rope if rope is not None else rope_freqs(
+        cfg.d_head, cfg.rope_theta, positions)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is not None:
+        if cache_pos is None:
+            raise ValueError("gqa_attention: a cache needs cache_pos")
+        end = cache_pos + s
+        cache.k[:, :, cache_pos:end] = k
+        cache.v[:, :, cache_pos:end] = v
+        out = attention_scores(q, cache.k[:, :, :end], cache.v[:, :, :end],
+                               causal=causal, q_offset=cache_pos)
+    else:
+        out = attention_scores(q, k.contiguous(), v.contiguous(),
+                               causal=causal, q_offset=0)
+    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return torch.matmul(out, params["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU)
+# --------------------------------------------------------------------------
+def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """silu(x Wg) * (x Wu), then Wd."""
+    gate = torch.nn.functional.silu(torch.matmul(x, params["wg"]))
+    up = torch.matmul(x, params["wu"])
+    return torch.matmul(gate * up, params["wd"])

@@ -1,13 +1,13 @@
 """Streaming engine API: requests, tickets, metrics, admission, replay.
 
-Port of the part of ``repro/serving/api.py`` that ``DualCoreEngine`` and
-``replay`` need.  ``submit`` enqueues a :class:`Request` onto the engine's
-bounded queue and returns a :class:`Ticket` (raising :class:`QueueFull` at
-capacity); ``step`` advances the engine by one scheduler slot and returns
-the requests it finished as :class:`Completion` objects; ``drain`` steps
-until no work remains and returns a :class:`ServeResult`; ``result``
-snapshots what has completed.  Engines never spin a thread: the caller owns
-the loop.
+Port of the part of ``repro/serving/api.py`` that ``DualCoreEngine``,
+``DualMeshEngine`` and ``replay`` need.  ``submit`` enqueues a
+:class:`Request` onto the engine's bounded queue and returns a
+:class:`Ticket` (raising :class:`QueueFull` at capacity); ``step``
+advances the engine by one scheduler slot and returns the requests it
+finished as :class:`Completion` objects; ``drain`` steps until no work
+remains and returns a :class:`ServeResult`; ``result`` snapshots what has
+completed.  Engines never spin a thread: the caller owns the loop.
 
 A completion is stamped when its output's CUDA ready event has fired: the
 engine waits on that one event, never on the whole device, so the other
@@ -33,10 +33,14 @@ class QueueFull(RuntimeError):
 
 @dataclasses.dataclass
 class Request:
-    """One unit of serving work: ``payload`` is an ``(N, H, W, 3)`` image
-    batch for the CNN engine; ``rid`` is assigned at submit time."""
+    """One unit of serving work: ``payload`` is a ``(B, P)`` token prompt
+    for the LM engine, an ``(N, H, W, 3)`` image batch for the CNN engine.
+    ``gen_steps`` is the LM decode budget (total generated tokens; the
+    prefill emits the first) and is ignored by the CNN engine.  ``rid`` is
+    assigned at submit time."""
 
     payload: Any
+    gen_steps: int = 0
     rid: int | None = None
 
 
@@ -122,12 +126,15 @@ class Metrics:
 @dataclasses.dataclass
 class ServeResult:
     """What ``drain``/``result`` hand back: outputs in submission order,
-    per-request completions, aggregate metrics, engine-specific stats."""
+    per-request completions, aggregate metrics, engine-specific stats, and
+    the engine's per-stage trace (the LM engine's; empty for the CNN
+    engine)."""
 
     outputs: list[Any]
     completions: list[Completion]
     metrics: Metrics
     stats: dict = dataclasses.field(default_factory=dict)
+    trace: list = dataclasses.field(default_factory=list)
 
 
 # --------------------------------------------------------------------------
@@ -227,6 +234,10 @@ class EngineBase:
         """Engine-specific stats merged into ``result().stats``."""
         return {}
 
+    def _trace_snapshot(self) -> list:
+        """Engine-specific per-stage trace for ``result().trace``."""
+        return []
+
     def result(self) -> ServeResult:
         """Snapshot of everything completed so far, in submission order."""
         wall = ((time.perf_counter() - self._t0) if self._t0 is not None
@@ -239,7 +250,7 @@ class EngineBase:
         stats.update(self._extra_stats(metrics))
         return ServeResult(outputs=[c.output for c in completions],
                            completions=completions, metrics=metrics,
-                           stats=stats)
+                           stats=stats, trace=self._trace_snapshot())
 
     def drain(self) -> ServeResult:
         """Step until no queued or in-flight work remains."""

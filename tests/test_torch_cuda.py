@@ -24,6 +24,13 @@ from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
 from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
 from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
                                                     fused_pw_dw_pw_conv)
+from repro_torch.configs.registry import get_smoke
+from repro_torch.dualmesh.partition import split_streams
+from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+from repro_torch.kernels.attention.kernel import (decode_attention,
+                                                  flash_attention)
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+from repro_torch.lm.model import forward, init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
 from repro_torch.serving.cnn import stream_images
 
@@ -144,3 +151,91 @@ def test_two_streams_mobilenet_v1_on_card(card):
     pw->dw->pw chains run on K5."""
     per_image = _check_two_streams("mobilenet_v1", card)
     assert per_image[fused_pw_dw_pw_conv] == 4
+
+
+# --------------------------------------------------------------------------
+# the LM kernels and path
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 896), (16, 896), (1024, 896),
+                                    (7, 257), (3, 2048)])
+def test_k6_matches_plain_on_card(rows, d, card):
+    x, w = _arrays(8, (rows, d), (d,))
+    before = rmsnorm.launches
+    got = rmsnorm(x.to(card), w.to(card))
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), rmsnorm(x, w).numpy(),
+                               **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,q_offset,sk_valid,cap", [
+    (1, 14, 2, 512, 512, 64, True, 0, None, 512),
+    (2, 14, 2, 37, 37, 64, True, 0, None, 37),
+    (2, 14, 2, 20, 50, 64, True, 30, None, 80),     # chunk against a cache
+    (1, 6, 3, 40, 100, 64, False, 0, 71, 100),      # padding mask
+    (2, 4, 2, 33, 33, 8, True, 0, None, 33),        # D = 8
+])
+def test_k7_flash_matches_plain_on_card(b, hq, hkv, sq, sk, d, causal,
+                                        q_offset, sk_valid, cap, card):
+    q, k, v = _arrays(9, (b, hq, sq, d), (b, hkv, cap, d), (b, hkv, cap, d),
+                      scale=0.5)
+    kw = dict(causal=causal, q_offset=q_offset, sk_valid=sk_valid)
+    before = flash_attention.launches
+    got = flash_attention(q.to(card), k.to(card)[:, :, :sk],
+                          v.to(card)[:, :, :sk], **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention(q, k[:, :, :sk], v[:, :, :sk], **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ragged", [(64, False), (64, True), (8, True)])
+def test_k7_decode_matches_plain_on_card(d, ragged, card):
+    q, k, v = _arrays(10, (3, 14, 1, d), (3, 2, 600, d), (3, 2, 600, d),
+                      scale=0.5)
+    lens = torch.tensor([513, 1, 576], dtype=torch.int32) if ragged else None
+    before = decode_attention.launches
+    got = decode_attention(q.to(card), k.to(card)[:, :, :576],
+                           v.to(card)[:, :, :576],
+                           None if lens is None else lens.to(card))
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention(q, k[:, :, :576], v[:, :, :576], lens)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_lm_path_on_card(card):
+    """The smoke config: the card's forward agrees with the CPU's plain
+    forward at 1e-4; the engine on two streams gives the tokens of the
+    engine on one stream, and launches K6 and K7 as the plan says."""
+    cfg = get_smoke("qwen2_0_5b")
+    host = init_params(cfg, seed=0)
+    params = params_from_numpy(host, card)
+    tokens = random_prompts(cfg, 1, 2, 12, seed=2)[0]
+    np.testing.assert_allclose(
+        forward(params, cfg, tokens.to(card)).cpu().numpy(),
+        forward(params_from_numpy(host, "cpu"), cfg, tokens).numpy(), **TOL)
+    prompts = random_prompts(cfg, 4, 2, 8, seed=3, device=card)
+    runs = []
+    for one_stream in (False, True):
+        runner = DualMeshRunner(cfg, params,
+                                split_streams(card, one_stream=one_stream),
+                                max_len=24)
+        before = [f.launches for f in (rmsnorm, flash_attention,
+                                       decode_attention)]
+        res = runner.serve(prompts, gen_steps=6, group_size=2)
+        torch.cuda.synchronize()
+        after = [f.launches for f in (rmsnorm, flash_attention,
+                                      decode_attention)]
+        steps = 2 * 5                       # two groups, 5 decode steps
+        per_forward = 2 * cfg.n_layers + 1
+        assert [a - b for a, b in zip(after, before)] == [
+            (4 + steps) * per_forward, 4 * cfg.n_layers,
+            steps * cfg.n_layers]
+        runs.append([o.cpu() for o in res.outputs])
+    for a, b in zip(*runs):
+        assert a.shape == (2, 14) and torch.equal(a, b)

@@ -91,6 +91,26 @@ def test_entry_points_without_device_raise_without_a_card(monkeypatch):
         main(["cnn", "squeezenet", "--image-size", "32"])
 
 
+def test_lm_entry_points_without_device_raise_without_a_card(monkeypatch):
+    """The ``lm`` subcommand and the LM building blocks need a card unless
+    the caller passes ``device="cpu"`` (``--device cpu``)."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.launch.serve import main
+    from repro_torch.lm.model import init_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("qwen2_0_5b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["lm", "--arch", "qwen2_0_5b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        split_streams()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    assert split_streams("cpu").stream("p") is None
+    assert init_cache(cfg, 1, 8, device="cpu").kv_k.device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """No card: a non-zero exit and no result on stdout, in the checkout
     and in a directory that holds the script alone."""

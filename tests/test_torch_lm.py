@@ -1,0 +1,381 @@
+"""The port's LM slice against the reference, on the CPU.
+
+K6 (RMSNorm) and K7 (flash and decode attention): each plain version
+against the reference's Pallas kernel in interpret mode, on the same numpy
+inputs, at the reference's own f32 shapes and tolerances
+(``tests/test_kernels.py``: 3e-4 for RMSNorm, 2e-4 for attention; both
+sides are f32 and only the order of the sums differs).  Then the modules,
+``decode_step`` and the ``DualMeshEngine`` against the reference's, on
+``get_smoke("qwen2_0_5b")`` (2 layers, d 112, 14/2 heads, d_head 8) with
+the reference's own ``init_params`` carried over as numpy: logits at
+1e-4 (f32 through two layers, only the summation order differs), generated
+tokens equal.  The port runs on ``device="cpu"``, where every kernel
+wrapper takes its plain version and counts no launch.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_arch as ref_get_arch
+from repro.configs.registry import get_smoke as ref_get_smoke
+from repro.dualmesh import DualMeshRunner as RefRunner
+from repro.dualmesh import TpuModel
+from repro.dualmesh import plan_admission as ref_plan_admission
+from repro.dualmesh import split_mesh
+from repro.kernels.attention.kernel import \
+    decode_attention as ref_decode_attention
+from repro.kernels.attention.kernel import \
+    flash_attention as ref_flash_attention
+from repro.kernels.attention.ref import attention_ref as ref_attention_ref
+from repro.kernels.rmsnorm.kernel import rmsnorm as ref_rmsnorm
+from repro.lm import model as ref_model
+from repro.lm import modules as ref_modules
+from repro.serving import DualMeshEngine as RefEngine
+from repro.serving import Request as RefRequest
+from repro_torch.configs.registry import ARCH_IDS, get_arch, get_smoke
+from repro_torch.dualmesh.cost import CardModel
+from repro_torch.dualmesh.partition import split_streams
+from repro_torch.dualmesh.runtime import DualMeshRunner
+from repro_torch.dualmesh.schedule import plan_admission
+from repro_torch.kernels.attention.kernel import (decode_attention,
+                                                  flash_attention)
+from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+from repro_torch.kernels.util import resolve_device
+from repro_torch.lm import model
+from repro_torch.lm import modules
+from repro_torch.serving.api import Request
+from repro_torch.serving.lm import DualMeshEngine
+
+ARCH = "qwen2_0_5b"
+RMS_TOL = dict(rtol=3e-4, atol=3e-4)
+ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
+LM_TOL = dict(rtol=1e-4, atol=1e-4)
+# the reference's constants, handed to the port's card model
+REF_HW = CardModel(peak_flops=197e12, mem_bw=819e9, link_bw=50e9,
+                   mfu_ceiling=0.6, bw_ceiling=0.8, step_floor_base=25e-6,
+                   step_floor_tp=8e-6, step_floor_dp=2e-6)
+
+
+def _arrays(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * scale).astype(np.float32)
+            for s in shapes]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """The smoke config, the reference's parameters, and the same
+    parameters carried over to the port."""
+    cfg = ref_get_smoke(ARCH)
+    ref_params = ref_model.init_params(cfg, jax.random.PRNGKey(0))
+    params = model.params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                     device="cpu")
+    return cfg, ref_params, params
+
+
+# --------------------------------------------------------------------------
+# configs
+# --------------------------------------------------------------------------
+def test_configs_match_reference():
+    for mine, ref in ((get_arch(ARCH), ref_get_arch(ARCH)),
+                      (get_smoke(ARCH), ref_get_smoke(ARCH))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.padded_vocab == ref.padded_vocab
+        assert mine.param_count() == ref.param_count()
+    assert get_arch(ARCH).padded_vocab == 153600
+
+
+def test_registry_refuses_an_architecture_the_port_lacks():
+    with pytest.raises(KeyError, match="qwen2_0_5b"):
+        get_arch("qwen2_moe_a2_7b")
+    assert ARCH_IDS == (ARCH,)
+
+
+def test_init_params_has_the_reference_shapes(smoke):
+    cfg, ref_params, _ = smoke
+    mine = model.init_params(cfg, seed=0)
+    shapes = jax.tree.map(lambda a: tuple(a.shape), ref_params)
+    assert jax.tree.map(lambda a: tuple(a.shape), mine) == shapes
+    assert abs(float(mine["embed"].std()) - model.INIT_SCALE) < 1e-3
+    again = model.init_params(cfg, seed=0)
+    assert np.array_equal(again["lm_head"], mine["lm_head"])
+    moe = ref_get_arch("qwen2_moe_a2_7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        model.init_params(dataclasses.replace(
+            get_smoke(ARCH), family=moe.family, moe_experts=4, moe_top_k=2))
+
+
+# --------------------------------------------------------------------------
+# K6
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(4, 256), (2, 16, 896), (1, 1, 12288),
+                                   (3, 7, 1024)])
+def test_k6_plain_matches_pallas(shape):
+    x, w = _arrays(1, shape, shape[-1:])
+    x *= 2.0
+    want = ref_rmsnorm(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    got = rmsnorm(_t(x), _t(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RMS_TOL)
+
+
+# --------------------------------------------------------------------------
+# K7
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    (2, 8, 2, 64, 64, 32, True),      # GQA
+    (1, 4, 4, 128, 128, 64, True),    # MHA
+    (2, 6, 1, 1, 256, 64, False),     # MQA decode shape
+    (1, 14, 2, 37, 37, 64, True),     # qwen2-0.5b heads (non-pow2)
+    (1, 2, 2, 8, 200, 128, False),    # cross-attn shape (sq != sk)
+    (1, 4, 2, 8, 24, 32, True),       # causal, sq < sk: query 0 at key 0
+])
+def test_k7_plain_flash_matches_pallas(b, hq, hkv, sq, sk, d, causal):
+    q, k, v = _arrays(2, (b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                      scale=0.5)
+    want = ref_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, block_q=32,
+                               block_k=32, interpret=True)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal, q_offset=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (1, 4, 2, 8, 24, 32), (2, 14, 2, 37, 100, 8), (1, 14, 2, 64, 64, 64)])
+def test_k7_plain_flash_at_the_bottom_right_matches_attention_ref(
+        b, hq, hkv, sq, sk, d):
+    """At ``q_offset = Sk - Sq`` the flash kernel's plain version is the
+    reference's oracle (and its LM modules' chunked prefill); at
+    ``q_offset = 0`` it is the Pallas kernel, which differs when Sq < Sk."""
+    q, k, v = _arrays(3, (b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                      scale=0.5)
+    want = np.asarray(ref_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=True))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True,
+                          q_offset=sk - sq)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+    np.testing.assert_allclose(
+        attention_ref(_t(q), _t(k), _t(v), causal=True).numpy(), want,
+        **ATTN_TOL)
+    if sq < sk:
+        top_left = flash_attention(_t(q), _t(k), _t(v), causal=True)
+        assert np.abs(top_left.numpy() - want).max() > 0.1
+
+
+def test_k7_plain_flash_masks_keys_past_sk_valid():
+    q, k, v = _arrays(4, (2, 6, 9, 16), (2, 3, 40, 16), (2, 3, 40, 16))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=False, sk_valid=23)
+    want = ref_attention_ref(jnp.asarray(q), jnp.asarray(k[:, :, :23]),
+                             jnp.asarray(v[:, :, :23]), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+    # a cache cut along the sequence axis reads in place, as a copy would
+    cut = flash_attention(_t(q), _t(k)[:, :, :30], _t(v)[:, :, :30],
+                          causal=True, q_offset=21)
+    copy = flash_attention(_t(q), _t(k)[:, :, :30].contiguous(),
+                           _t(v)[:, :, :30].contiguous(), causal=True,
+                           q_offset=21)
+    assert torch.equal(cut, copy)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_k7_plain_decode_matches_reference(ragged):
+    q, k, v = _arrays(5, (3, 14, 1, 64), (3, 2, 80, 64), (3, 2, 80, 64),
+                      scale=0.5)
+    lens = np.array([80, 17, 61], np.int32) if ragged else None
+    want = ref_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if lens is None else jnp.asarray(lens), interpret=True)
+    got = decode_attention(_t(q), _t(k), _t(v),
+                           None if lens is None else _t(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    before = (rmsnorm.launches, flash_attention.launches,
+              decode_attention.launches)
+    x, w = _arrays(6, (3, 8), (8,))
+    rmsnorm(_t(x), _t(w))
+    q, k = _arrays(6, (1, 2, 1, 8), (1, 1, 5, 8))
+    flash_attention(_t(q), _t(k), _t(k))
+    decode_attention(_t(q), _t(k), _t(k))
+    assert (rmsnorm.launches, flash_attention.launches,
+            decode_attention.launches) == before
+
+
+# --------------------------------------------------------------------------
+# modules and model
+# --------------------------------------------------------------------------
+def test_apply_rope_matches_reference():
+    (x,) = _arrays(7, (2, 3, 11, 8))
+    pos = np.arange(5, 16)
+    cos, sin = ref_modules.rope_freqs(8, 1e6, jnp.asarray(pos))
+    want = ref_modules.apply_rope(jnp.asarray(x), cos, sin)
+    pcos, psin = modules.rope_freqs(8, 1e6, _t(pos))
+    np.testing.assert_allclose(pcos.numpy(), np.asarray(cos), **LM_TOL)
+    got = modules.apply_rope(_t(x), pcos, psin)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_gqa_attention_matches_reference(smoke, cached):
+    cfg, ref_params, params = smoke
+    lp = jax.tree.map(lambda a: a[0], ref_params["blocks"]["attn"])
+    lp = {k: v + 0.01 if k.startswith("b") else v for k, v in lp.items()}
+    mine = {k: _t(v) for k, v in jax.tree.map(np.asarray, lp).items()}
+    (x,) = _arrays(8, (2, 6, cfg.d_model))
+    if not cached:
+        pos = np.arange(6)
+        want, _ = ref_modules.gqa_attention(lp, jnp.asarray(x), cfg,
+                                            jnp.asarray(pos))
+        got, _ = modules.gqa_attention(mine, _t(x), cfg, _t(pos))
+    else:
+        shape = (2, cfg.n_kv_heads, 16, cfg.d_head)
+        ck, cv = _arrays(9, shape, shape)
+        pos = np.arange(5, 11)
+        want, rc = ref_modules.gqa_attention(
+            lp, jnp.asarray(x), cfg, jnp.asarray(pos),
+            cache=ref_modules.KVCache(jnp.asarray(ck), jnp.asarray(cv)),
+            cache_pos=5)
+        cache = modules.KVCache(_t(ck.copy()), _t(cv.copy()))
+        got, cache = modules.gqa_attention(mine, _t(x), cfg, _t(pos),
+                                           cache=cache, cache_pos=5)
+        np.testing.assert_allclose(cache.k.numpy(), np.asarray(rc.k),
+                                   **LM_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+
+
+def test_forward_matches_reference(smoke):
+    cfg, ref_params, params = smoke
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab, (2, 12))
+    want = ref_model.forward(ref_params, cfg, jnp.asarray(tokens))
+    got = model.forward(params, cfg, _t(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_decode_step_matches_reference(smoke, chunk):
+    """A whole or chunked prefill, then 4 decode steps fed the reference's
+    argmax."""
+    cfg, ref_params, params = smoke
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (2, 12))
+    rc = ref_model.init_cache(cfg, 2, 24)
+    pc = model.init_cache(cfg, 2, 24, device="cpu")
+    step = chunk or tokens.shape[1]
+    for lo in range(0, tokens.shape[1], step):
+        want, rc = ref_model.decode_step(ref_params, cfg,
+                                         jnp.asarray(tokens[:, lo:lo + step]),
+                                         rc)
+        got, pc = model.decode_step(params, cfg,
+                                    _t(tokens[:, lo:lo + step]), pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+    for _ in range(4):
+        tok = np.asarray(jnp.argmax(want[:, -1, :cfg.vocab], -1))[:, None]
+        want, rc = ref_model.decode_step(ref_params, cfg, jnp.asarray(tok),
+                                         rc)
+        got, pc = model.decode_step(params, cfg, _t(tok), pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+    assert pc.pos == int(rc.pos) == 16
+    np.testing.assert_allclose(pc.kv_k.numpy(), np.asarray(rc.kv_k),
+                               **LM_TOL)
+    last, _ = model.decode_step(params, cfg, _t(tok), pc, last_only=True)
+    assert last.shape == (2, 1, cfg.padded_vocab)
+
+
+# --------------------------------------------------------------------------
+# planner, runtime and engine
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("batch,plen,gen,n", [(2, 512, 64, 8), (1, 16, 8, 5),
+                                              (4, 2048, 256, 6)])
+def test_plan_admission_matches_reference(batch, plen, gen, n):
+    cfg = ref_get_arch(ARCH)
+    want = ref_plan_admission(cfg, split_mesh(jax.devices()[:1], 0.5),
+                              TpuModel(), batch, plen, gen, n)
+    got = plan_admission(get_arch(ARCH), split_streams("cpu", 0.5), REF_HW,
+                         batch, plen, gen, n)
+    assert got.group_size == want.group_size
+    assert got.est_makespan == pytest.approx(want.est_makespan, rel=1e-12)
+
+
+def test_resolve_device_names_the_card_by_index(monkeypatch):
+    """``"cuda"`` resolves to the indexed device, so it compares equal to
+    the device of a tensor placed there (the runner checks its params)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device(torch.device("cuda", 0)) == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_split_streams_on_the_cpu_aliases_one_queue():
+    dual = split_streams("cpu", 0.4)
+    assert (dual.c_chips, dual.p_chips, dual.tp_c, dual.tp_p) == (1, 1, 1, 1)
+    assert dual.theta == 0.4 and dual.stream("c") is None
+    assert not dual.cores.distinct
+
+
+def _prompts(cfg, n=4, batch=2, plen=8):
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, cfg.vocab, (batch, plen)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("chunk,group_size", [(None, 2), (4, 1), (4, 3)])
+def test_engine_matches_reference(smoke, chunk, group_size):
+    cfg, ref_params, params = smoke
+    prompts = _prompts(cfg)
+    ref = RefEngine(RefRunner(cfg, ref_params,
+                              split_mesh(jax.devices()[:1], 0.5),
+                              max_len=24),
+                    group_size=group_size, prefill_chunk=chunk)
+    mine = DualMeshEngine(DualMeshRunner(cfg, params, split_streams("cpu"),
+                                         max_len=24),
+                          group_size=group_size, prefill_chunk=chunk)
+    for p in prompts:
+        ref.submit(RefRequest(jnp.asarray(p), gen_steps=6))
+        mine.submit(Request(_t(p), gen_steps=6))
+    want, got = ref.drain(), mine.drain()
+    assert len(got.outputs) == len(prompts)
+    for a, b in zip(want.outputs, got.outputs):
+        assert b.shape == (2, 8 + 6)
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for key in ("fused_sizes", "prefill_tokens", "decode_tokens",
+                "total_tokens"):
+        assert got.stats[key] == want.stats[key], key
+    assert [t[:2] for t in got.trace] == [t[:2] for t in want.trace]
+
+
+def test_run_two_streams_matches_reference(smoke):
+    cfg, ref_params, params = smoke
+    a, b = _prompts(cfg, n=2)
+    ra, rb, rtrace = RefRunner(cfg, ref_params,
+                               split_mesh(jax.devices()[:1], 0.5),
+                               max_len=24).run_two_streams(
+        jnp.asarray(a), jnp.asarray(b), gen_steps=3)
+    pa, pb, ptrace = DualMeshRunner(cfg, params, split_streams("cpu"),
+                                    max_len=24).run_two_streams(
+        _t(a), _t(b), gen_steps=3)
+    np.testing.assert_array_equal(pa.numpy(), np.asarray(ra))
+    np.testing.assert_array_equal(pb.numpy(), np.asarray(rb))
+    assert [t[:2] for t in ptrace] == [t[:2] for t in rtrace]
+
+
+def test_serve_lm_cli_on_cpu(monkeypatch, capsys):
+    """The ``lm`` subcommand end to end on the CPU, at the smoke config (the
+    published one is the card's)."""
+    import repro_torch.launch.serve as serve
+
+    monkeypatch.setattr(serve, "get_arch", get_smoke)
+    assert serve.main(["lm", "--arch", ARCH, "--device", "cpu",
+                       "--requests", "3", "--batch", "1", "--prompt-len",
+                       "6", "--gen", "4", "--prefill-chunk", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "admission plan: group_size=" in out
+    assert "3 requests x batch 1" in out and "p95" in out
+    assert "prefill  on c-core" in out and "decode   on p-core" in out
