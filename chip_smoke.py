@@ -10,7 +10,9 @@ any failure raises and the script exits non-zero:
             ``nvcc`` per source, all at once);
 2. kernels  hold every kernel against its plain PyTorch version on the card
             (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
-            order differs) at every distinct shape the paths below launch
+            order differs; K4 and K5 run their 1x1 products in 3xTF32,
+            which keeps f32's accuracy) at every distinct shape the paths
+            below launch
             (the CNNs at 224 px and batch 2; Qwen2-0.5B's prefill of 2 x 512
             tokens and its decode steps at cache lengths 513..575), plus
             edge cases (no bias, each activation, residuals, ragged tails,
@@ -22,7 +24,9 @@ any failure raises and the script exits non-zero:
             the plain version, a PyTorch library call or chain computing the
             same function (timed here only, never used by the port:
             ``F.rms_norm``, ``scaled_dot_product_attention``) and the least
-            time the card could take;
+            time the card could take; K4's and K5's plans (pixel tile,
+            cluster, blocks) beside them, and at build time their
+            ``-Xptxas -v`` registers and spills;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the sequential
             kernel forward against the all-plain forward at 1e-3 (up to 53
@@ -90,9 +94,12 @@ LM_THETA = 0.5
 LM_MAX_LEN = LM_PROMPT + LM_GEN + 8    # the CLI's cache length
 LM_CHECK_PROMPT = 16                    # card against CPU, full width
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
-# the CUDA cores (no tensor cores) 67 TFLOP/s.
+# the CUDA cores (no tensor cores) 67 TFLOP/s, TF32 on the tensor cores 495
+# TFLOP/s, of which 3xTF32 (three products per f32 product) gets a third.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32X3_FLOP_PER_S = 495e12 / 3
+FUSED_KERNELS = ("fused_dw_pw_conv", "fused_pw_dw_pw_conv")  # K4, K5: 3xTF32
 
 
 def card_line() -> str:
@@ -112,10 +119,14 @@ def rand(gen: np.random.Generator, shape, scale: float = 1.0,
     return torch.from_numpy(a).to(device or DEV)
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
-    """Least time for the work, in ms, and what bounds it."""
+def bound_ms(nbytes: int, flops: int, tc_flops: int = 0) -> tuple[float,
+                                                                  str]:
+    """Least time for the work, in ms, and what bounds it.  ``tc_flops`` of
+    the ``flops`` run on the tensor cores in 3xTF32, the rest on the CUDA
+    cores in f32; the two units may overlap, so the slower one bounds."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = max((flops - tc_flops) / PEAK_F32_FLOP_PER_S,
+                tc_flops / PEAK_TF32X3_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -352,6 +363,9 @@ def make_case(call: dict, gen) -> dict:
                       + ((c + co) if bias else 0) + n * ho * wo * co
                       * (2 if call["res"] else 1))
         flops = 2 * n * ho * wo * c * (kk * kk + co)
+        return dict(kernel=lambda: kt["fn"](*args, **kw), plain=plain,
+                    library=library, nbytes=nbytes, flops=flops,
+                    tc_flops=2 * n * ho * wo * c * co)
     return dict(kernel=lambda: kt["fn"](*args, **kw), plain=plain,
                 library=library, nbytes=nbytes, flops=flops)
 
@@ -394,7 +408,8 @@ def _fused_ir_case(kt: dict, call: dict, gen) -> dict:
     flops = 2 * n * (h * wd * ci * cm + ho * wo * cm * (kk * kk + co))
     return dict(kernel=lambda: kt["fn"](*args, **kw),
                 plain=lambda: kt["plain"](*args, **kw), library=library,
-                nbytes=nbytes, flops=flops)
+                nbytes=nbytes, flops=flops,
+                tc_flops=2 * n * (h * wd * ci * cm + ho * wo * cm * co))
 
 
 def _lm_case(kt: dict, call: dict, gen) -> dict:
@@ -485,14 +500,30 @@ def check_and_time(call: dict, gen, timing: bool) -> dict:
                              f"version, max |err| {err:.3e} "
                              f"(rtol = atol = {KERNEL_TOL})")
     row = dict(call, max_abs_err=err)
+    if call["kernel"] in FUSED_KERNELS:
+        row["plan"] = fused_plan(call)
     if timing:
-        b_ms, b_by = bound_ms(case["nbytes"], case["flops"])
+        tc = case.get("tc_flops", 0)
+        b_ms, b_by = bound_ms(case["nbytes"], case["flops"], tc)
         row.update(ms=cuda_time_ms(case["kernel"]),
                    plain_ms=cuda_time_ms(case["plain"]),
                    library_ms=cuda_time_ms(case["library"]),
                    bound_ms=b_ms, bound_by=b_by, bytes=case["nbytes"],
-                   flops=case["flops"])
+                   flops=case["flops"], tc_flops=tc)
     return row
+
+
+def fused_plan(call: dict) -> dict:
+    """The tiling K4's or K5's wrapper launches ``call`` with."""
+    from repro_torch.kernels.fused_block.plan import plan_k4, plan_k5
+    c = call
+    p = (plan_k4(c["n"], c["h"], c["w"], c["c"], c["co"], c["k"],
+                 c["stride"], c["pad"])
+         if c["kernel"] == "fused_dw_pw_conv" else
+         plan_k5(c["n"], c["h"], c["w"], c["ci"], c["cm"], c["co"], c["k"],
+                 c["stride"], c["pad"]))
+    return dict(tile=f"{p.th}x{p.tw}", cluster=p.cluster, blocks=p.blocks,
+                stages=p.stages, kc=p.kc, group=p.group, smem=p.smem_bytes)
 
 
 def host_enqueue_ms(runner, images: list[torch.Tensor]) -> float:
@@ -536,6 +567,9 @@ def check_counts(what: str, got: dict[str, int], want: dict[str, int],
         raise AssertionError(f"{what}: launches {got} != {full}")
 
 
+SUMMED = ("ms", "plain_ms", "library_ms", "bytes", "flops", "tc_flops")
+
+
 def kernel_sums(rows: dict, calls: list[dict]) -> dict[str, dict]:
     """Per kernel, the phase-2 numbers summed over one request's calls."""
     out: dict[str, dict] = {}
@@ -543,9 +577,9 @@ def kernel_sums(rows: dict, calls: list[dict]) -> dict[str, dict]:
         r = rows[json.dumps(c, sort_keys=True)]
         acc = out.setdefault(c["kernel"], dict(
             calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
-            flops=0, max_abs_err=0.0))
+            flops=0, tc_flops=0, max_abs_err=0.0))
         acc["calls"] += 1
-        for k in ("ms", "plain_ms", "library_ms", "bytes", "flops"):
+        for k in SUMMED:
             acc[k] += r[k]
         acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
     return out
@@ -737,9 +771,9 @@ def weighted_sums(rows: dict, calls: list[tuple[dict, float]]) -> dict:
         r = rows[json.dumps(c, sort_keys=True)]
         acc = out.setdefault(c["kernel"], dict(
             calls=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
-            flops=0.0, max_abs_err=0.0))
+            flops=0.0, tc_flops=0.0, max_abs_err=0.0))
         acc["calls"] += wgt
-        for k in ("ms", "plain_ms", "library_ms", "bytes", "flops"):
+        for k in SUMMED:
             acc[k] += wgt * r[k]
         acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
     return out
@@ -953,12 +987,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
-    from repro_torch.core.scheduler import build_schedule
-    from repro_torch.dualcore.program import build_program
-    from repro_torch.dualcore.runtime import build_exec_plan
-    from repro_torch.kernels.util import timed_build
-    from repro_torch.models.zoo import get_graph
+    from repro_torch.kernels.util import ptxas_report, timed_build
 
     # 1. setup ------------------------------------------------------------
     card = card_line()
@@ -967,32 +996,27 @@ def main() -> int:
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"device {kind}, {torch.cuda.device_count()} device(s)")
     print(f"[setup] kernels built and loaded in {timed_build():.1f} s")
+    for name in FUSED_KERNELS:
+        for line in ptxas_report(name):
+            print(f"[setup] ptxas {name}: {line}")
 
     # 2. kernels ----------------------------------------------------------
     gen = np.random.default_rng(0)
-    path_calls = []
-    for model in SERVED:
-        graph = get_graph(model)
-        sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
-        plan = build_exec_plan(build_program(model), sched,
-                               group_fusion=True)
-        path_calls += plan_calls(plan, graph, BATCH)
-    path_calls += step_calls(build_program(FUSED, fuse=True).steps,
-                             get_graph(FUSED), BATCH)
-    for size in sorted(set(lm_group_sizes())):
-        path_calls += [c for c, _ in lm_request_calls(size)]
     distinct: dict[str, dict] = {}
-    for c in path_calls:
+    for c in path_call_list():
         distinct.setdefault(json.dumps(c, sort_keys=True), c)
     rows = {}
     for key, c in distinct.items():
         rows[key] = check_and_time(c, gen, timing=True)
         r = rows[key]
+        plan = ("" if "plan" not in r else
+                "  plan {tile} cluster {cluster} blocks {blocks}".format(
+                    **r["plan"]))
         print(f"[kernels] {r['kernel']:<21} "
               f"{_shape_str(c):<40} ms {r['ms']:.4f}  plain "
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
-              f"{r['max_abs_err']:.1e}")
+              f"{r['max_abs_err']:.1e}{plan}")
     edges = edge_calls() + lm_edge_calls()
     for c in edges:
         r = check_and_time(c, gen, timing=False)
@@ -1013,8 +1037,8 @@ def main() -> int:
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
-        b_ms, b_by = bound_ms(sum(r["bytes"] for r in mine),
-                              sum(r["flops"] for r in mine))
+        b_ms, b_by = bound_ms(*(sum(r[k] for r in mine)
+                                for k in ("bytes", "flops", "tc_flops")))
         kernels.append(dict(
             name=name, route="cuda", source=kt["source"],
             replaces=kt["replaces"],
@@ -1040,6 +1064,42 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def path_call_list() -> list[dict]:
+    """Every kernel call of one request of each path, in path order: the
+    CNN paths' (``cnn_path_calls``), then the LM's at each planned decode
+    group size."""
+    calls = cnn_path_calls()
+    for size in sorted(set(lm_group_sizes())):
+        calls += [c for c, _ in lm_request_calls(size)]
+    return calls
+
+
+def cnn_path_calls() -> list[dict]:
+    """Every kernel call of one request of each CNN path, in path order."""
+    return [c for calls in cnn_paths().values() for c in calls]
+
+
+def cnn_paths() -> dict[str, list[dict]]:
+    """Each CNN path's kernel calls for one request: the three CNNs under
+    ``balanced``, then MobileNet v2's ``fuse=True`` forward."""
+    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.dualcore.program import build_program
+    from repro_torch.dualcore.runtime import build_exec_plan
+    from repro_torch.models.zoo import get_graph
+    paths = {}
+    for model in SERVED:
+        graph = get_graph(model)
+        sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+        plan = build_exec_plan(build_program(model), sched,
+                               group_fusion=True)
+        paths[f"{model} {SCHEME}"] = plan_calls(plan, graph, BATCH)
+    paths[f"{FUSED} fuse=True"] = step_calls(
+        build_program(FUSED, fuse=True).steps,
+        get_graph(FUSED), BATCH)
+    return paths
 
 
 def _shape_str(c: dict) -> str:

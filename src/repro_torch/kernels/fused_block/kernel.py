@@ -6,7 +6,9 @@ Wrappers of the hand-written CUDA kernels ``csrc/fused_dw_pw_conv.cu`` and
 ``repro/kernels/fused_block/kernel.py::fused_dw_pw_conv`` and
 ``::fused_pw_dw_pw_conv``; each source says what bounds it on an H100 and
 how it tiles space and channels so that the intermediate maps live only in
-shared memory.
+shared memory.  ``plan.py`` chooses each call's tiling (pixel tile, cluster
+size and channel split, grid, shared memory) from its shape; the wrapper
+passes it to the kernel, which trusts it.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``fused_dw_pw_conv.launches``
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.fused_block.plan import plan_k4, plan_k5
 from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
                                                  fused_pw_dw_pw_ref)
 from repro_torch.kernels.util import act_code, check_cuda_operands, launch
@@ -55,10 +58,13 @@ def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
                                pw_act=pw_act)
     check_cuda_operands("fused_dw_pw_conv", x.device, x=x, dw_w=dw_w,
                         dw_b=dw_b, pw_w=pw_w, pw_b=pw_b, residual=residual)
+    plan = plan_k4(n, h, wd, c, co, kh, stride, pad, kw)
     out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
     launch("repro_fused_dw_pw_conv", x.device, x, dw_w, dw_b, pw_w, pw_b,
            residual, out, n, h, wd, c, co, kh, kw, stride, pad, ho, wo,
-           act_code(dw_act), act_code(pw_act))
+           act_code(dw_act), act_code(pw_act), plan.th, plan.tw,
+           plan.cluster, plan.stages, plan.smem_bytes,
+           _vec((c, co), x, dw_w, pw_w))
     fused_dw_pw_conv.launches += 1
     return out
 
@@ -109,13 +115,24 @@ def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
     check_cuda_operands("fused_pw_dw_pw_conv", x.device, x=x, exp_w=exp_w,
                         exp_b=exp_b, dw_w=dw_w, dw_b=dw_b, proj_w=proj_w,
                         proj_b=proj_b, residual=residual)
+    plan = plan_k5(n, h, wd, ci, cm, co, kh, stride, pad, kw)
     out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
     launch("repro_fused_pw_dw_pw_conv", x.device, x, exp_w, exp_b, dw_w,
            dw_b, proj_w, proj_b, residual, out, n, h, wd, ci, cm, co, kh,
            kw, stride, pad, ho, wo, act_code(exp_act), act_code(dw_act),
-           act_code(proj_act))
+           act_code(proj_act), plan.th, plan.tw, plan.cluster, plan.stages,
+           plan.kc, plan.group, plan.smem_bytes,
+           _vec((ci, cm, co), x, exp_w, dw_w, proj_w))
     fused_pw_dw_pw_conv.launches += 1
     return out
 
 
 fused_pw_dw_pw_conv.launches = 0
+
+
+def _vec(channels: tuple[int, ...], *staged: torch.Tensor) -> int:
+    """1 if the kernel may stage with 16-byte copies: every channel count a
+    multiple of 4 and every staged tensor 16-byte aligned; else 0 (4-byte
+    copies)."""
+    return int(all(c % 4 == 0 for c in channels)
+               and all(t.data_ptr() % 16 == 0 for t in staged))

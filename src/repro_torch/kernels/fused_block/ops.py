@@ -1,7 +1,8 @@
 """Dispatch wrappers for the fused MobileNet-block kernels (K4, K5).
 
-Counterpart of ``repro/kernels/fused_block/ops.py``.  The CUDA kernels use
-fixed tiles, so the reference's block-shape choice has no counterpart.
+Counterpart of ``repro/kernels/fused_block/ops.py``.  The reference's
+block-shape choice (its autotune cache) has no counterpart here: the
+kernels' tiling is planned per call from the shape alone (``plan.py``).
 """
 from __future__ import annotations
 

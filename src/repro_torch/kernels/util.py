@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 # cycles of ``torch.cuda._sleep`` per millisecond, at 2 GHz (above the
@@ -154,7 +154,9 @@ def source_hash() -> str:
 def build_library() -> Path:
     """Compile the kernels (one ``nvcc`` per source, all in parallel), link
     them into one shared library, and return its path.  Reuses a library
-    already built from identical sources."""
+    already built from identical sources.  Each source's compiler output
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
+    library as ``<source stem>.log``."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
@@ -173,6 +175,7 @@ def build_library() -> Path:
         errors = []
         for src, _obj, proc in procs:
             log, _ = proc.communicate()
+            (out_dir / f"{src.stem}.log").write_text(log)
             if proc.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
         if errors:
@@ -194,14 +197,23 @@ SIGNATURES = {
     "repro_matmul_bias_act": "p" * 4 + "i" * 4 + "s",
     "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 12 + "s",
     "repro_depthwise_conv2d": "p" * 4 + "i" * 11 + "s",
-    "repro_fused_dw_pw_conv": "p" * 7 + "i" * 13 + "s",
-    "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 15 + "s",
+    "repro_fused_dw_pw_conv": "p" * 7 + "i" * 19 + "s",
+    "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 23 + "s",
     "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",
     "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "s",
     "repro_decode_attention": "p" * 6 + "i" * 7 + "f" + "s",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "s": ctypes.c_void_p}
+
+
+def ptxas_report(stem: str) -> list[str]:
+    """The ``-Xptxas -v`` lines (registers, spills) of source ``stem``'s
+    kernels in the built library."""
+    log = BUILD_ROOT / source_hash() / f"{stem}.log"
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "Compiling entry" in ln or "registers" in ln
+            or "spill" in ln]
 
 
 @functools.cache

@@ -9,7 +9,10 @@ The file imports neither JAX nor the reference package.  TF32 is off, so the
 kernels and their plain versions are both full f32 and agree at rtol = atol
 = 1e-4 (only the summation order differs).
 """
+import json
+import sys
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +36,9 @@ from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.lm.model import forward, init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
 from repro_torch.serving.cnn import stream_images
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 WRAPPERS = {"K1": matmul_bias_act, "K2": depthwise_conv2d,
@@ -92,6 +98,57 @@ def test_kernel_matches_plain_on_card(kernel, card):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+def _fused_calls():
+    """Every distinct K4 and K5 call of the CNN paths (batch 2, 224 px)
+    and ``chip_smoke.py``'s K4/K5 edge cases."""
+    seen = {}
+    for c in [*chip_smoke.cnn_path_calls(), *chip_smoke.edge_calls()]:
+        if c["kernel"] in chip_smoke.FUSED_KERNELS:
+            seen.setdefault(json.dumps(c, sort_keys=True), c)
+    return list(seen.values())
+
+
+FUSED_CALLS = _fused_calls()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", FUSED_CALLS,
+                         ids=[chip_smoke._shape_str(c).replace(" ", ",")
+                              + f"-{c['kernel'][6:]}" for c in FUSED_CALLS])
+def test_fused_kernel_matches_plain_at_path_shape_on_card(call, card):
+    """K4 and K5 at every path shape and edge case, each with the tiling
+    its planner gives, against the plain version at 1e-4."""
+    fn = WRAPPERS["K4" if call["kernel"] == "fused_dw_pw_conv" else "K5"]
+    case = chip_smoke.make_case(call, np.random.default_rng(11))
+    before = fn.launches
+    got = case["kernel"]()
+    want = case["plain"]()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", [
+    dict(kernel="fused_dw_pw_conv", n=2, h=7, w=7, c=960, co=320, k=3,
+         stride=1, pad=1, dw_act="relu6", pw_act=None, res=False),
+    dict(kernel="fused_pw_dw_pw_conv", n=2, h=14, w=14, ci=512, cm=512,
+         co=1024, k=3, stride=2, pad=1, exp_act="relu6", dw_act="relu6",
+         proj_act="relu6", res=False)], ids=["K4", "K5"])
+def test_fused_kernel_same_bits_on_two_streams_on_card(call, card):
+    """Two launches on two streams, each reducing over a cluster of 15-16
+    blocks, give the same bits: the partial sums meet in rank order."""
+    case = chip_smoke.make_case(call, np.random.default_rng(12))
+    first = case["kernel"]()
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(case["kernel"]())
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs)
 
 
 @pytest.mark.cuda

@@ -6,6 +6,10 @@ both sides are float32 and only the order of the sums differs.  On a CPU
 tensor every wrapper runs its plain version and counts no launch; the CUDA
 kernels are held against the plain versions in ``test_torch_cuda.py``.
 """
+import json
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
 from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
 from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
                                                     fused_pw_dw_pw_conv)
+from repro_torch.kernels.fused_block import plan as fplan
 from repro_torch.kernels.fused_block.ops import fused_inverted_residual
 from repro_torch.kernels.util import check_cuda_operands, find_nvcc
 from repro_torch.models.zoo import get_graph
@@ -192,6 +197,98 @@ def test_k5_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="residual"):
         fused_pw_dw_pw_conv(x, ew, eb, dw, db, pw, pb,
                             torch.zeros((2, 4, 4, 8)))
+
+
+# --------------------------------------------------------------------------
+# K4 and K5 planners
+# --------------------------------------------------------------------------
+def _planner_cases():
+    """Every distinct K4 and K5 call of the four CNN paths (batch 2, 224
+    px, as ``chip_smoke.py`` derives them), its edge cases, and the shapes
+    of the interpret-mode tests above."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    calls = [c for c in [*chip_smoke.cnn_path_calls(),
+                         *chip_smoke.edge_calls()]
+             if c["kernel"] in chip_smoke.FUSED_KERNELS]
+    for h, w, c, co, stride in [(12, 12, 16, 24, 1), (13, 11, 24, 40, 2)]:
+        calls.append(dict(kernel="fused_dw_pw_conv", n=2, h=h, w=w, c=c,
+                          co=co, k=3, stride=stride, pad=1))
+    for h, w, ci, cm, co, stride, _res in [
+            (12, 12, 16, 48, 24, 1, False), (12, 12, 16, 48, 16, 1, True),
+            (13, 11, 8, 40, 20, 2, False), (9, 10, 12, 37, 70, 1, False)]:
+        calls.append(dict(kernel="fused_pw_dw_pw_conv", n=2, h=h, w=w,
+                          ci=ci, cm=cm, co=co, k=3, stride=stride, pad=1))
+    keys = ("kernel", "n", "h", "w", "c", "ci", "cm", "co", "k", "stride",
+            "pad")
+    seen = {}
+    for c in calls:
+        c = {k: c[k] for k in keys if k in c}
+        seen.setdefault(json.dumps(c, sort_keys=True), c)
+    return list(seen.values())
+
+
+PLANNER_CASES = _planner_cases()
+
+
+@pytest.mark.parametrize("call", PLANNER_CASES, ids=[
+    "-".join(str(v) for v in c.values())[6:] for c in PLANNER_CASES])
+def test_fused_planner_covers_the_call_once(call):
+    """``plan_k4``/``plan_k5`` at every K4/K5 call of the CNN paths: the
+    pixel tiles cover the output once, the channel split covers C (K5: Cm)
+    once in rank order, the shared memory and the cluster fit an H100, and
+    the grid fills the 132 SMs wherever 4x4 tiles x cluster x images can."""
+    c = call
+    k4 = c["kernel"] == "fused_dw_pw_conv"
+    if k4:
+        p = fplan.plan_k4(c["n"], c["h"], c["w"], c["c"], c["co"], c["k"],
+                          c["stride"], c["pad"])
+        split_c = c["c"]
+        floats = fplan.k4_smem_floats(p.th, p.tw, c["co"], c["k"], c["k"],
+                                      c["stride"], p.stages)
+    else:
+        p = fplan.plan_k5(c["n"], c["h"], c["w"], c["ci"], c["cm"], c["co"],
+                          c["k"], c["stride"], c["pad"])
+        split_c = c["cm"]
+        floats = fplan.k5_smem_floats(p.th, p.tw, c["co"], c["k"], c["k"],
+                                      c["stride"], p.stages, p.kc, p.group)
+    ho, wo = fplan.out_size(c["h"], c["w"], c["k"], c["k"], c["stride"],
+                            c["pad"])
+    cover = np.zeros((ho, wo), np.int64)
+    for t in range(p.tiles_h * p.tiles_w):      # the kernels' tile walk
+        oh0, ow0 = (t // p.tiles_w) * p.th, (t % p.tiles_w) * p.tw
+        assert oh0 < ho and ow0 < wo            # no tile outside the map
+        cover[oh0:oh0 + p.th, ow0:ow0 + p.tw] += 1
+    assert (cover == 1).all()
+    assert p.blocks == p.cluster * p.tiles_h * p.tiles_w * c["n"]
+    splits = fplan.channel_splits(split_c, p.cluster)
+    assert len(splits) == p.cluster
+    edge = 0
+    for lo, hi in splits:                       # rank order, no gap
+        assert lo == edge and lo < hi and lo % fplan.CK == 0
+        edge = hi
+    assert edge == split_c
+    assert p.smem_bytes == 4 * floats <= 232_448
+    assert 2 <= p.stages <= 4
+    assert 1 <= p.cluster <= 16        # above 8 the launch opts in
+    assert p.th * p.tw <= 64
+    if not k4:                  # a step and pass the C side has compiled
+        hh, hw = fplan._halo(p.th, p.tw, c["k"], c["k"], c["stride"])
+        mte = -(-hh * hw // 16)
+        assert p.group == 1 or mte <= 4
+        assert p.kc == 32 or (p.kc == 64 and mte <= 8
+                              and (mte > 4 or p.group == 4))
+    reach = (c["n"] * -(-ho // 4) * -(-wo // 4)
+             * min(16, -(-split_c // fplan.CK)))
+    if reach >= 132:
+        assert p.blocks >= 132
+
+
+def test_fused_planner_is_deterministic_and_refuses_what_cannot_fit():
+    assert fplan.plan_k4(2, 14, 14, 512, 512, 3, 1, 1) == \
+        fplan._plan("k4", 2, 14, 14, 0, 512, 512, 3, 3, 1)
+    with pytest.raises(ValueError, match="no tiling fits"):
+        fplan.plan_k4(1, 8, 8, 16, 4096, 3, 1, 1)   # Co past the registers
 
 
 # --------------------------------------------------------------------------
