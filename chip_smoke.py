@@ -10,7 +10,7 @@ any failure raises and the script exits non-zero:
             ``nvcc`` per source, all at once);
 2. kernels  hold every kernel against its plain PyTorch version on the card
             (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
-            order differs; K4 and K5 run their 1x1 products in 3xTF32,
+            order differs; K1, K4 and K5 run their products in 3xTF32,
             which keeps f32's accuracy) at every distinct shape the paths
             below launch
             (the CNNs at 224 px and batch 2; Qwen2-0.5B's prefill of 2 x 512
@@ -24,8 +24,10 @@ any failure raises and the script exits non-zero:
             the plain version, a PyTorch library call or chain computing the
             same function (timed here only, never used by the port:
             ``F.rms_norm``, ``scaled_dot_product_attention``) and the least
-            time the card could take; K4's and K5's plans (pixel tile,
-            cluster, blocks) beside them, and at build time their
+            time the card could take; the plans of K1 (tile, k-step,
+            cluster, blocks, stages, shared memory), K2 (pixel tile,
+            channel block, outputs a thread, blocks), K4 and K5 (pixel
+            tile, cluster, blocks) beside them, and at build time their
             ``-Xptxas -v`` registers and spills;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the sequential
@@ -54,7 +56,9 @@ any failure raises and the script exits non-zero:
             step against its device time (one step timed with the host
             held out) and the K6 and K7 device time in it, and the card's
             f32 matmul and copy rates (the cost model's ceilings);
-5. report   one JSON line of the kernels, the card line, and the final
+5. report   one ``[report]`` line for each path and kernel (launches,
+            calls, ms, bound, plain and library ms a request), one JSON line
+            of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line.
 
 Per-shape rows also go to ``chiprun_out/chip_smoke.json``.
@@ -99,7 +103,10 @@ LM_CHECK_PROMPT = 16                    # card against CPU, full width
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32X3_FLOP_PER_S = 495e12 / 3
-FUSED_KERNELS = ("fused_dw_pw_conv", "fused_pw_dw_pw_conv")  # K4, K5: 3xTF32
+FUSED_KERNELS = ("fused_dw_pw_conv", "fused_pw_dw_pw_conv")  # K4, K5
+# kernels planned per call on the host; K1, K4 and K5 run their products in
+# 3xTF32 on the tensor cores
+PLANNED = ("matmul_bias_act", "depthwise_conv2d", *FUSED_KERNELS)
 
 
 def card_line() -> str:
@@ -233,15 +240,26 @@ def step_call(step, graph, batch: int) -> dict:
 
 def edge_calls() -> list[dict]:
     """Edge cases beside the paths' shapes: no bias, each activation, K4
-    and K5 with a residual, ragged tails, stride 2, K5's expand bias."""
+    and K5 with a residual, ragged tails, stride 2, K5's expand bias, K1's
+    head without bias and a ragged K split in a cluster."""
     return [
         dict(kernel="matmul_bias_act", m=77, k=13, n=70, act=None,
              bias=False),
         dict(kernel="matmul_bias_act", m=130, k=45, n=129, act="relu"),
+        # K1: the M = 2 head without bias; a ragged K split between ranks
+        dict(kernel="matmul_bias_act", m=2, k=1280, n=1000, act="relu",
+             bias=False),
+        dict(kernel="matmul_bias_act", m=37, k=1283, n=130, act="relu6"),
         dict(kernel="depthwise_conv2d", n=1, h=13, w=11, c=37, k=3,
              stride=2, pad=1, act="relu", bias=False),
         dict(kernel="depthwise_conv2d", n=2, h=9, w=9, c=40, k=5, stride=1,
              pad=2, act=None),
+        # K2: a ragged C past one channel block; W not a multiple of the
+        # outputs a thread
+        dict(kernel="depthwise_conv2d", n=2, h=14, w=14, c=1001, k=3,
+             stride=2, pad=1, act="relu6"),
+        dict(kernel="depthwise_conv2d", n=1, h=10, w=13, c=64, k=3,
+             stride=1, pad=1, act="relu6"),
         dict(kernel="conv2d_implicit_gemm", n=2, h=56, w=56, ci=16, co=64,
              k=3, stride=1, pad=1, act="relu"),
         dict(kernel="conv2d_implicit_gemm", n=1, h=15, w=13, ci=5, co=70,
@@ -294,6 +312,9 @@ def make_case(call: dict, gen) -> dict:
             return _lib_act(out, call["act"])
         nbytes = 4 * (m * k + k * n + (n if bias else 0) + m * n)
         flops = 2 * m * k * n
+        return dict(kernel=lambda: kt["fn"](*args, **kw), plain=plain,
+                    library=library, nbytes=nbytes, flops=flops,
+                    tc_flops=flops)
     elif kind == "depthwise_conv2d":
         n, h, wd, c, kk = call["n"], call["h"], call["w"], call["c"], call["k"]
         s, p = call["stride"], call["pad"]
@@ -500,8 +521,8 @@ def check_and_time(call: dict, gen, timing: bool) -> dict:
                              f"version, max |err| {err:.3e} "
                              f"(rtol = atol = {KERNEL_TOL})")
     row = dict(call, max_abs_err=err)
-    if call["kernel"] in FUSED_KERNELS:
-        row["plan"] = fused_plan(call)
+    if call["kernel"] in PLANNED:
+        row["plan"] = kernel_plan(call)
     if timing:
         tc = case.get("tc_flops", 0)
         b_ms, b_by = bound_ms(case["nbytes"], case["flops"], tc)
@@ -511,6 +532,29 @@ def check_and_time(call: dict, gen, timing: bool) -> dict:
                    bound_ms=b_ms, bound_by=b_by, bytes=case["nbytes"],
                    flops=case["flops"], tc_flops=tc)
     return row
+
+
+def kernel_plan(call: dict) -> dict:
+    """The tiling K1's, K2's, K4's or K5's wrapper launches ``call`` with."""
+    from repro_torch.kernels.conv_gemm.plan import plan_k1
+    from repro_torch.kernels.depthwise.plan import plan_k2
+    c = call
+    if c["kernel"] == "matmul_bias_act":
+        p = plan_k1(c["m"], c["k"], c["n"])
+        return dict(tile=f"{p.bm}x{p.bn}", bk=p.bk, warps=f"{p.wm}x"
+                    f"{8 // p.wm} ({p.mi}x{p.nj})", cluster=p.cluster,
+                    blocks=p.blocks, stages=p.stages, smem=p.smem_bytes)
+    if c["kernel"] == "depthwise_conv2d":
+        p = plan_k2(c["n"], c["h"], c["w"], c["c"], c["k"], c["k"],
+                    c["stride"], c["pad"])
+        return dict(tile=f"{p.th}x{p.tw}", channels=4 * p.cq, ow=p.ow,
+                    threads=p.threads, blocks=p.blocks, smem=p.smem_bytes)
+    return fused_plan(call)
+
+
+def plan_str(plan: dict) -> str:
+    """One line of a plan's fields."""
+    return " ".join(f"{k} {v}" for k, v in plan.items())
 
 
 def fused_plan(call: dict) -> dict:
@@ -996,7 +1040,7 @@ def main() -> int:
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"device {kind}, {torch.cuda.device_count()} device(s)")
     print(f"[setup] kernels built and loaded in {timed_build():.1f} s")
-    for name in FUSED_KERNELS:
+    for name in PLANNED:
         for line in ptxas_report(name):
             print(f"[setup] ptxas {name}: {line}")
 
@@ -1009,9 +1053,7 @@ def main() -> int:
     for key, c in distinct.items():
         rows[key] = check_and_time(c, gen, timing=True)
         r = rows[key]
-        plan = ("" if "plan" not in r else
-                "  plan {tile} cluster {cluster} blocks {blocks}".format(
-                    **r["plan"]))
+        plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
         print(f"[kernels] {r['kernel']:<21} "
               f"{_shape_str(c):<40} ms {r['ms']:.4f}  plain "
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
@@ -1053,6 +1095,15 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, torch=torch.__version__,
         rows=list(rows.values()), paths=paths, kernels=kernels), indent=1))
+    for p in paths:
+        name = p["model"] + (" fuse=True" if p.get("fuse") else "")
+        for kname, v in p["kernels"].items():
+            b_ms, b_by = bound_ms(v["bytes"], v["flops"], v["tc_flops"])
+            print(f"[report] {name}: {kname} launches {p['launches'][kname]}"
+                  f", calls a request {v['calls']:g}, ms {v['ms']:.4f}, "
+                  f"bound {b_ms:.5f} ({b_by}), plain {v['plain_ms']:.4f}, "
+                  f"library {v['library_ms']:.4f}, err "
+                  f"{v['max_abs_err']:.1e}")
     print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
           f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
           f"the kernel (an LM request: its prefill and its share of its "

@@ -232,7 +232,8 @@ extern "C" int repro_fused_dw_pw_conv(
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = repro_cdiv(Ho, th) * repro_cdiv(Wo, tw);
   return launch_clustered(pick(KH, KW, ps.NJ), cl, tiles, Nimg,
-                          (size_t)smem, stream, x, dw_w, dw_b, pw_w, pw_b,
+                          (size_t)smem, stream, false, x, dw_w, dw_b, pw_w,
+                          pw_b,
                           res, out, H, W, C, Co, KH, KW, stride, pad, Ho, Wo,
                           dw_act, pw_act, th, tw, ns, vec);
 }

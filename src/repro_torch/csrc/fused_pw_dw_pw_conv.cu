@@ -406,7 +406,8 @@ extern "C" int repro_fused_pw_dw_pw_conv(
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = repro_cdiv(Ho, th) * repro_cdiv(Wo, tw);
   return launch_clustered(pick(KH, KW, ps.NJ, em, kc, g), cl, tiles, Nimg,
-                          (size_t)smem, stream, x, exp_w, exp_b, dw_w, dw_b,
+                          (size_t)smem, stream, false, x, exp_w, exp_b, dw_w,
+                          dw_b,
                           proj_w, proj_b, res, out, H, W, Ci, Cm, Co, KH, KW,
                           stride, pad, Ho, Wo, exp_act, dw_act, proj_act, th,
                           tw, ns, vec);

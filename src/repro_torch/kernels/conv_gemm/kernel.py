@@ -4,7 +4,10 @@ Wrappers of the hand-written CUDA kernels ``csrc/matmul_bias_act.cu`` and
 ``csrc/conv2d_implicit_gemm.cu``, which replace the TPU kernels
 ``repro/kernels/conv_gemm/kernel.py::matmul_bias_act`` and
 ``::conv2d_implicit_gemm``; each source says what bounds the kernel on an
-H100 and what its design does about it.
+H100 and what its design does about it.  ``plan.py`` chooses each K1
+call's tiling (output tile, k-step, warp layout, cluster and K split,
+shared memory) from its shape; the wrapper passes it to the kernel, which
+trusts it.
 
 A wrapper dispatches on the device of its input: a CUDA tensor launches the
 kernel on the current stream (or raises), a CPU tensor runs the plain
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.conv_gemm.plan import plan_k1
 from repro_torch.kernels.conv_gemm.ref import conv2d_ref, matmul_bias_act_ref
 from repro_torch.kernels.util import act_code, check_cuda_operands, launch
 
@@ -35,9 +39,13 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return matmul_bias_act_ref(x, w, bias, act)
     check_cuda_operands("matmul_bias_act", x.device, x=x, w=w, bias=bias)
+    plan = plan_k1(m, k, n)
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    vec = (int(k % 4 == 0 and x.data_ptr() % 16 == 0)
+           | 2 * int(n % 4 == 0 and w.data_ptr() % 16 == 0))
     launch("repro_matmul_bias_act", x.device, x, w, bias, out, m, n, k,
-           act_code(act))
+           act_code(act), plan.bm, plan.bn, plan.bk, plan.wm, plan.cluster,
+           plan.stages, plan.smem_bytes, vec)
     matmul_bias_act.launches += 1
     return out
 

@@ -3,7 +3,10 @@
 Wrapper of the hand-written CUDA kernel ``csrc/depthwise_conv2d.cu``, which
 replaces the TPU kernel ``repro/kernels/depthwise/kernel.py::
 depthwise_conv2d``; the source says what bounds it on an H100 (bytes) and
-how its shared-memory halo tiles stand in for the line buffer.
+how its shared-memory halo tiles stand in for the line buffer.  ``plan.py``
+chooses each call's tiling (pixel tile, channel block, outputs a thread,
+shared memory) from its shape; the wrapper passes it to the kernel, which
+trusts it.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``depthwise_conv2d.launches``
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.depthwise.plan import plan_k2
 from repro_torch.kernels.depthwise.ref import depthwise_conv2d_ref
 from repro_torch.kernels.util import act_code, check_cuda_operands, launch
 
@@ -37,9 +41,13 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
         return depthwise_conv2d_ref(x, w, bias, stride=stride, pad=pad,
                                     act=act)
     check_cuda_operands("depthwise_conv2d", x.device, x=x, w=w, bias=bias)
+    plan = plan_k2(n, h, wd, c, kh, kw, stride, pad)
     out = torch.empty((n, ho, wo, c), device=x.device, dtype=torch.float32)
+    vec = int(c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (
+        x, w, out, *(() if bias is None else (bias,)))))
     launch("repro_depthwise_conv2d", x.device, x, w, bias, out, n, h, wd, c,
-           kh, kw, stride, pad, ho, wo, act_code(act))
+           kh, kw, stride, pad, ho, wo, act_code(act), plan.th, plan.tw,
+           plan.cq, plan.ow, plan.smem_bytes, vec)
     depthwise_conv2d.launches += 1
     return out
 

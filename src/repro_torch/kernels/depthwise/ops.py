@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/depthwise/ops.py``.  The reference picks a
 channel block so that a whole padded image fits a VMEM budget; the CUDA
-kernel tiles space and channels itself, so there is nothing to pick.
+kernel's wrapper takes its tiling of space and channels from ``plan.py``,
+so there is nothing to pick here.
 """
 from __future__ import annotations
 

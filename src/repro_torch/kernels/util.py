@@ -194,9 +194,9 @@ def build_library() -> Path:
 # C signatures: 'p' a device pointer (or NULL), 'i' an int, 'f' a float,
 # 's' the stream.
 SIGNATURES = {
-    "repro_matmul_bias_act": "p" * 4 + "i" * 4 + "s",
+    "repro_matmul_bias_act": "p" * 4 + "i" * 12 + "s",
     "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 12 + "s",
-    "repro_depthwise_conv2d": "p" * 4 + "i" * 11 + "s",
+    "repro_depthwise_conv2d": "p" * 4 + "i" * 17 + "s",
     "repro_fused_dw_pw_conv": "p" * 7 + "i" * 19 + "s",
     "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 23 + "s",
     "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",

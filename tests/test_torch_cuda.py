@@ -130,6 +130,61 @@ def test_fused_kernel_matches_plain_at_path_shape_on_card(call, card):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
 
+def _k1k2_calls():
+    """Every distinct K1 and K2 call of the CNN paths (batch 2, 224 px)
+    and ``chip_smoke.py``'s K1/K2 edge cases: the M = 2 heads, a ragged K of
+    13 and of 1283, ragged N, stride 2, a ragged C, a 5x5 window."""
+    seen = {}
+    for c in [*chip_smoke.cnn_path_calls(), *chip_smoke.edge_calls()]:
+        if c["kernel"] in ("matmul_bias_act", "depthwise_conv2d"):
+            seen.setdefault(json.dumps(c, sort_keys=True), c)
+    return list(seen.values())
+
+
+K1K2_CALLS = _k1k2_calls()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", K1K2_CALLS,
+                         ids=[chip_smoke._shape_str(c).replace(" ", ",")
+                              + f"-{c['kernel'][:6]}" for c in K1K2_CALLS])
+def test_k1_k2_match_plain_at_path_shape_on_card(call, card):
+    """K1 and K2 at every path shape and edge case, each with the tiling
+    its planner gives, against the plain version at 1e-4; a repeated call
+    gives the same bits."""
+    fn = WRAPPERS["K1" if call["kernel"] == "matmul_bias_act" else "K2"]
+    case = chip_smoke.make_case(call, np.random.default_rng(13))
+    before = fn.launches
+    got = case["kernel"]()
+    again = case["kernel"]()
+    want = case["plain"]()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", [
+    dict(kernel="matmul_bias_act", m=2, k=1280, n=1000, act=None),
+    dict(kernel="matmul_bias_act", m=98, k=1024, n=1024, act="relu6"),
+    dict(kernel="depthwise_conv2d", n=2, h=112, w=112, c=96, k=3, stride=2,
+         pad=1, act="relu6")], ids=["K1-head", "K1-v1", "K2"])
+def test_k1_k2_same_bits_on_two_streams_on_card(call, card):
+    """Two launches on two streams give the bits of the first on the
+    current stream: K1's ranks meet in rank order (clusters of 14-16 at
+    these shapes), K2 sums its taps in a fixed order."""
+    case = chip_smoke.make_case(call, np.random.default_rng(14))
+    first = case["kernel"]()
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(case["kernel"]())
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("call", [
     dict(kernel="fused_dw_pw_conv", n=2, h=7, w=7, c=960, co=320, k=3,

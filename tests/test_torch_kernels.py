@@ -23,8 +23,10 @@ from repro.kernels.fused_block.kernel import fused_dw_pw_conv as ref_fused
 from repro.kernels.fused_block.kernel import (
     fused_pw_dw_pw_conv as ref_fused_ir)
 from repro_torch.kernels.conv_gemm import ops as conv_ops
+from repro_torch.kernels.conv_gemm import plan as gplan
 from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
                                                   matmul_bias_act)
+from repro_torch.kernels.depthwise import plan as dplan
 from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
 from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
                                                     fused_pw_dw_pw_conv)
@@ -289,6 +291,166 @@ def test_fused_planner_is_deterministic_and_refuses_what_cannot_fit():
         fplan._plan("k4", 2, 14, 14, 0, 512, 512, 3, 3, 1)
     with pytest.raises(ValueError, match="no tiling fits"):
         fplan.plan_k4(1, 8, 8, 16, 4096, 3, 1, 1)   # Co past the registers
+
+
+# --------------------------------------------------------------------------
+# K1 and K2 planners
+# --------------------------------------------------------------------------
+def _k1k2_cases(kernel):
+    """Every distinct call of ``kernel`` (K1 or K2) on the four CNN paths
+    (batch 2, 224 px, as ``chip_smoke.py`` derives them), its edge cases,
+    and the shapes of the interpret-mode tests above."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    calls = [c for c in [*chip_smoke.cnn_path_calls(),
+                         *chip_smoke.edge_calls()] if c["kernel"] == kernel]
+    if kernel == "matmul_bias_act":
+        calls += [dict(m=64, k=32, n=48), dict(m=77, k=13, n=70)]
+        keys = ("m", "k", "n")
+    else:
+        calls += [dict(n=2, h=h, w=w, c=c, k=k, stride=s, pad=k // 2)
+                  for h, w, c, k, s in [(12, 12, 16, 3, 1), (13, 11, 24, 3, 2),
+                                        (9, 9, 8, 5, 1)]]
+        keys = ("n", "h", "w", "c", "k", "stride", "pad")
+    seen = {}
+    for c in calls:
+        c = {k: c[k] for k in keys}
+        seen.setdefault(json.dumps(c, sort_keys=True), c)
+    return list(seen.values())
+
+
+K1_CASES = _k1k2_cases("matmul_bias_act")
+K2_CASES = _k1k2_cases("depthwise_conv2d")
+
+
+@pytest.mark.parametrize("call", K1_CASES, ids=[
+    "{m}x{k}x{n}".format(**c) for c in K1_CASES])
+def test_k1_planner_covers_the_call_once(call):
+    """``plan_k1`` at every K1 call of the CNN paths: the output tiles
+    cover M x N once, the K split covers K once in rank order, the warps
+    cover the tile with a compiled layout, the shared memory and the
+    cluster fit an H100, and the grid fills the 132 SMs wherever a tiling
+    the planner offers does."""
+    m, k, n = call["m"], call["k"], call["n"]
+    p = gplan.plan_k1(m, k, n)
+    cover = np.zeros((m, n), np.int64)
+    for tm in range(p.tiles_m):                 # the kernel's grid
+        for tn in range(p.tiles_n):
+            assert tm * p.bm < m and tn * p.bn < n
+            cover[tm * p.bm:(tm + 1) * p.bm, tn * p.bn:(tn + 1) * p.bn] += 1
+    assert (cover == 1).all()
+    assert p.blocks == p.cluster * p.tiles_m * p.tiles_n
+    edge = 0
+    for lo, hi in gplan.k_splits(k, p.bk, p.cluster):   # rank order, no gap
+        assert lo == edge and lo < hi and lo % p.bk == 0
+        edge = hi
+    assert edge == k
+    assert (p.mi, p.nj) in gplan.COMPILED
+    assert p.wm * p.mi * 16 == p.bm and 8 // p.wm * p.nj * 8 >= p.bn
+    assert p.bn <= 128 and (p.bn in gplan.BNS or p.bn == n)
+    assert p.smem_bytes == 4 * gplan.k1_smem_floats(p.bm, p.bn, p.bk,
+                                                    p.stages) <= 232_448
+    assert 2 <= p.stages <= 4 and 1 <= p.cluster <= 16
+    if max(q.blocks for _k, q in gplan.candidates(m, k, n)) >= 132:
+        assert p.blocks >= 132
+
+
+@pytest.mark.parametrize("call", K2_CASES, ids=[
+    "{n}x{h}x{w}x{c}-k{k}s{stride}".format(**c) for c in K2_CASES])
+def test_k2_planner_covers_the_call_once(call):
+    """``plan_k2`` at every K2 call of the CNN paths: the pixel tiles cover
+    the output once, the channel blocks cover C once, a block's threads
+    cover its tile's outputs, the threads and shared memory fit, the
+    outputs a thread are compiled for the window, and the grid fills the
+    132 SMs wherever a tiling the planner offers does."""
+    c = call
+    p = dplan.plan_k2(c["n"], c["h"], c["w"], c["c"], c["k"], c["k"],
+                      c["stride"], c["pad"])
+    ho = (c["h"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
+    wo = (c["w"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
+    cover = np.zeros((ho, wo), np.int64)
+    for t in range(p.tiles_h * p.tiles_w):      # the kernel's tile walk
+        oh0, ow0 = (t // p.tiles_w) * p.th, (t % p.tiles_w) * p.tw
+        assert oh0 < ho and ow0 < wo
+        cover[oh0:oh0 + p.th, ow0:ow0 + p.tw] += 1
+    assert (cover == 1).all()
+    chans = np.zeros(c["c"], np.int64)
+    for cb in range(p.cblocks):
+        assert cb * 4 * p.cq < c["c"]
+        chans[cb * 4 * p.cq:(cb + 1) * 4 * p.cq] += 1
+    assert (chans == 1).all()
+    strips = -(-p.tw // p.ow)
+    assert p.threads == p.cq * p.th * strips <= 256
+    assert strips * p.ow >= p.tw
+    assert p.ow in dplan.compiled_ows(c["k"], c["k"], c["stride"])
+    assert p.blocks == p.tiles_h * p.tiles_w * p.cblocks * c["n"]
+    assert p.smem_bytes == 4 * dplan.k2_smem_floats(
+        p.th, p.tw, p.cq, p.ow, c["k"], c["k"], c["stride"]) <= 232_448
+    cands = dplan.candidates(c["n"], ho, wo, c["c"], c["k"], c["k"],
+                             c["stride"])
+    if max(q.blocks for _k, q in cands) >= 132:
+        assert p.blocks >= 132
+
+
+def test_k1_k2_planners_are_deterministic_and_refuse_what_cannot_fit():
+    assert gplan.plan_k1(392, 512, 1000) == min(
+        gplan.candidates(392, 512, 1000), key=lambda kp: kp[0])[1]
+    assert dplan.plan_k2(2, 14, 14, 512, 3, 3, 1, 1) == min(
+        dplan.candidates(2, 14, 14, 512, 3, 3, 1), key=lambda kp: kp[0])[1]
+    with pytest.raises(ValueError, match="no tiling fits"):
+        gplan.plan_k1(1, 1, 9_000_000)          # past the grid's 65535 tiles
+    with pytest.raises(ValueError, match="empty"):
+        gplan.plan_k1(0, 16, 16)
+    with pytest.raises(ValueError, match="no tiling fits"):
+        dplan.plan_k2(1, 200, 200, 4, 101, 101, 1, 50)  # window past smem
+
+
+# --------------------------------------------------------------------------
+# K1's arithmetic: 3xTF32 emulated on the CPU
+# --------------------------------------------------------------------------
+def _tf32(a):
+    """cvt.rna.tf32.f32: round to the nearest tf32 (10 mantissa bits), ties
+    away from zero, on the bit pattern."""
+    u = a.astype(np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _k1_3xtf32(x, w, b, act, plan):
+    """K1's products as the kernel runs them: operands split into tf32 hi
+    and lo, each rank's hi*hi and lo*hi + hi*lo summed apart (lo*lo
+    dropped) over its K range, added once; the ranks' partials then summed
+    in rank order, the bias and the activation after."""
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    out = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for lo, hi in gplan.k_splits(x.shape[1], plan.bk, plan.cluster):
+        s = slice(lo, hi)
+        main = xh[:, s] @ wh[s]
+        corr = xl[:, s] @ wh[s] + xh[:, s] @ wl[s]
+        out = out + (main + corr)
+    out = out + b
+    return {"relu": np.maximum(out, 0), None: out}[act]
+
+
+@pytest.mark.parametrize("m,k,n,act", [(2, 1280, 1000, None),
+                                       (98, 1024, 1024, "relu")])
+def test_k1_3xtf32_emulation_matches_reference(m, k, n, act):
+    """At the paths' largest K (MobileNet v2's head, 2 x 1280 x 1000, and
+    MobileNet v1's 98 x 1024 x 1024), K1's 3xTF32 arithmetic under its plan
+    stays within 1e-4 of the reference Pallas kernel in interpret mode,
+    and much closer to an f64 product than plain TF32 would."""
+    x, w, b = _arrays(9, (m, k), (k, n), (n,))
+    w = (w * np.sqrt(2.0 / k)).astype(np.float32)
+    b = (b * 0.1).astype(np.float32)
+    plan = gplan.plan_k1(m, k, n)
+    got = _k1_3xtf32(x, w, b, act, plan)
+    ref = ref_matmul(_j(x), _j(w), _j(b), act=act, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    exact = x.astype(np.float64) @ w.astype(np.float64) + b
+    exact = np.maximum(exact, 0) if act == "relu" else exact
+    one_pass = _tf32(x) @ _tf32(w) + b
+    one_pass = np.maximum(one_pass, 0) if act == "relu" else one_pass
+    assert np.abs(got - exact).max() < np.abs(one_pass - exact).max() / 20
 
 
 # --------------------------------------------------------------------------
