@@ -24,11 +24,16 @@ any failure raises and the script exits non-zero:
             the plain version, a PyTorch library call or chain computing the
             same function (timed here only, never used by the port:
             ``F.rms_norm``, ``scaled_dot_product_attention``) and the least
-            time the card could take; the plans of K1 (tile, k-step,
-            cluster, blocks, stages, shared memory), K2 (pixel tile,
-            channel block, outputs a thread, blocks), K4 and K5 (pixel
-            tile, cluster, blocks) beside them, and at build time their
-            ``-Xptxas -v`` registers and spills;
+            time the card could take; the plans of K1 and K3 (tile,
+            k-step, cluster, blocks, stages, shared memory), K2 (pixel
+            tile, channel block, outputs a thread, blocks), K4 and K5
+            (pixel tile, cluster, blocks) and K7 decode (tensor or CUDA
+            cores, cluster, keys a rank, slots, blocks, shared memory)
+            beside them, and at build time their ``-Xptxas -v`` registers
+            and spills.  K7 decode is also timed at the head geometry of
+            the other registered dense configs (Qwen2.5-14B 40/8,
+            Granite-20B 48/1, Command R+ 96/8, D 128; 16 rows, cache
+            576) and checked there with ragged ``kv_len`` down to 0 and 1;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the sequential
             kernel forward against the all-plain forward at 1e-3 (up to 53
@@ -55,7 +60,14 @@ any failure raises and the script exits non-zero:
             sizes, the per-stage trace, the host's enqueue time per decode
             step against its device time (one step timed with the host
             held out) and the K6 and K7 device time in it, and the card's
-            f32 matmul and copy rates (the cost model's ceilings);
+            f32 matmul and copy rates (the cost model's ceilings); the
+            planned group size with the cost model's f32 bytes beside the
+            one its former bf16 bytes gave, and the model's decode step
+            beside the measured one.  Then Granite-20B at its published
+            width cut to 2 of its 52 layers (f32 at full depth does not
+            fit one card), random weights from seed 0: the same prefill,
+            chunk and 3 decode steps (K7 decode at G = 48 on the tensor
+            cores) on the card against the CPU's plain versions at 1e-3;
 5. report   one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
@@ -97,6 +109,12 @@ LM_GEN = 64
 LM_THETA = 0.5
 LM_MAX_LEN = LM_PROMPT + LM_GEN + 8    # the CLI's cache length
 LM_CHECK_PROMPT = 16                    # card against CPU, full width
+# the other registered dense configs, whose decode geometry phase 2 checks
+LM_GEOMETRY_ARCHS = ("qwen2_5_14b", "granite_20b", "command_r_plus_104b")
+LM_GEOMETRY_ROWS = LM_BATCH * 8         # the LM path's decode rows
+LM_GEOMETRY_CACHE = 576
+GRANITE = "granite_20b"                 # checked at full width, cut depth
+GRANITE_LAYERS = 2
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
 # the CUDA cores (no tensor cores) 67 TFLOP/s, TF32 on the tensor cores 495
 # TFLOP/s, of which 3xTF32 (three products per f32 product) gets a third.
@@ -104,9 +122,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32X3_FLOP_PER_S = 495e12 / 3
 FUSED_KERNELS = ("fused_dw_pw_conv", "fused_pw_dw_pw_conv")  # K4, K5
-# kernels planned per call on the host; K1, K4 and K5 run their products in
-# 3xTF32 on the tensor cores
-PLANNED = ("matmul_bias_act", "depthwise_conv2d", *FUSED_KERNELS)
+# kernels planned per call on the host; K1, K3, K4 and K5 run their
+# products in 3xTF32 on the tensor cores, K7 decode where G > 8
+PLANNED = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
+           *FUSED_KERNELS, "decode_attention")
+# the sources whose -Xptxas -v report setup prints
+PTXAS_SOURCES = ("matmul_bias_act", "depthwise_conv2d",
+                 "conv2d_implicit_gemm", *FUSED_KERNELS, "flash_attention")
 
 
 def card_line() -> str:
@@ -352,6 +374,9 @@ def make_case(call: dict, gen) -> dict:
         nbytes = 4 * (n * h * wd * ci + kk * kk * ci * co
                       + (co if bias else 0) + n * ho * wo * co)
         flops = 2 * n * ho * wo * kk * kk * ci * co
+        return dict(kernel=lambda: kt["fn"](*args, **kw), plain=plain,
+                    library=library, nbytes=nbytes, flops=flops,
+                    tc_flops=flops)
     elif kind == "fused_pw_dw_pw_conv":
         return _fused_ir_case(kt, call, gen)
     elif kind in ("rmsnorm", "flash_attention", "decode_attention"):
@@ -445,6 +470,7 @@ def _lm_case(kt: dict, call: dict, gen) -> dict:
                     plain=lambda: kt["plain"](x, w, 1e-6),
                     library=lambda: F.rms_norm(x, (d,), w, 1e-6),
                     nbytes=4 * (2 * rows * d + d), flops=4 * rows * d)
+    from repro_torch.kernels.attention.plan import plan_decode
     b, hq, hkv, sk, d = (call[k] for k in ("b", "hq", "hkv", "sk", "d"))
     g = hq // hkv
     k = rand(gen, (b, hkv, call["cap"], d))[:, :, :sk]
@@ -457,12 +483,15 @@ def _lm_case(kt: dict, call: dict, gen) -> dict:
         mask = (None if lens is None else
                 (torch.arange(sk, device=DEV)[None, :]
                  < kv_len[:, None].long())[:, None, None, :])
-        seen = sum(lens) if lens is not None else b * sk
+        seen = (sum(min(max(n, 0), sk) for n in lens) if lens is not None
+                else b * sk)
+        flops = 4 * hq * d * seen
         return dict(kernel=lambda: kt["fn"](q, k, v, kv_len),
                     plain=lambda: kt["plain"](q, k, v, kv_len),
                     library=_sdpa(q, k, v, mask, False, g),
                     nbytes=4 * (2 * b * hq * d + 2 * hkv * d * seen),
-                    flops=4 * hq * d * seen)
+                    flops=flops, tc_flops=flops if plan_decode(
+                        b, hq, hkv, sk, d).tc else 0)
     sq, causal, off = call["sq"], call["causal"], call["q_offset"]
     sk_valid = call.get("sk_valid")
     kv_end = sk if sk_valid is None else min(sk, sk_valid)
@@ -535,15 +564,25 @@ def check_and_time(call: dict, gen, timing: bool) -> dict:
 
 
 def kernel_plan(call: dict) -> dict:
-    """The tiling K1's, K2's, K4's or K5's wrapper launches ``call`` with."""
-    from repro_torch.kernels.conv_gemm.plan import plan_k1
+    """The plan K1's, K2's, K3's, K4's, K5's or K7 decode's wrapper
+    launches ``call`` with."""
+    from repro_torch.kernels.attention.plan import plan_decode
+    from repro_torch.kernels.conv_gemm.plan import plan_k1, plan_k3
     from repro_torch.kernels.depthwise.plan import plan_k2
     c = call
-    if c["kernel"] == "matmul_bias_act":
-        p = plan_k1(c["m"], c["k"], c["n"])
+    if c["kernel"] in ("matmul_bias_act", "conv2d_implicit_gemm"):
+        p = (plan_k1(c["m"], c["k"], c["n"]) if c["kernel"] ==
+             "matmul_bias_act" else
+             plan_k3(c["n"], c["h"], c["w"], c["ci"], c["co"], c["k"],
+                     c["k"], c["stride"], c["pad"], c["ci"] % 4 == 0))
         return dict(tile=f"{p.bm}x{p.bn}", bk=p.bk, warps=f"{p.wm}x"
                     f"{8 // p.wm} ({p.mi}x{p.nj})", cluster=p.cluster,
                     blocks=p.blocks, stages=p.stages, smem=p.smem_bytes)
+    if c["kernel"] == "decode_attention":
+        p = plan_decode(c["b"], c["hq"], c["hkv"], c["sk"], c["d"])
+        return dict(cores="tensor" if p.tc else "cuda", cluster=p.cluster,
+                    keys=p.keys, slots=p.slots, blocks=p.blocks,
+                    smem=p.smem_bytes)
     if c["kernel"] == "depthwise_conv2d":
         p = plan_k2(c["n"], c["h"], c["w"], c["c"], c["k"], c["k"],
                     c["stride"], c["pad"])
@@ -808,6 +847,25 @@ def lm_edge_calls() -> list[dict]:
             _decode(3, 100, 100, kv_len=[100, 37, 1], d=8)]
 
 
+def lm_geometry_calls() -> list[dict]:
+    """K7 decode at the head geometry of the other registered dense
+    configs, at the LM path's decode rows and a cache of 576."""
+    from repro_torch.configs.registry import get_arch
+    out = []
+    for name in LM_GEOMETRY_ARCHS:
+        cfg = get_arch(name)
+        out.append(_decode(LM_GEOMETRY_ROWS, LM_GEOMETRY_CACHE, LM_MAX_LEN,
+                           d=cfg.d_head, hq=cfg.n_heads,
+                           hkv=cfg.n_kv_heads))
+    return out
+
+
+def lm_geometry_edge_calls() -> list[dict]:
+    """The same geometries with ragged ``kv_len``, 0 and 1 among them."""
+    return [dict(c, b=4, kv_len=[576, 0, 1, 300])
+            for c in lm_geometry_calls()]
+
+
 def weighted_sums(rows: dict, calls: list[tuple[dict, float]]) -> dict:
     """Per kernel, the phase-2 numbers summed over weighted calls."""
     out: dict[str, dict] = {}
@@ -888,6 +946,7 @@ def lm_device_ms(cfg, params, rows_dec: int) -> tuple[float, float]:
 def lm_path(rows: dict) -> dict:
     """Qwen2-0.5B served through ``DualMeshEngine`` on the two streams."""
     from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.cost import CardModel
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
     from repro_torch.lm.model import init_params, params_from_numpy
@@ -921,7 +980,11 @@ def lm_path(rows: dict) -> dict:
     torch.cuda.synchronize()
     runner = runners["two"]
     gs = runner.planned_group_size(prompts, [LM_GEN] * LM_REQUESTS)
-    print(f"[lm] {runner.dual.cores.describe()}; planned group size {gs}")
+    gs_bf16 = runner.planned_group_size(prompts, [LM_GEN] * LM_REQUESTS,
+                                        CardModel(elem_bytes=2))
+    print(f"[lm] {runner.dual.cores.describe()}; planned group size {gs} "
+          f"(the cost model's f32 bytes; its former bf16 bytes gave "
+          f"{gs_bf16})")
 
     def run(name):
         r = runners[name]
@@ -992,6 +1055,13 @@ def lm_path(rows: dict) -> dict:
           f"host held out), of it K6 {k6_step:.4f} ms (49 calls) and K7 "
           f"decode {k7_step:.4f} ms (24 calls, phase 2); one prefill "
           f"forward (2 x {LM_PROMPT}) {dev_prefill:.3f} ms on the device")
+    model = step_model(cfg, runner.dual, rows_dec)
+    print(f"[lm] cost model, one decode step of {rows_dec} rows at cache "
+          f"{LM_PROMPT + LM_GEN // 2}: {model['latency_ms']:.3f} ms "
+          f"({model['bound']}: the step floor {model['floor_ms']:.3f} ms of "
+          f"host dispatch; f32 bytes {model['bytes_ms']:.3f} ms, compute "
+          f"{model['compute_ms']:.3f} ms) against {host_step:.3f} ms of "
+          f"host enqueue and {dev_step:.3f} ms on the device, measured")
     rates = card_rates()
     print(f"[lm] card rates: f32 matmul 1024x896x4864 "
           f"{rates['matmul_tflops']:.2f} TFLOP/s "
@@ -1010,7 +1080,58 @@ def lm_path(rows: dict) -> dict:
                 host_ms_per_step=host_step, stream_ms_per_step=stream_step,
                 device_ms_per_step=dev_step, device_ms_prefill=dev_prefill,
                 k6_ms_per_step=k6_step, k7_decode_ms_per_step=k7_step,
-                card_vs_cpu_max_abs_err=err, rates=rates)
+                card_vs_cpu_max_abs_err=err, rates=rates,
+                group_size_bf16=gs_bf16, step_model=model)
+
+
+def step_model(cfg, dual, rows: int) -> dict:
+    """The card cost model's decode step of ``rows`` rows at the path's
+    mid cache: its latency and bound, and the terms under it (the bytes
+    term apart from the step floor)."""
+    from repro_torch.dualmesh.cost import CardModel, decode_cost
+    kv = LM_PROMPT + LM_GEN // 2
+    hw = CardModel()
+    cost = decode_cost(cfg, rows, kv, dual.p_chips, 1, hw, dual.tp_p)
+    bare = decode_cost(cfg, rows, kv, dual.p_chips, 1,
+                       CardModel(step_floor_base=0.0), dual.tp_p)
+    return dict(latency_ms=cost.latency * 1e3, bound=cost.bound,
+                floor_ms=cfg.n_layers * hw.step_floor(dual.p_chips,
+                                                      dual.tp_p) / 4 * 1e3,
+                bytes_ms=bare.t_memory * 1e3,
+                compute_ms=cost.t_compute * 1e3)
+
+
+def granite_path() -> dict:
+    """Granite-20B at its published width, cut to ``GRANITE_LAYERS``
+    layers: its prefill, chunk and 3 decode steps on the card against the
+    CPU's plain versions; K7 decode runs at G = 48."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.lm.model import init_params, params_from_numpy
+    cfg = get_arch(GRANITE).scaled(name=f"{GRANITE}_{GRANITE_LAYERS}l",
+                                   n_layers=GRANITE_LAYERS)
+    t0 = time.perf_counter()
+    host = init_params(cfg, seed=0)
+    params = params_from_numpy(host, DEV)
+    n_params = sum(a.size for a in _leaves(host))
+    print(f"[granite] {GRANITE} cut to {cfg.n_layers} of 52 layers: d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads (G "
+          f"{cfg.n_heads // cfg.n_kv_heads}), d_head {cfg.d_head}, vocab "
+          f"{cfg.vocab}; {n_params / 1e6:.1f} M parameters "
+          f"({4 * n_params / 1e9:.2f} GB f32) from seed 0, on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    err = lm_card_vs_cpu(cfg, params, host)
+    launches = launch_counts()
+    want = 3 * cfg.n_layers
+    if launches["decode_attention"] != want:
+        raise AssertionError(f"granite: K7 decode launched "
+                             f"{launches['decode_attention']} times, not "
+                             f"{want}")
+    print(f"[granite] card against CPU plain versions, 16-token prompt "
+          f"(prefill 12, chunk 4, 3 decode steps): max |logit err| "
+          f"{err:.2e} (tol {FORWARD_TOL}); launches {launches}")
+    return dict(model=GRANITE, layers=cfg.n_layers, params=n_params,
+                card_vs_cpu_max_abs_err=err, launches=launches)
 
 
 def _leaves(tree):
@@ -1040,7 +1161,7 @@ def main() -> int:
     print(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"device {kind}, {torch.cuda.device_count()} device(s)")
     print(f"[setup] kernels built and loaded in {timed_build():.1f} s")
-    for name in PLANNED:
+    for name in PTXAS_SOURCES:
         for line in ptxas_report(name):
             print(f"[setup] ptxas {name}: {line}")
 
@@ -1059,14 +1180,24 @@ def main() -> int:
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
               f"{r['max_abs_err']:.1e}{plan}")
-    edges = edge_calls() + lm_edge_calls()
+    geometry = {}
+    for c in lm_geometry_calls():
+        r = geometry[json.dumps(c, sort_keys=True)] = check_and_time(
+            c, gen, timing=True)
+        print(f"[kernels] geometry {r['kernel']:<16} {_shape_str(c):<40} ms "
+              f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library "
+              f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})  err {r['max_abs_err']:.1e}  plan "
+              f"{plan_str(r['plan'])}")
+    edges = edge_calls() + lm_edge_calls() + lm_geometry_edge_calls()
     for c in edges:
         r = check_and_time(c, gen, timing=False)
+        plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
         print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<40} err "
-              f"{r['max_abs_err']:.1e}")
+              f"{r['max_abs_err']:.1e}{plan}")
     print(f"[kernels] all kernels agree with their plain versions "
-          f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes and "
-          f"{len(edges)} edge cases")
+          f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes, "
+          f"{len(geometry)} head geometries and {len(edges)} edge cases")
 
     # 3. paths ------------------------------------------------------------
     paths = [serve_path(model, gen, rows) for model in SERVED]
@@ -1074,6 +1205,7 @@ def main() -> int:
 
     # 4. lm ---------------------------------------------------------------
     paths.append(lm_path(rows))
+    granite = granite_path()
 
     # 5. report -----------------------------------------------------------
     kernels = []
@@ -1094,7 +1226,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, torch=torch.__version__,
-        rows=list(rows.values()), paths=paths, kernels=kernels), indent=1))
+        rows=list(rows.values()), geometry_rows=list(geometry.values()),
+        paths=paths, granite=granite, kernels=kernels), indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")
         for kname, v in p["kernels"].items():

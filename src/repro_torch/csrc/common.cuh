@@ -1,8 +1,9 @@
 // Shared helpers of the hand-written f32 kernels (K1-K7).
 //
-// Every kernel takes and gives f32.  K2, K3, K6 and K7 compute on the CUDA
-// cores in f32; K1, K4 and K5 run their products on the tensor cores in
-// 3xTF32 (tc_common.cuh), which keeps f32's accuracy.  Every kernel sums
+// Every kernel takes and gives f32.  K2, K6 and K7 (but the decode of GQA
+// groups above 8) compute on the CUDA cores in f32; K1, K3, K4, K5 and
+// that decode run their products on the tensor cores in 3xTF32
+// (tc_common.cuh), which keeps f32's accuracy.  Every kernel sums
 // in a fixed order and uses no atomics, so it gives the same bits for the
 // same inputs on any stream.
 #pragma once

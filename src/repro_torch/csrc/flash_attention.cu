@@ -1,4 +1,6 @@
-// K7: GQA attention with the online softmax, f32 on the CUDA cores.
+// K7: GQA attention with the online softmax, f32: the flash kernel and the
+// decode of GQA groups up to 8 on the CUDA cores, wider groups' decode on
+// the tensor cores in 3xTF32 (tc_common.cuh).
 //
 // Replaces the TPU kernel src/repro/kernels/attention/kernel.py
 // `flash_attention` (body `_flash_kernel`) and its decode entry
@@ -35,23 +37,40 @@
 //
 // Decode (Sq = 1), bound on an H100: it reads every visible cache row once
 // for G query heads, 4*G*D FLOPs against 8*D bytes a row: bytes bound at
-// 3.35 TB/s.  Design: a block takes all G query heads of a (batch, kv head)
-// group, so each KV row leaves device memory once per group.  The keys are
-// split over blocks, 128 a block (split-K): at the LM path's 4 rows, 2 kv
-// heads and some 540 cached keys that is 40 blocks where one block per
-// group gave 8.  A block's 4 warps take a 32-key tile each, a lane per key
-// for the scores (its whole key row loaded at once) and a lane per feature
-// for P.V (8 value rows loaded at once), so many loads are in flight where
-// one load at a time left the first design latency bound.  The warps merge
-// their softmaxes in shared memory; with more than one split the blocks
-// write (m, l, acc) per query head to a scratch the wrapper allocates, and
-// a second kernel merges the splits in split order.  `kv_len` (per batch
-// row, may be NULL) is clamped to [0, Sk].
+// 3.35 TB/s while G stays under the f32 ridge (G about 20 at 67 TFLOP/s);
+// at G = 48 (Granite's MQA) f32 on the CUDA cores would be operations
+// bound.  Design (decode_attention_kernel below; plan.py's plan_decode
+// picks the path, the cluster and the slots per call):
+//   * One launch a call.  A thread-block cluster of up to 16 blocks owns a
+//     (batch row, kv head) and splits its keys: rank r takes a contiguous
+//     run of 32-key tiles (tc::rank_range).  The group's G query heads
+//     share every K and V row, which leaves device memory once a group.
+//   * G <= 8, on the CUDA cores: 16 warps, a pair of warps a tile slot.  A
+//     slot's tile (K and V rows, zero past the row's visible keys) is
+//     staged by cp.async; each warp of the pair takes 4 heads (q padded
+//     with zero rows to 8, so no loop over heads branches): a lane a key
+//     for the scores, the online softmax in registers, a lane a feature
+//     for P.V with p read four keys at a time from shared memory.  All of
+//     a rank's tiles are in flight at once when they fit (up to 8).
+//   * G > 8, on the tensor cores in 3xTF32: 8 warps; q padded to a
+//     multiple of 16 rows (at most 48), a cp.async ring of 2-4 tiles; S =
+//     Q K^T in m16n8k8 fragments, the softmax a row a warp over S in
+//     shared memory, leaving P there; P V accumulated in fragments,
+//     rescaled a row at a time.
+//   * Each partial softmax (m, l, acc) - a tile slot's, or a rank's on the
+//     tensor cores - goes straight from registers into the shared memory
+//     of the rank that merges its heads (distributed shared memory stores,
+//     after a cluster barrier that every rank entered on starting).  After
+//     one more barrier each rank merges its heads' states in order: no
+//     scratch in device memory, no atomics, the same bits on every stream.
+// `kv_len` (per batch row, may be NULL) is clamped to [0, Sk]; tiles past
+// it are not loaded, and a row with no visible key is written as 0.
+// Limits: G <= 48, D a power of two from 4 (8 where G > 8) to 128.
 //
 // No atomics: the result does not depend on the stream or the launch.
 #include <math.h>
 
-#include "common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -63,18 +82,6 @@ constexpr int PS = BK + 1;           // stride of the p tile
 constexpr int MAX_D = 128;
 constexpr int DPT = MAX_D / 16;      // acc columns a flash thread at most
 
-constexpr int DEC_WARPS = 4;
-constexpr int KEYS_PER_SPLIT = 32 * DEC_WARPS;   // a decode block's keys
-constexpr int MAX_G = 8;
-constexpr int DPL = MAX_D / 32;      // features a decode lane at most
-constexpr int KVEC = 16;             // float4 of a key row in flight
-constexpr int VCHUNK = 8;            // value rows in flight
-
-// Key splits of a decode call: one block per KEYS_PER_SPLIT keys.
-inline int repro_decode_splits(int Sk) {
-  return Sk > 0 ? repro_cdiv(Sk, KEYS_PER_SPLIT) : 1;
-}
-
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1)
@@ -85,19 +92,6 @@ __device__ __forceinline__ float half_warp_max(float v) {
 __device__ __forceinline__ float half_warp_sum(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -235,200 +229,532 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
-// One block per (batch, kv head, split of KEYS_PER_SPLIT keys): its warps
-// take a 32-key tile each, and the block's merged softmax goes to
-// `out` (one split) or to the split's slot of `part` for the combine.
-__global__ void __launch_bounds__(32 * DEC_WARPS)
+// ------------------------------------------------------------------ decode
+namespace dec {
+
+constexpr int TK = 32;               // keys a tile: a lane each
+constexpr int GM = 8;                // the CUDA cores' groups, padded
+constexpr int HW = 4;                // ... heads a warp: two warps a tile
+constexpr int WPT = GM / HW;
+constexpr int CUDA_THREADS = 512;    // the CUDA cores' blocks: 16 warps
+constexpr int TC_THREADS = 256;      // the tensor cores' blocks: 8 warps
+constexpr int MAX_SLOTS = CUDA_THREADS / 32 / WPT;   // 8 tiles in flight
+constexpr int MAX_G = 48;            // the tensor cores' rows, padded
+constexpr int SS = TK + 4;           // row stride of the S / P tile
+constexpr int MAX_CLUSTER = 16;
+
+__host__ __device__ inline int kv_stride(int D) { return D + 4; }
+// a tile's K and V rows, [2 TK][D + 4]
+__host__ __device__ inline int tile_floats(int D) {
+  return 2 * TK * kv_stride(D);
+}
+// q rows in shared memory: the group padded with zero rows to GM on the
+// CUDA cores, to a multiple of 16 on the tensor cores, so that every loop
+// over heads or m-tiles runs a fixed count without a branch
+__host__ __device__ inline int q_rows(int G, bool tc) {
+  return tc ? tc::round_up(G, 16) : GM;
+}
+// heads of a (batch row, kv head) whose outputs each rank merges
+__host__ __device__ inline int head_share(int G, int cl) {
+  return repro_cdiv(G, cl);
+}
+// partial softmax states of a (batch row, kv head): one a tile slot of
+// every rank (CUDA cores), one a rank (tensor cores)
+__host__ __device__ inline int states(int slots, int cl, bool tc) {
+  return tc ? cl : cl * slots;
+}
+
+// Shared memory in floats (plan.py's decode_smem_floats): q [QR][D + 4]
+// (QR = q_rows); `slots` tiles (the CUDA cores: a warp pair's tile each;
+// the tensor cores: the ring's stages); the warps' p [warps][HW][TK], or S
+// / P [QR][SS] and alpha [QR]; the inbox the cluster's states fill for the
+// heads this rank merges: acc [states][share][D], m and l [states][share].
+int smem_floats(int G, int D, int slots, int cl, bool tc) {
+  const int qr = q_rows(G, tc);
+  return qr * kv_stride(D) + slots * tile_floats(D) +
+         (tc ? qr * SS + qr : CUDA_THREADS / 32 * HW * TK) +
+         states(slots, cl, tc) * head_share(G, cl) * (D + 2);
+}
+
+// Stage tile `key0` .. + TK of K and V into dst ([2 TK][KS]: K rows, then
+// V rows) with `n` threads, thread `t`; rows at or past nk are zero.
+// quads = D / 4 divides n.
+__device__ __forceinline__ void stage_tile(float* dst, const float* kb,
+                                           const float* vb, int key0, int nk,
+                                           int D, int KS, int t, int n,
+                                           bool vec) {
+  const int quads = D / 4;
+  const int qd = t & (quads - 1);
+  const int rstep = n / quads;
+  for (int r = t / quads; r < 2 * TK; r += rstep) {
+    const int half = r >= TK;
+    const int rr = r - half * TK;
+    tc::cp_quad(dst + r * KS + 4 * qd,
+                (half ? vb : kb) + (size_t)(key0 + rr) * D + 4 * qd,
+                rr < nk ? 4 : 0, vec, kb);
+  }
+}
+
+// The max and the sum of N values over the warp, the N in step.
+template <int N>
+__device__ __forceinline__ void warp_max_n(float (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v[i] = fmaxf(v[i], __shfl_xor_sync(0xffffffffu, v[i], o));
+}
+
+template <int N>
+__device__ __forceinline__ void warp_sum_n(float (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+}
+
+// One tile's online-softmax step for N rows, a lane a key: s holds each
+// row's scaled score at this lane's key (-inf where masked) and becomes p;
+// m and l are updated, a is each row's rescale of its acc.  A row with no
+// key yet keeps m = -inf, l = 0, p = 0 and a = 1.
+template <int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N], float (&m)[N],
+                                             float (&l)[N], float (&a)[N]) {
+  float mx[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[i] = s[i];
+  warp_max_n(mx);
+  float ps[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float m_new = fmaxf(m[i], mx[i]);
+    a[i] = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
+    s[i] = m_new == -INFINITY ? 0.f : expf(s[i] - m_new);
+    m[i] = m_new;
+    ps[i] = s[i];
+  }
+  warp_sum_n(ps);
+#pragma unroll
+  for (int i = 0; i < N; ++i) l[i] = l[i] * a[i] + ps[i];
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// a barrier of the two warps of tile slot t (ids 1 ..; 0 is __syncthreads)
+__device__ __forceinline__ void pair_sync(int t) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + t), "r"(32 * WPT) : "memory");
+}
+
+// One (batch row, kv head) a cluster of gridDim.x ranks, blockIdx.y =
+// b * Hkv + hk.  TC: the products on the tensor cores (TC_THREADS
+// threads), P = MT m-tiles of 16 heads (G <= 16 MT), `slots` ring stages;
+// else on the CUDA cores (CUDA_THREADS threads: a pair of warps a tile
+// slot, HW heads each; G up to GM), `slots` tiles in flight, P = DPL
+// features a lane (D <= 32 DPL).  vec: K and V may be staged in 16-byte
+// copies.
+template <bool TC, int P>
+__global__ void __launch_bounds__(TC ? TC_THREADS : CUDA_THREADS,
+                                  TC && P < 3 ? 2 : 1)
 decode_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ kv_len,
-                        float* __restrict__ out, float* __restrict__ part,
-                        int Hq, int Hkv, int Sk, int D, int kv_cap,
-                        float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+                        float* __restrict__ out, int Hq, int Hkv, int Sk,
+                        int D, int kv_cap, int slots, int vec, float scale) {
+  namespace cg = cooperative_groups;
+  constexpr int NT = TC ? TC_THREADS : CUDA_THREADS;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
   const int G = Hq / Hkv;
-  float* qs = smem;                        // [G][D]
-  float* wm = qs + G * D;                  // [DEC_WARPS][G]
-  float* wl = wm + DEC_WARPS * G;          // [DEC_WARPS][G]
-  float* wacc = wl + DEC_WARPS * G;        // [DEC_WARPS][G][D]
+  const int QR = q_rows(G, TC);
+  const int KS = kv_stride(D);
+  const int TF = tile_floats(D);
+  const int cl = gridDim.x, rank = blockIdx.x;
+  const int HS = head_share(G, cl);
+  const int S = states(slots, cl, TC);
+  float* qs = smem;                          // [QR][KS]
+  float* work = qs + QR * KS;                // the tiles
+  float* extra = work + slots * TF;          // p, or S / P and alpha
+  float* in_acc = extra + (TC ? QR * SS + QR : NT / 32 * HW * TK);
+  float* in_m = in_acc + S * HS * D;         // [S][HS]
+  float* in_l = in_m + S * HS;               // [S][HS]
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv;
-  const int hk = bh % Hkv;
+  // the ranks' shared memory is written only once every rank has begun
+  if (cl > 1) cluster_arrive_relaxed();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / Hkv, hk = bh - b * Hkv;
   const float* qb = q + ((size_t)b * Hq + (size_t)hk * G) * D;
   const float* kb = k + (size_t)bh * kv_cap * D;
   const float* vb = v + (size_t)bh * kv_cap * D;
   int len = Sk;
   if (kv_len != nullptr) len = min(max(kv_len[b], 0), Sk);
-  const int t0 = blockIdx.y * KEYS_PER_SPLIT + warp * 32;   // this warp's
-  const int key = t0 + lane;                                 // tile
-  const bool ok = key < len;
+  int t0, t1;
+  tc::rank_range(repro_cdiv(Sk, TK), cl, rank, t0, t1);
+  t1 = min(t1, repro_cdiv(len, TK));         // tiles past len: no key
+  const int nloc = max(0, t1 - t0);
 
-  for (int i = threadIdx.x; i < G * D; i += 32 * DEC_WARPS) qs[i] = qb[i];
-  __syncthreads();
+  // push(s, g, m, l, row): state s's softmax of head g to the inbox of the
+  // rank that merges it; the acc row is written by the caller through dst
+  auto inbox_row = [&](int s, int g) -> int {
+    return s * HS + g - (g / HS) * HS;
+  };
+  auto remote = [&](float* p, int g) -> float* {
+    return cl == 1 ? p : cluster.map_shared_rank(p, g / HS);
+  };
 
-  // scores: a lane per key, its row read with all loads in flight at once
-  float s[MAX_G];
+  if constexpr (!TC) {
+    constexpr int DPL = P;
+    const int t = warp / WPT, hf = warp % WPT;   // tile slot, heads half
+    float* ks = work + t * TF;
+    const float* vs = ks + TK * KS;
+    float* pw = extra + warp * HW * TK;          // [HW][TK]
+    const float* qh = qs + hf * HW * KS;         // the warp's q rows
+    float m[HW], l[HW], acc[HW][DPL];
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) s[g] = 0.f;
-  const float* kr = kb + (size_t)key * D;
-  if ((D & 3) == 0 && (reinterpret_cast<size_t>(k) & 15) == 0) {
-    for (int d0 = 0; d0 < D; d0 += 4 * KVEC) {
-      float4 kk[KVEC];
+    for (int i = 0; i < HW; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < KVEC; ++i)
-        kk[i] = (ok && d0 + 4 * i < D)
-                    ? *reinterpret_cast<const float4*>(kr + d0 + 4 * i)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
+    }
+    const int pt = hf * 32 + lane;               // thread in the pair
+    if (t < slots && t < nloc) {                 // the slot's first tile
+      stage_tile(ks, kb, vb, (t0 + t) * TK, min(TK, len - (t0 + t) * TK), D,
+                 KS, pt, 32 * WPT, vec);
+      tc::cp_commit();
+    }
+    for (int i = threadIdx.x; i < GM * D; i += NT) {
+      const int r = i / D;
+      qs[r * KS + i - r * D] = r < G ? qb[i] : 0.f;
+    }
+    __syncthreads();                             // q is in
+    if (t < slots) {
+      for (int j = t; j < nloc; j += slots) {
+        const int key0 = (t0 + j) * TK;
+        const int nk = min(TK, len - key0);      // >= 1
+        if (j != t) {                            // the slot's next tile
+          pair_sync(t);                          // ... once both are done
+          stage_tile(ks, kb, vb, key0, nk, D, KS, pt, 32 * WPT, vec);
+          tc::cp_commit();
+        }
+        tc::cp_wait<0>();
+        pair_sync(t);                            // both halves have landed
+        // scores: a lane a key, the warp's HW heads
+        float s[HW];
 #pragma unroll
-      for (int i = 0; i < KVEC; ++i) {
-        if (d0 + 4 * i >= D) break;
+        for (int i = 0; i < HW; ++i) s[i] = 0.f;
+        const float* kr = ks + lane * KS;
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-          if (g < G) {
-            const float* qg = qs + g * D + d0 + 4 * i;
-            s[g] = fmaf(qg[0], kk[i].x, s[g]);
-            s[g] = fmaf(qg[1], kk[i].y, s[g]);
-            s[g] = fmaf(qg[2], kk[i].z, s[g]);
-            s[g] = fmaf(qg[3], kk[i].w, s[g]);
+          for (int i = 0; i < HW; ++i) {         // rows past G are zero
+            const float4 qq =
+                *reinterpret_cast<const float4*>(qh + i * KS + d);
+            s[i] = fmaf(qq.x, kk.x, s[i]);
+            s[i] = fmaf(qq.y, kk.y, s[i]);
+            s[i] = fmaf(qq.z, kk.z, s[i]);
+            s[i] = fmaf(qq.w, kk.w, s[i]);
+          }
+        }
+        const bool ok = lane < nk;
+#pragma unroll
+        for (int i = 0; i < HW; ++i)
+          s[i] = ok && hf * HW + i < G ? s[i] * scale : -INFINITY;
+        float a[HW];
+        softmax_step(s, m, l, a);
+#pragma unroll
+        for (int i = 0; i < HW; ++i) {
+          pw[i * TK + lane] = s[i];
+#pragma unroll
+          for (int jd = 0; jd < DPL; ++jd) acc[i][jd] *= a[i];
+        }
+        __syncwarp();
+        // P.V: a lane a feature, four keys a step (V rows past nk are
+        // zero, as are their p)
+#pragma unroll 4
+        for (int c = 0; c < TK; c += 4) {
+          float vv[4][DPL];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int jd = 0; jd < DPL; ++jd) {
+              const int d = lane + 32 * jd;
+              vv[u][jd] = d < D ? vs[(c + u) * KS + d] : 0.f;
+            }
+#pragma unroll
+          for (int i = 0; i < HW; ++i) {         // p past G is zero
+            const float4 pp =
+                *reinterpret_cast<const float4*>(pw + i * TK + c);
+#pragma unroll
+            for (int jd = 0; jd < DPL; ++jd) {
+              acc[i][jd] = fmaf(pp.x, vv[0][jd], acc[i][jd]);
+              acc[i][jd] = fmaf(pp.y, vv[1][jd], acc[i][jd]);
+              acc[i][jd] = fmaf(pp.z, vv[2][jd], acc[i][jd]);
+              acc[i][jd] = fmaf(pp.w, vv[3][jd], acc[i][jd]);
+            }
+          }
+        }
+        __syncwarp();                            // p is free
+      }
+      // the slot's state, straight from registers to the merging ranks
+      if (cl > 1) cluster_wait();                // every rank has begun
+      const int st = rank * slots + t;
+#pragma unroll
+      for (int i = 0; i < HW; ++i) {
+        const int g = hf * HW + i;
+        if (g < G) {
+          const int row = inbox_row(st, g);
+          float* dst = remote(in_acc, g) + row * D;
+#pragma unroll
+          for (int jd = 0; jd < DPL; ++jd) {
+            const int d = lane + 32 * jd;
+            if (d < D) dst[d] = acc[i][jd];
+          }
+          if (lane == 0) {
+            remote(in_m, g)[row] = m[i];
+            remote(in_l, g)[row] = l[i];
+          }
+        }
+      }
+    } else if (cl > 1) {
+      cluster_wait();
+    }
+  } else {
+    constexpr int MT = P;                        // QR / 16
+    constexpr int NW = TC_THREADS / 32;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const int ns = slots;
+    float* sp = extra;                           // [QR][SS]
+    float* alpha_s = sp + QR * SS;               // [QR]
+    auto stage = [&](int tt, int buf) {
+      stage_tile(work + buf * TF, kb, vb, tt * TK, min(TK, len - tt * TK),
+                 D, KS, threadIdx.x, NT, vec);
+    };
+    for (int j = 0; j < ns - 1; ++j) {
+      if (j < nloc) stage(t0 + j, j);
+      tc::cp_commit();
+    }
+    for (int i = threadIdx.x; i < QR * D; i += NT) {
+      const int r = i / D, d = i - r * D;
+      qs[r * KS + d] = r < G ? qb[i] : 0.f;
+    }
+    for (int r = G + threadIdx.x; r < QR; r += NT) alpha_s[r] = 1.f;
+
+    constexpr int RW = 2 * MT;                   // softmax rows a warp
+    float m[RW], l[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+    float acc[MT][2][4];                         // [m-tile][n-tile][frag]
+#pragma unroll
+    for (int a = 0; a < MT; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.f;
+
+    for (int i = 0; i < nloc; ++i) {
+      tc::cp_wait_n(ns - 2);                     // tile i has landed
+      __syncthreads();                           // ... for all; i - 1 done
+      if (i + ns - 1 < nloc) stage(t0 + i + ns - 1, (i + ns - 1) % ns);
+      tc::cp_commit();
+      const float* ks = work + (i % ns) * TF;
+      const float* vs = ks + TK * KS;
+      const int nk = min(TK, len - (t0 + i) * TK);   // >= 1
+      const bool ok = lane < nk;
+      // S = Q K^T: warp w takes keys 8 (w % 4) .. + 8 of m-tiles w / 4 +
+      // 2 fi, fi < NF, the B fragment (B(k = d, n = key) = K[key][d]) split
+      // once for all; the correction terms in accumulators of their own.  A
+      // warp past MT scores m-tile MT - 1 again and keeps nothing, so no
+      // branch splits the loop.
+      constexpr int NF = (4 * MT + NW - 1) / NW;
+      const int nt = warp & 3, mt0 = warp >> 2;
+      const float* Bk = ks + nt * 8 * KS;
+      float hi[NF][4], la[NF][4], lb[NF][4];
+#pragma unroll
+      for (int fi = 0; fi < NF; ++fi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hi[fi][e] = la[fi][e] = lb[fi][e] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < D; k0 += 8) {
+        uint32_t bh[2], bl[2];
+        tc::split_tf32(Bk[g8 * KS + k0 + t4], bh[0], bl[0]);
+        tc::split_tf32(Bk[g8 * KS + k0 + t4 + 4], bh[1], bl[1]);
+#pragma unroll
+        for (int fi = 0; fi < NF; ++fi) {
+          const float* A = qs + min(mt0 + 2 * fi, MT - 1) * 16 * KS + k0;
+          uint32_t ah[4], al[4];
+          tc::split_tf32(A[g8 * KS + t4], ah[0], al[0]);
+          tc::split_tf32(A[(g8 + 8) * KS + t4], ah[1], al[1]);
+          tc::split_tf32(A[g8 * KS + t4 + 4], ah[2], al[2]);
+          tc::split_tf32(A[(g8 + 8) * KS + t4 + 4], ah[3], al[3]);
+          tc::mma_tf32(la[fi], al, bh);
+          tc::mma_tf32(lb[fi], ah, bl);
+          tc::mma_tf32(hi[fi], ah, bh);
+        }
+      }
+#pragma unroll
+      for (int fi = 0; fi < NF; ++fi) {
+        if (mt0 + 2 * fi < MT) {
+          float* Sr = sp + ((mt0 + 2 * fi) * 16 + g8) * SS + nt * 8 + 2 * t4;
+          Sr[0] = hi[fi][0] + (la[fi][0] + lb[fi][0]);
+          Sr[1] = hi[fi][1] + (la[fi][1] + lb[fi][1]);
+          Sr[8 * SS] = hi[fi][2] + (la[fi][2] + lb[fi][2]);
+          Sr[8 * SS + 1] = hi[fi][3] + (la[fi][3] + lb[fi][3]);
+        }
+      }
+      __syncthreads();
+      // the online softmax of rows warp + 8 gi, a lane a key; P over S
+      float p[RW], a[RW];
+#pragma unroll
+      for (int gi = 0; gi < RW; ++gi) {
+        const int g = warp + NW * gi;
+        p[gi] = ok && g < G ? sp[g * SS + lane] * scale : -INFINITY;
+      }
+      softmax_step(p, m, l, a);
+#pragma unroll
+      for (int gi = 0; gi < RW; ++gi) {
+        const int g = warp + NW * gi;
+        if (g < G) {
+          sp[g * SS + lane] = p[gi];
+          if (lane == 0) alpha_s[g] = a[gi];
+        }
+      }
+      __syncthreads();
+      // acc += P V: m-tiles mt < MT, features 8 (warp + 8 jn) ..; rows
+      // rescaled by alpha first
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float a0 = alpha_s[mt * 16 + g8];
+        const float a1 = alpha_s[mt * 16 + g8 + 8];
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          acc[mt][jn][0] *= a0;
+          acc[mt][jn][1] *= a0;
+          acc[mt][jn][2] *= a1;
+          acc[mt][jn][3] *= a1;
+        }
+      }
+#pragma unroll
+      for (int k0 = 0; k0 < TK; k0 += 8) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* A = sp + mt * 16 * SS + k0;
+          tc::split_tf32(A[g8 * SS + t4], ah[mt][0], al[mt][0]);
+          tc::split_tf32(A[(g8 + 8) * SS + t4], ah[mt][1], al[mt][1]);
+          tc::split_tf32(A[g8 * SS + t4 + 4], ah[mt][2], al[mt][2]);
+          tc::split_tf32(A[(g8 + 8) * SS + t4 + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn) {
+          const int n0 = 8 * (warp + NW * jn);
+          if (n0 < D) {
+            uint32_t bh[2], bl[2];
+            tc::split_tf32(vs[(k0 + t4) * KS + n0 + g8], bh[0], bl[0]);
+            tc::split_tf32(vs[(k0 + t4 + 4) * KS + n0 + g8], bh[1], bl[1]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              tc::mma_tf32(acc[mt][jn], al[mt], bh);
+              tc::mma_tf32(acc[mt][jn], ah[mt], bl);
+              tc::mma_tf32(acc[mt][jn], ah[mt], bh);
+            }
           }
         }
       }
     }
-  } else if (ok) {
-    for (int d = 0; d < D; ++d) {
-      const float kk = kr[d];
+    tc::cp_wait<0>();
+    // the block's state, straight from registers to the merging ranks
+    if (cl > 1) cluster_wait();                  // every rank has begun
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) s[g] = fmaf(qs[g * D + d], kk, s[g]);
+    for (int gi = 0; gi < RW; ++gi) {
+      const int g = warp + NW * gi;
+      if (g < G && lane == 0) {
+        const int row = inbox_row(rank, g);
+        remote(in_m, g)[row] = m[gi];
+        remote(in_l, g)[row] = l[gi];
+      }
     }
-  }
-
-  // the tile's softmax: m, l and p per query head (a warp with no key
-  // keeps m = -inf, l = 0, acc = 0)
-  float m[MAX_G], l[MAX_G], p[MAX_G], acc[MAX_G][DPL];
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-    p[g] = 0.f;
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
-  }
-  const int kn = max(0, min(32, len - t0));
-  if (kn > 0) {
+      for (int jn = 0; jn < 2; ++jn) {
+        const int c = 8 * (warp + NW * jn) + 2 * t4;
+        if (c < D) {
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) break;
-      const float sg = ok ? s[g] * scale : -INFINITY;
-      m[g] = warp_max(sg);                  // finite: key t0 is ok
-      p[g] = ok ? expf(sg - m[g]) : 0.f;
-      l[g] = warp_sum(p[g]);
-    }
-    // P.V: a lane per feature, V rows read VCHUNK at a time
-    for (int c0 = 0; c0 < kn; c0 += VCHUNK) {
-      float vv[VCHUNK][DPL];
-#pragma unroll
-      for (int c = 0; c < VCHUNK; ++c)
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) {
-          const int d = lane + 32 * j;
-          vv[c][j] = (c0 + c < kn && d < D)
-                         ? vb[(size_t)(t0 + c0 + c) * D + d] : 0.f;
-        }
-#pragma unroll
-      for (int c = 0; c < VCHUNK; ++c) {
-        if (c0 + c >= kn) break;           // warp-uniform
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-          if (g >= G) break;
-          const float pc = __shfl_sync(0xffffffffu, p[g], c0 + c);
-#pragma unroll
-          for (int j = 0; j < DPL; ++j)
-            acc[g][j] = fmaf(pc, vv[c][j], acc[g][j]);
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int g = mt * 16 + g8 + 8 * h8;
+            if (g < G) {
+              float* dst = remote(in_acc, g) + inbox_row(rank, g) * D + c;
+              dst[0] = acc[mt][jn][2 * h8];
+              dst[1] = acc[mt][jn][2 * h8 + 1];
+            }
+          }
         }
       }
     }
   }
+  if (cl > 1)
+    cluster.sync();                              // every push has landed
+  else
+    __syncthreads();
 
-  // merge the warps, in warp order
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      wm[warp * G + g] = m[g];
-      wl[warp * G + g] = l[g];
+  // this rank's heads [g0, g1): the S states merged in order with weights
+  // fr[s][h] = exp(m_s - m) / l, a warp a head and a lane a state, then
+  // the outputs, all read from the inbox in this block's shared memory
+  const int g0 = min(G, rank * HS), g1 = min(G, g0 + HS);
+  float* fr = extra;                             // [S][HS]
+  for (int h = warp; h < g1 - g0; h += NT / 32) {
+    float mx = -INFINITY;
+    for (int s = lane; s < S; s += 32) mx = fmaxf(mx, in_m[s * HS + h]);
+    float mv[1] = {mx};
+    warp_max_n(mv);
+    float lsum[1] = {0.f};
+    for (int s = lane; s < S; s += 32) {
+      const float ms = in_m[s * HS + h];
+      const float f = ms == -INFINITY ? 0.f : expf(ms - mv[0]);
+      fr[s * HS + h] = f;
+      lsum[0] = fmaf(in_l[s * HS + h], f, lsum[0]);
     }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) wacc[(warp * G + g) * D + d] = acc[g][j];
-    }
+    warp_sum_n(lsum);
+    const float inv = lsum[0] == 0.f ? 0.f : 1.f / lsum[0];
+    for (int s = lane; s < S; s += 32) fr[s * HS + h] *= inv;
   }
   __syncthreads();
-  const int n_split = gridDim.y;
-  for (int i = threadIdx.x; i < G * D; i += 32 * DEC_WARPS) {
-    const int g = i / D, d = i - g * D;
-    float mx = -INFINITY;
-    for (int w = 0; w < DEC_WARPS; ++w) mx = fmaxf(mx, wm[w * G + g]);
-    float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
-      for (int w = 0; w < DEC_WARPS; ++w) {
-        const float mw = wm[w * G + g];
-        if (mw == -INFINITY) continue;
-        const float f = expf(mw - mx);
-        lsum = fmaf(wl[w * G + g], f, lsum);
-        o = fmaf(wacc[(w * G + g) * D + d], f, o);
-      }
-    }
-    if (n_split == 1) {
-      out[((size_t)b * Hq + (size_t)hk * G + g) * D + d] =
-          lsum == 0.f ? 0.f : o / lsum;
-    } else {
-      // part: per (bh, split, g) the row [m, l, acc[0..D)]
-      float* slot = part + (((size_t)bh * n_split + blockIdx.y) * G + g)
-                               * (D + 2);
-      if (d == 0) {
-        slot[0] = mx;
-        slot[1] = lsum;
-      }
-      slot[2 + d] = o;
-    }
+  float* ob = out + ((size_t)b * Hq + (size_t)hk * G + g0) * D;
+  for (int e = threadIdx.x; e < (g1 - g0) * D; e += NT) {
+    const int h = e / D;
+    float o = 0.f;
+    for (int s = 0; s < S; ++s)
+      o = fmaf(in_acc[s * HS * D + e], fr[s * HS + h], o);
+    ob[e] = o;
   }
 }
 
-// The splits' softmaxes merged in split order: one block per (batch, kv
-// head), a thread per (query head, feature).
-__global__ void __launch_bounds__(256)
-decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
-                      int Hq, int Hkv, int D, int n_split) {
-  const int G = Hq / Hkv;
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv;
-  const int hk = bh % Hkv;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i - g * D;
-    const float* row = part + ((size_t)bh * n_split * G + g) * (D + 2);
-    const size_t step = (size_t)G * (D + 2);   // next split, same head
-    float mx = -INFINITY;
-    for (int sp = 0; sp < n_split; ++sp) mx = fmaxf(mx, row[sp * step]);
-    float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
-      for (int sp = 0; sp < n_split; ++sp) {
-        const float* r = row + sp * step;
-        if (r[0] == -INFINITY) continue;
-        const float f = expf(r[0] - mx);
-        lsum = fmaf(r[1], f, lsum);
-        o = fmaf(r[2 + d], f, o);
-      }
-    }
-    out[((size_t)b * Hq + (size_t)hk * G + g) * D + d] =
-        lsum == 0.f ? 0.f : o / lsum;
-  }
+using Kernel = decltype(&decode_attention_kernel<false, 2>);
+
+// The kernel compiled for the plan's path, or nullptr.
+Kernel pick(bool tc, int G, int D) {
+  if (tc)
+    return G <= 16   ? decode_attention_kernel<true, 1>
+           : G <= 32 ? decode_attention_kernel<true, 2>
+           : G <= 48 ? decode_attention_kernel<true, 3>
+                     : nullptr;
+  return G > GM ? nullptr
+         : D <= 64 ? decode_attention_kernel<false, 2>
+                   : decode_attention_kernel<false, 4>;
 }
 
+}  // namespace dec
 }  // namespace
 
 extern "C" int repro_flash_attention(const float* q, const float* k,
@@ -454,26 +780,24 @@ extern "C" int repro_flash_attention(const float* q, const float* k,
 
 extern "C" int repro_decode_attention(const float* q, const float* k,
                                       const float* v, const int* kv_len,
-                                      float* out, float* part, int B, int Hq,
-                                      int Hkv, int Sk, int D, int kv_cap,
-                                      int n_split, float scale,
-                                      void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      Hq / Hkv > MAX_G || Sk < 0 || D <= 0 || D > MAX_D || kv_cap < Sk ||
-      n_split != repro_decode_splits(Sk) || (n_split > 1 && part == nullptr))
+                                      float* out, int B, int Hq, int Hkv,
+                                      int Sk, int D, int kv_cap, int use_tc,
+                                      int cl, int slots, int smem, int vec,
+                                      float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || D < 4 ||
+      D > MAX_D || (D & (D - 1)) != 0 || kv_cap < Sk || cl < 1 ||
+      cl > (Sk > 0 ? repro_cdiv(Sk, dec::TK) : 1) || B * Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
-  const size_t smem =
-      (size_t)(G * D + 2 * DEC_WARPS * G + DEC_WARPS * G * D) * sizeof(float);
-  cudaError_t err = repro_smem_opt_in(decode_attention_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_split > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  decode_attention_kernel<<<dim3(B * Hkv, n_split), 32 * DEC_WARPS, smem, s>>>(
-      q, k, v, kv_len, out, part, Hq, Hkv, Sk, D, kv_cap, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  decode_combine_kernel<<<B * Hkv, 256, 0, s>>>(part, out, Hq, Hkv, D,
-                                                n_split);
-  return static_cast<int>(cudaGetLastError());
+  const bool tc = use_tc != 0;
+  const dec::Kernel kernel = dec::pick(tc, G, D);
+  if (kernel == nullptr || (tc && (G <= dec::GM || D < 8)) ||
+      slots < (tc ? 2 : 1) ||
+      slots > (tc ? tc::MAX_STAGES : dec::MAX_SLOTS) ||
+      smem != 4 * dec::smem_floats(G, D, slots, cl, use_tc != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_clustered_n(
+      kernel, tc ? dec::TC_THREADS : dec::CUDA_THREADS, cl, B * Hkv, 1,
+      (size_t)smem, stream, false, q, k, v, kv_len, out, Hq, Hkv, Sk, D,
+      kv_cap, slots, vec, scale);
 }

@@ -1,9 +1,11 @@
-// Shared pieces of the tensor-core kernels K1 (matmul_bias_act.cu), K4
-// (fused_dw_pw_conv.cu) and K5 (fused_pw_dw_pw_conv.cu), and of K2's
-// staging (depthwise_conv2d.cu): cp.async staging with zero fill, products
-// on the tensor cores in 3xTF32, the contiguous split of a reduction
-// between the ranks of a thread-block cluster, the cluster's rank-order sum
-// of partial tiles over distributed shared memory, and the clustered launch.
+// Shared pieces of the tensor-core kernels K1 (matmul_bias_act.cu), K3
+// (conv2d_implicit_gemm.cu), K4 (fused_dw_pw_conv.cu), K5
+// (fused_pw_dw_pw_conv.cu) and K7's decode (flash_attention.cu), and of
+// K2's staging (depthwise_conv2d.cu): cp.async staging with zero fill,
+// products on the tensor cores in 3xTF32, the contiguous split of a
+// reduction between the ranks of a thread-block cluster, the cluster's
+// rank-order sum of partial tiles over distributed shared memory, the
+// clustered launch, and the split-K GEMM tile that K1 and K3 share.
 //
 // 3xTF32: each f32 operand v is split into hi = tf32(v) and
 // lo = tf32(v - hi), and a product is lo*hi + hi*lo + hi*hi, each an
@@ -351,16 +353,17 @@ static int opt_in(Kernel kernel, size_t smem, bool wide) {
   return 0;
 }
 
-// Launch `kernel` on grid (cl, tiles, nimg) in clusters of (cl, 1, 1) with
-// `smem` bytes of dynamic shared memory.  A cluster above 8 opts in to the
-// non-portable sizes; any refusal is returned, never worked around.  pdl:
-// the launch may begin while the kernel before it in the stream finishes
-// (programmatic dependent launch); the kernel must then run
-// griddepcontrol.wait before it reads what that kernel wrote.
+// Launch `kernel` with `threads` threads a block on grid (cl, tiles, nimg)
+// in clusters of (cl, 1, 1) with `smem` bytes of dynamic shared memory.  A
+// cluster above 8 opts in to the non-portable sizes; any refusal is
+// returned, never worked around.  pdl: the launch may begin while the
+// kernel before it in the stream finishes (programmatic dependent launch);
+// the kernel must then run griddepcontrol.wait before it reads what that
+// kernel wrote.
 template <typename Kernel, typename... Args>
-static int launch_clustered(Kernel kernel, int cl, int tiles, int nimg,
-                            size_t smem, void* stream, bool pdl,
-                            Args... args) {
+static int launch_clustered_n(Kernel kernel, int threads, int cl, int tiles,
+                              int nimg, size_t smem, void* stream, bool pdl,
+                              Args... args) {
   if (cl < 1 || cl > 16 || tiles < 1 || tiles > 65535 || nimg < 1 ||
       nimg > 65535 || smem > REPRO_MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -368,7 +371,7 @@ static int launch_clustered(Kernel kernel, int cl, int tiles, int nimg,
   if (rc != 0) return rc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl, tiles, nimg);
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[2];
@@ -383,6 +386,143 @@ static int launch_clustered(Kernel kernel, int cl, int tiles, int nimg,
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_clustered_n with NT threads a block.
+template <typename Kernel, typename... Args>
+static int launch_clustered(Kernel kernel, int cl, int tiles, int nimg,
+                            size_t smem, void* stream, bool pdl,
+                            Args... args) {
+  return launch_clustered_n(kernel, NT, cl, tiles, nimg, smem, stream, pdl,
+                            args...);
+}
+
+// ----------------------------------------------------- the split-K GEMM
+// K1's and K3's output tile: out = act(A @ w + bias), A (M, K) and w (K, N)
+// row-major.  Shared-memory row strides, floats: A [bm][bk + 4] and the
+// partial sums [bm][round_up(bn, 8) + 4] keep fragment reads conflict-free
+// and rows 16-byte aligned; w [bk][round_up(bn, 32) + 8] puts the four k
+// rows a fragment reads in four bank groups.
+__host__ __device__ inline int gemm_a_stride(int bk) { return bk + 4; }
+__host__ __device__ inline int gemm_b_stride(int bn) {
+  return round_up(bn, 32) + 8;
+}
+__host__ __device__ inline int gemm_c_stride(int bn) {
+  return round_up(bn, 8) + 4;
+}
+
+// The tile's shared memory in floats: a ring of ns stages of (A, w); the
+// partial sums reuse it.  plan.py's k1_smem_floats.
+__host__ __device__ inline int gemm_smem_floats(int bm, int bn, int bk,
+                                                int ns) {
+  const int stage = bm * gemm_a_stride(bk) + bk * gemm_b_stride(bn);
+  const int red = bm * gemm_c_stride(bn);
+  return ns * stage > red ? ns * stage : red;
+}
+
+// The block's part of a bm x bn output tile at rows blockIdx.z * bm and
+// columns blockIdx.y * bn; the blockIdx.x-th of gridDim.x cluster ranks
+// takes a contiguous run of k-steps of BK (rank_range).  stage_a(as, AS,
+// k0, rows) stages A's rows [m0, m0 + rows) and columns [k0, k0 + BK) into
+// as (row stride AS), zero past K; the kernel supplies it, and w's rows
+// are staged here (vb: 16-byte copies).  MI x NJ: the m16n8 tiles a warp
+// holds, the 8 warps in wm rows.  Steps i + 1 .. i + ns - 1 are in flight
+// while step i computes; the ranks' partial tiles meet over distributed
+// shared memory in rank order (cluster_reduce_store).  The launch may be
+// a programmatic dependent one: nothing is read before griddepcontrol.wait.
+template <int MI, int NJ, int BK, typename StageA>
+__device__ __forceinline__ void gemm_tile(
+    float* smem, StageA stage_a, const float* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out, int M, int N,
+    int K, int bm, int bn, int wm, int ns, bool vb, int act) {
+  constexpr int bk = BK;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = gridDim.x;                // cluster dims (cl, 1, 1)
+  const int rank = blockIdx.x;
+  const int n0 = blockIdx.y * bn;
+  const int m0 = blockIdx.z * bm;
+  const int AS = gemm_a_stride(bk);
+  const int BS = gemm_b_stride(bn);
+  const int STAGE = bm * AS + bk * BS;
+  const int rows = min(bm, M - m0);        // rows of the tile inside M
+  const int cols = min(bn, N - n0);        // ... and columns inside N
+  const int cols8 = round_up(cols, 8);
+
+  const int warp = threadIdx.x >> 5;
+  const int wn = WARPS / wm;
+  const int mt0 = (warp % wm) * MI;        // this warp's first m-tile
+  const int nbase = warp / wm;             // ... and first n-tile
+  const int nj = max(0, min(NJ, repro_cdiv(cols8 / 8 - nbase, wn)));
+  const bool live = mt0 * 16 < rows && nj > 0;
+
+  int s0, s1;
+  rank_range(repro_cdiv(K, bk), cl, rank, s0, s1);
+
+  auto stage = [&](int s, int buf) {
+    float* as = smem + buf * STAGE;        // [bm][AS]
+    float* bs = as + bm * AS;              // [bk][BS]
+    const int k0 = s * bk;
+    stage_a(as, AS, k0, rows);
+    stage_rows(
+        bs, BS, bk, cols8,
+        [&](int r) -> const float* {
+          return k0 + r < K ? w + (size_t)(k0 + r) * N + n0 : nullptr;
+        },
+        [&](int) { return cols; }, vb, w);
+  };
+
+  // a ring of ns stages: step i + ns - 1 is staged after the barrier that
+  // ends step i - 1, into the stage step i - 1 has left.
+  float hi[MI][NJ][4] = {};
+  float la[MI][NJ][4] = {};
+  float lb[MI][NJ][4] = {};
+  const int nloc = s1 - s0;
+  // the launch may overlap the end of the kernel before it in the stream:
+  // wait for that kernel's results before the first load
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (int j = 0; j < ns - 1; ++j) {
+    if (j < nloc) stage(s0 + j, j);
+    cp_commit();
+  }
+  for (int i = 0; i < nloc; ++i) {
+    cp_wait_n(ns - 2);                     // step i has landed
+    __syncthreads();                       // ... for all; step i - 1 done
+    if (i + ns - 1 < nloc) stage(s0 + i + ns - 1, (i + ns - 1) % ns);
+    cp_commit();
+    if (live) {
+      const float* as = smem + (i % ns) * STAGE;
+      const float* bs = as + bm * AS;
+#pragma unroll
+      for (int ks = 0; ks < BK; ks += 8)
+        mma_tile_split(hi, la, lb, as + mt0 * 16 * AS + ks, AS,
+                       bs + ks * BS, BS, nbase, wn, nj);
+    }
+  }
+  cp_wait<0>();
+  // the next kernel may begin its launch; it waits for this one's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __syncthreads();
+
+  const int RS = gemm_c_stride(bn);
+  float* red = smem;                       // [bm][RS], over the stages
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hi[i][j][e] += la[i][j][e] + lb[i][j][e];
+      store_partial(hi[i], red, RS, mt0 + i, nbase, wn, nj);
+    }
+  }
+  const bool vec4 = (N & 3) == 0 && aligned16(out) &&
+                    (bias == nullptr || aligned16(bias));
+  cluster_reduce_store(
+      cluster, red, RS, cl, rank, rows, cols,
+      [&](int p) -> long long {
+        return static_cast<long long>(m0 + p) * N + n0;
+      },
+      vec4, bias == nullptr ? nullptr : bias + n0, nullptr, out, act);
 }
 
 }  // namespace tc

@@ -7,11 +7,12 @@ re-targeted to LM stages).  A stage costs the max of three terms:
     t_memory     = device-memory bytes touched / (chips * mem_bw)
     t_collective = TP-collective bytes / (chips * link_bw)
 
-The formulas are the reference's, unchanged.  The reference's TPU constants
-give way to :class:`CardModel`, whose defaults are an NVIDIA H100 SXM's;
-each names its source.  Weight bytes still count 2 bytes a parameter
-(bf16) while the port serves f32: a known gap, left as the reference has
-it (ROADMAP).
+The formulas are the reference's.  The reference's TPU constants give way
+to :class:`CardModel`, whose defaults are an NVIDIA H100 SXM's; each names
+its source.  The reference counts 2 bytes (bf16) for every weight,
+activation, KV and collective element; here each counts
+``CardModel.elem_bytes``, 4 by default because the port serves f32 (2
+gives the reference's numbers).
 """
 from __future__ import annotations
 
@@ -49,6 +50,9 @@ class CardModel:
     step_floor_base: float = 2.79e-3
     step_floor_tp: float = 0.0     # x log2(tp)
     step_floor_dp: float = 0.0     # x log2(chips / tp)
+    # bytes of one served element (weights, activations, KV cache): the
+    # port's parameters and cache are float32
+    elem_bytes: int = 4
 
     def step_floor(self, chips: int, tp: int) -> float:
         """Latency floor of one decode step on ``chips`` with TP ``tp``."""
@@ -83,9 +87,10 @@ class StageCost:
         return max(terms, key=terms.get)
 
 
-def _weight_bytes(cfg: ArchConfig, active: bool = True) -> float:
+def _weight_bytes(cfg: ArchConfig, hw: CardModel,
+                  active: bool = True) -> float:
     n = cfg.active_param_count() if active else cfg.param_count()
-    return 2.0 * n                       # bf16, as the reference counts
+    return float(hw.elem_bytes) * n
 
 
 def prefill_cost(cfg: ArchConfig, batch: int, seq: int, chips: int,
@@ -96,10 +101,11 @@ def prefill_cost(cfg: ArchConfig, batch: int, seq: int, chips: int,
     if cfg.block_type == "transformer":
         flops += 4.0 * cfg.n_layers * batch * seq * seq * cfg.q_dim / 2
     t_c = flops / (chips * hw.peak_flops * hw.mfu_ceiling)
-    act = 2.0 * tokens * cfg.d_model * 2 * cfg.n_layers
-    t_m = (_weight_bytes(cfg) / max(1, chips) + act / chips) \
+    act = 2.0 * tokens * cfg.d_model * hw.elem_bytes * cfg.n_layers
+    t_m = (_weight_bytes(cfg, hw) / max(1, chips) + act / chips) \
         / (hw.mem_bw * hw.bw_ceiling)
-    coll = 2.0 * cfg.n_layers * tokens * cfg.d_model * 2 * (tp - 1) / tp
+    coll = 2.0 * cfg.n_layers * tokens * cfg.d_model * hw.elem_bytes \
+        * (tp - 1) / tp
     t_x = coll / (chips * hw.link_bw)
     return StageCost(t_c, t_m, t_x)
 
@@ -117,16 +123,17 @@ def decode_cost(cfg: ArchConfig, batch: int, kv_len: int, chips: int,
     if cfg.block_type == "transformer" or cfg.attn_every:
         layers = (cfg.n_layers if cfg.block_type == "transformer"
                   else cfg.n_layers // max(1, cfg.attn_every))
-        kv = 2.0 * layers * batch * cfg.n_kv_heads * cfg.d_head * kv_len * 2
+        kv = 2.0 * layers * batch * cfg.n_kv_heads * cfg.d_head * kv_len \
+            * hw.elem_bytes
     if cfg.block_type in ("mamba2", "mlstm"):
         din = cfg.d_inner
         state = cfg.n_layers * batch * cfg.ssm_heads * \
             (din // cfg.ssm_heads) * max(cfg.ssm_state, 1) * 4
         kv += state
-    t_m = steps * (_weight_bytes(cfg) + kv) / (chips * hw.mem_bw
-                                               * hw.bw_ceiling)
-    coll = 2.0 * cfg.n_layers * batch * cfg.d_model * 2 * (tp - 1) / tp \
-        * steps
+    t_m = steps * (_weight_bytes(cfg, hw) + kv) / (chips * hw.mem_bw
+                                                   * hw.bw_ceiling)
+    coll = 2.0 * cfg.n_layers * batch * cfg.d_model * hw.elem_bytes \
+        * (tp - 1) / tp * steps
     t_x = coll / (chips * hw.link_bw)
     floor = steps * cfg.n_layers * hw.step_floor(chips, tp) / 4
     return StageCost(t_c, max(t_m, floor), t_x)

@@ -7,6 +7,15 @@ the reference leaves to jnp); the source says what bounds each on an H100
 and how the key loop inside a block stands in for the TPU's sequential k
 grid axis.
 
+Decode is one launch a call: a thread-block cluster of up to 16 blocks a
+(batch row, kv head) splits the keys in 32-key tiles staged by cp.async,
+and the ranks merge their softmaxes in rank order through distributed
+shared memory, so no scratch is allocated and the bits do not depend on
+the stream.  GQA groups above 8 run their two products on the tensor
+cores in 3xTF32, smaller ones on the CUDA cores; ``plan.py``'s
+``plan_decode`` chooses that, the cluster and the slots from the shape.
+Its limits: G <= 48, D a power of two from 4 (8 where G > 8) to 128.
+
 k and v may be the first Sk rows of a longer cache (a view cut along the
 sequence axis): the kernels read the cache in place.  q must be
 contiguous.  A CUDA tensor launches the kernel on the current stream (or
@@ -20,13 +29,12 @@ import math
 
 import torch
 
+from repro_torch.kernels.attention.plan import plan_decode
 from repro_torch.kernels.attention.ref import (decode_attention_ref,
                                                flash_attention_ref)
-from repro_torch.kernels.util import cdiv, check_cuda_operands, launch
+from repro_torch.kernels.util import check_cuda_operands, launch
 
 MAX_D = 128           # the kernels' widest head
-MAX_G = 8             # the decode kernel's widest GQA group
-KEYS_PER_SPLIT = 128  # the decode kernel's keys per block (split-K)
 
 
 def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -102,9 +110,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len)
     check_cuda_operands("decode_attention", q.device, q=q)
-    if d > MAX_D or hq // hkv > MAX_G:
-        raise ValueError(f"decode_attention: D {d} > {MAX_D} or group "
-                         f"{hq // hkv} > {MAX_G}")
+    plan = plan_decode(b, hq, hkv, sk, d)
     if kv_len is not None and (kv_len.device != q.device
                                or kv_len.dtype != torch.int32
                                or not kv_len.is_contiguous()):
@@ -112,12 +118,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"on {q.device}")
     kv_cap = _kv_capacity("decode_attention", q, k, v)
     out = torch.empty_like(q)
-    n_split = cdiv(sk, KEYS_PER_SPLIT) if sk > 0 else 1
-    # each split's softmax per query head: m, l, acc[D]
-    part = (torch.empty(b * hq * n_split * (d + 2), device=q.device)
-            if n_split > 1 else None)
-    launch("repro_decode_attention", q.device, q, k, v, kv_len, out, part, b,
-           hq, hkv, sk, d, kv_cap, n_split, 1.0 / math.sqrt(d))
+    vec = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    launch("repro_decode_attention", q.device, q, k, v, kv_len, out, b, hq,
+           hkv, sk, d, kv_cap, int(plan.tc), plan.cluster, plan.slots,
+           plan.smem_bytes, vec, 1.0 / math.sqrt(d))
     decode_attention.launches += 1
     return out
 

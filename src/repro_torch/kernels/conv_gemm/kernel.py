@@ -4,8 +4,8 @@ Wrappers of the hand-written CUDA kernels ``csrc/matmul_bias_act.cu`` and
 ``csrc/conv2d_implicit_gemm.cu``, which replace the TPU kernels
 ``repro/kernels/conv_gemm/kernel.py::matmul_bias_act`` and
 ``::conv2d_implicit_gemm``; each source says what bounds the kernel on an
-H100 and what its design does about it.  ``plan.py`` chooses each K1
-call's tiling (output tile, k-step, warp layout, cluster and K split,
+H100 and what its design does about it.  ``plan.py`` chooses each K1 and
+K3 call's tiling (output tile, k-step, warp layout, cluster and K split,
 shared memory) from its shape; the wrapper passes it to the kernel, which
 trusts it.
 
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.conv_gemm.plan import plan_k1
+from repro_torch.kernels.conv_gemm.plan import plan_k1, plan_k3
 from repro_torch.kernels.conv_gemm.ref import conv2d_ref, matmul_bias_act_ref
 from repro_torch.kernels.util import act_code, check_cuda_operands, launch
 
@@ -57,7 +57,7 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
                          bias: torch.Tensor | None = None, *,
                          stride: int = 1, pad: int = 0,
                          act: str | None = None) -> torch.Tensor:
-    """NHWC KxK conv as an implicit GEMM (K3): patch tiles are gathered
+    """NHWC KxK conv as an implicit GEMM (K3): patch rows are gathered
     per output tile from the unpadded input, never stored.
 
     x: (N, H, W, C_i); w: (K_h, K_w, C_i, C_o); bias: (C_o,) or None.
@@ -78,9 +78,14 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
         return conv2d_ref(x, w, bias, stride=stride, pad=pad, act=act)
     check_cuda_operands("conv2d_implicit_gemm", x.device, x=x, w=w,
                         bias=bias)
+    va = ci % 4 == 0 and x.data_ptr() % 16 == 0
+    plan = plan_k3(n, h, wd, ci, co, kh, kw, stride, pad, va)
     out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
+    vec = int(va) | 2 * int(co % 4 == 0 and w.data_ptr() % 16 == 0)
     launch("repro_conv2d_implicit_gemm", x.device, x, w, bias, out, n, h, wd,
-           ci, co, kh, kw, stride, pad, ho, wo, act_code(act))
+           ci, co, kh, kw, stride, pad, ho, wo, act_code(act), plan.bm,
+           plan.bn, plan.bk, plan.wm, plan.cluster, plan.stages,
+           plan.smem_bytes, vec)
     conv2d_implicit_gemm.launches += 1
     return out
 

@@ -4,8 +4,8 @@ Counterpart of ``repro/kernels/conv_gemm/ops.py``, with its rule: a 1x1 conv
 with stride 1 and pad 0 (every pointwise conv, and the fc head on its 1x1
 map) flattens pixels and runs the GEMM (K1); any other conv runs the
 implicit GEMM (K3).  The reference's autotune cache has no counterpart:
-K1 takes its tiling from ``plan.py`` (deterministic from the shape), K3
-keeps fixed tiles.
+K1 and K3 take their tilings from ``plan.py`` (deterministic from the
+shape).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Host-side tiling of the GEMM kernel K1 (``matmul_bias_act``) on an H100.
+"""Host-side tiling of the GEMM kernels K1 (``matmul_bias_act``) and K3
+(``conv2d_implicit_gemm``) on an H100.
 
 ``plan_k1`` chooses, from a call's shape alone, how
 ``csrc/matmul_bias_act.cu`` covers ``(M, K) @ (K, N)``: the output tile
@@ -28,6 +29,15 @@ larger tiles and the longer step.  The ring is the deepest (2-4 stages)
 its steps use that still lets two blocks share an SM.  No timing and no
 autotune cache: a shape's plan is only memoised, since the serving path
 asks for it at every launch.
+
+``plan_k3`` tiles K3's implicit GEMM (M = N*Ho*Wo pixels, K = Kh*Kw*Ci, N =
+Co) the same way: both kernels run ``gemm_tile`` of ``csrc/tc_common.cuh``.
+K3's shared memory adds its tables (``k3_smem_floats``: 3 ints a pixel
+row, 2 a k entry of the busiest rank), its k-steps are ``K3_BKS`` (16-byte
+copies where Ci % 4 == 0, else 4-byte ones, which the cost model charges
+four times the staging time), and the bytes a call moves count the input
+image once a column tile, not the patch matrix.  K3 shares K1's cost
+constants.
 """
 from __future__ import annotations
 
@@ -48,6 +58,8 @@ BKS = (16, 32, 64)          # floats of K a step
 # k-step of BKS: the layouts of the fastest tilings at the paths' shapes
 # (1x2, 1x4, 1x8 and 2x1 never were: tools/plan_sweep.py --sweep)
 COMPILED = ((1, 1), (2, 2), (2, 4))
+# K3's k-steps, by whether a quad of k is one 16-byte copy (Ci % 4 == 0)
+K3_BKS = {True: (16, 32, 64), False: (16, 32)}
 
 # cost model (ns), fitted to a sweep of every candidate at the paths'
 # shapes on an H100 (tools/plan_sweep.py --sweep, then --fit): the latency
@@ -138,8 +150,43 @@ def k1_smem_floats(bm: int, bn: int, bk: int, stages: int) -> int:
 
 
 def candidates(m: int, k: int, n: int) -> list[tuple[tuple, GemmPlan]]:
-    """Every tiling that fits, each with its sort key (the plan is the
+    """Every K1 tiling that fits, each with its sort key (the plan is the
     least key)."""
+    return _candidates(m, k, n, BKS, lambda bm, bk, cl: 0, 1.0, m * k, "k1")
+
+
+def k3_entries(k: int, bk: int, cluster: int, vec: bool) -> int:
+    """Entries of K3's k table: the busiest rank's k, a quad an entry
+    where ``vec``."""
+    return _cdiv(_cdiv(k, bk), cluster) * bk // (4 if vec else 1)
+
+
+def k3_smem_floats(bm: int, bn: int, bk: int, stages: int,
+                   entries: int) -> int:
+    """Shared memory of K3 in floats: K1's, then the pixel rows' table (3
+    ints a row) and the k table (2 ints an entry)."""
+    return k1_smem_floats(bm, bn, bk, stages) + 3 * bm + 2 * entries
+
+
+def k3_candidates(n: int, h: int, w: int, ci: int, co: int, kh: int,
+                  kw: int, stride: int, pad: int,
+                  vec: bool) -> list[tuple[tuple, GemmPlan]]:
+    """Every K3 tiling that fits, each with its sort key."""
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w + 2 * pad - kw) // stride + 1
+    m, k = n * ho * wo, kh * kw * ci
+    return _candidates(
+        m, k, co, K3_BKS[vec],
+        lambda bm, bk, cl: 3 * bm + 2 * k3_entries(k, bk, cl, vec),
+        1.0 if vec else 4.0, n * h * w * ci, "k3")
+
+
+def _candidates(m, k, n, bks, extra, a_cost, a_elems,
+                name) -> list[tuple[tuple, GemmPlan]]:
+    """The tilings of an (m, k) @ (k, n) GEMM tile at k-steps ``bks`` that
+    fit, with ``extra(bm, bk, cluster)`` floats of shared memory beyond
+    K1's, A's staging time times ``a_cost``, and A's ``a_elems`` floats
+    read once a column tile."""
     out = []
     bns = sorted({min(b, n) for b in BNS})
     for bm in BMS:
@@ -149,7 +196,7 @@ def candidates(m: int, k: int, n: int) -> list[tuple[tuple, GemmPlan]]:
             layout = warp_layout(bm, bn)
             if layout is None:
                 continue
-            for bk in BKS:
+            for bk in bks:
                 tiles_m, tiles_n = _cdiv(m, bm), _cdiv(n, bn)
                 if tiles_n > 65535 or tiles_m > 65535:
                     continue
@@ -158,29 +205,31 @@ def candidates(m: int, k: int, n: int) -> list[tuple[tuple, GemmPlan]]:
                     if cl > 1 and tiles_m * tiles_n * (cl - 1) >= 2 * SMS:
                         break            # the grid is full without it
                     plan = _candidate(m, k, n, bm, bn, bk, layout, tiles_m,
-                                      tiles_n, cl)
+                                      tiles_n, cl, extra(bm, bk, cl),
+                                      a_cost, a_elems)
                     if plan is not None:
                         out.append(plan)
     if not out:
-        raise ValueError(f"k1: no tiling fits M={m} K={k} N={n}")
+        raise ValueError(f"{name}: no tiling fits M={m} K={k} N={n}")
     return out
 
 
-def _candidate(m, k, n, bm, bn, bk, layout, tiles_m, tiles_n,
-               cl) -> tuple[tuple, GemmPlan] | None:
+def _candidate(m, k, n, bm, bn, bk, layout, tiles_m, tiles_n, cl, extra,
+               a_cost, a_elems) -> tuple[tuple, GemmPlan] | None:
     """One tiling with its sort key, or None if it does not fit."""
     wm, mi, nj = layout
     steps = _cdiv(_cdiv(k, bk), cl)           # the busiest rank's steps
     room = SM_SMEM // SM_BLOCKS - 1024        # shared memory a block of two
     stages = next((ns for ns in range(min(MAX_STAGES, steps + 1), 1, -1)
-                   if 4 * k1_smem_floats(bm, bn, bk, ns) <= room), 2)
-    floats = k1_smem_floats(bm, bn, bk, stages)
+                   if 4 * (k1_smem_floats(bm, bn, bk, ns) + extra) <= room),
+                  2)
+    floats = k1_smem_floats(bm, bn, bk, stages) + extra
     if 4 * floats > MAX_SMEM:
         return None
     per_sm = min(SM_BLOCKS, SM_SMEM // (4 * floats + 1024))
     rows, cols = min(bm, m), _round_up(min(bn, n), 8)
     step = (STEP_NS + 6 * _round_up(rows, 16) * cols * bk / FLOP_PER_NS
-            + 4 * (rows + cols) * bk / BYTES_PER_NS)
+            + 4 * (a_cost * rows + cols) * bk / BYTES_PER_NS)
     per_block = (steps * step + 4 * rows * cols * cl / REDUCE_BYTES_PER_NS
                  + BLOCK_NS)
     blocks = cl * tiles_m * tiles_n
@@ -189,7 +238,7 @@ def _candidate(m, k, n, bm, bn, bk, layout, tiles_m, tiles_n,
     resident = min(per_sm, _cdiv(blocks, SMS))
     est = (_cdiv(blocks, SMS * per_sm) * per_block
            * (1.0 + PAIR_SHARE * (resident - 1)))
-    moved = 4 * (m * k * tiles_n + k * n * tiles_m + m * n)
+    moved = 4 * (a_elems * tiles_n + k * n * tiles_m + m * n)
     est = max(est, moved / DRAM_BYTES_PER_NS)
     key = (blocks < SMS, est, cl, -bm * bn, -bk)
     return key, GemmPlan(bm=bm, bn=bn, bk=bk, wm=wm, mi=mi, nj=nj,
@@ -203,3 +252,20 @@ def plan_k1(m: int, k: int, n: int) -> GemmPlan:
     if m < 1 or k < 1 or n < 1:
         raise ValueError(f"k1: empty product M={m} K={k} N={n}")
     return min(candidates(m, k, n), key=lambda kp: kp[0])[1]
+
+
+@functools.cache
+def plan_k3(n: int, h: int, w: int, ci: int, co: int, kh: int, kw: int,
+            stride: int, pad: int, vec: bool) -> GemmPlan:
+    """K3's tiling of an NHWC (n, h, w, ci) conv with a (kh, kw, ci, co)
+    weight; ``vec``: the input may be staged in 16-byte copies (Ci % 4 ==
+    0 and the input 16-byte aligned)."""
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w + 2 * pad - kw) // stride + 1
+    if min(n, ci, co, kh, kw, stride) < 1 or ho < 1 or wo < 1 or pad < 0:
+        raise ValueError(f"k3: empty conv {n}x{h}x{w}x{ci} -> {co}, "
+                         f"{kh}x{kw} stride {stride} pad {pad}")
+    if vec and ci % 4:
+        raise ValueError(f"k3: 16-byte copies need Ci % 4 == 0, Ci={ci}")
+    return min(k3_candidates(n, h, w, ci, co, kh, kw, stride, pad, vec),
+               key=lambda kp: kp[0])[1]

@@ -195,13 +195,13 @@ def build_library() -> Path:
 # 's' the stream.
 SIGNATURES = {
     "repro_matmul_bias_act": "p" * 4 + "i" * 12 + "s",
-    "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 12 + "s",
+    "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 20 + "s",
     "repro_depthwise_conv2d": "p" * 4 + "i" * 17 + "s",
     "repro_fused_dw_pw_conv": "p" * 7 + "i" * 19 + "s",
     "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 23 + "s",
     "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",
     "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "s",
-    "repro_decode_attention": "p" * 6 + "i" * 7 + "f" + "s",
+    "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "s": ctypes.c_void_p}

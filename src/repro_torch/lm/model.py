@@ -8,7 +8,7 @@ the reference's own parameters carry over as numpy.  The reference's
 layer scan and rematerialisation become a Python loop over the layers.
 
 Any other block type or family (MoE, SSM, hybrid, encoder-decoder,
-M-RoPE) raises ``NotImplementedError``: it is ROADMAP item 11.
+M-RoPE) raises ``NotImplementedError``: it is ROADMAP queue 1 item 6.4.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: family {cfg.family!r}, block {cfg.block_type!r} "
             f"is not in the port yet; only the dense transformer is "
             f"(MoE, SSM, hybrid, encoder-decoder and M-RoPE are ROADMAP "
-            f"item 11)")
+            f"queue 1 item 6.4)")
 
 
 # ==========================================================================

@@ -206,6 +206,89 @@ def test_fused_kernel_same_bits_on_two_streams_on_card(call, card):
     assert all(torch.equal(first, o) for o in outs)
 
 
+def _k3_calls():
+    """Every distinct K3 call of the CNN paths (batch 2, 224 px: the stems
+    at Ci = 3, SqueezeNet's e3x3 at 56^2 to 14^2) and ``chip_smoke.py``'s
+    K3 edge cases (no bias, Ci = 5 at stride 2 and no pad), plus a ragged
+    Co and a pixel count that is no multiple of any tile."""
+    seen = {}
+    for c in [*chip_smoke.cnn_path_calls(), *chip_smoke.edge_calls(),
+              dict(kernel="conv2d_implicit_gemm", n=1, h=9, w=7, ci=12,
+                   co=37, k=3, stride=1, pad=1, act="relu6"),
+              dict(kernel="conv2d_implicit_gemm", n=2, h=14, w=14, ci=64,
+                   co=250, k=5, stride=1, pad=2, act=None)]:
+        if c["kernel"] == "conv2d_implicit_gemm":
+            seen.setdefault(json.dumps(c, sort_keys=True), c)
+    return list(seen.values())
+
+
+K3_CALLS = _k3_calls()
+
+
+def _on_two_streams(case):
+    """The kernel's output on the current stream, then on two others."""
+    first = case["kernel"]()
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(case["kernel"]())
+    torch.cuda.synchronize()
+    return first, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", K3_CALLS,
+                         ids=[chip_smoke._shape_str(c).replace(" ", ",")
+                              for c in K3_CALLS])
+def test_k3_matches_plain_at_path_shape_on_card(call, card):
+    """K3 at every path shape and edge case, with the tiling ``plan_k3``
+    gives: one launch a call, within 1e-4 of the plain version, and the
+    same bits on two other streams (the cluster's ranks meet in rank
+    order)."""
+    fn = WRAPPERS["K3"]
+    case = chip_smoke.make_case(call, np.random.default_rng(15))
+    before = fn.launches
+    got = case["kernel"]()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = case["plain"]()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    first, outs = _on_two_streams(case)
+    assert torch.equal(first, got) and all(torch.equal(got, o)
+                                           for o in outs)
+
+
+# K7 decode's (G, D): Qwen2-0.5B, Qwen2.5-14B, Command R+ and Granite-20B
+DECODE_GEOMETRIES = [(7, 64), (5, 128), (12, 128), (48, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,d", DECODE_GEOMETRIES,
+                         ids=[f"G{g}-D{d}" for g, d in DECODE_GEOMETRIES])
+@pytest.mark.parametrize("lens", [None, [576, 0, 1, 300]],
+                         ids=["full", "ragged"])
+def test_k7_decode_geometries_on_card(g, d, lens, card):
+    """K7 decode at the registered dense configs' head geometry (2 kv
+    heads, a cache of 576 cut from 600), whole or ragged down to
+    ``kv_len`` 0 and 1: one launch a call, within 1e-4 of the plain
+    version, the same bits on two other streams."""
+    call = dict(kernel="decode_attention", b=4, hq=2 * g, hkv=2, sk=576,
+                d=d, cap=600, kv_len=lens)
+    case = chip_smoke.make_case(call, np.random.default_rng(16))
+    before = decode_attention.launches
+    got = case["kernel"]()
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = case["plain"]()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    if lens is not None:
+        assert not got[1].any()                 # kv_len 0: written as 0
+    first, outs = _on_two_streams(case)
+    assert torch.equal(first, got) and all(torch.equal(got, o)
+                                           for o in outs)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_operands_on_card(card):
     x, w = (t.to(card) for t in _arrays(6, (8, 4), (4, 8)))

@@ -18,10 +18,13 @@ import torch
 from repro.kernels.conv_gemm.kernel import (
     conv2d_implicit_gemm as ref_implicit_gemm,
     matmul_bias_act as ref_matmul)
+from repro.kernels.attention.kernel import \
+    decode_attention as ref_decode_attention
 from repro.kernels.depthwise.kernel import depthwise_conv2d as ref_depthwise
 from repro.kernels.fused_block.kernel import fused_dw_pw_conv as ref_fused
 from repro.kernels.fused_block.kernel import (
     fused_pw_dw_pw_conv as ref_fused_ir)
+from repro_torch.kernels.attention import plan as aplan
 from repro_torch.kernels.conv_gemm import ops as conv_ops
 from repro_torch.kernels.conv_gemm import plan as gplan
 from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
@@ -406,6 +409,111 @@ def test_k1_k2_planners_are_deterministic_and_refuse_what_cannot_fit():
 
 
 # --------------------------------------------------------------------------
+# K3 and K7 decode planners
+# --------------------------------------------------------------------------
+def _k3_cases():
+    """Every distinct K3 call of the CNN paths and edge cases, and the
+    shapes of the interpret-mode tests above."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    keys = ("n", "h", "w", "ci", "co", "k", "stride", "pad")
+    calls = [c for c in [*chip_smoke.cnn_path_calls(),
+                         *chip_smoke.edge_calls()]
+             if c["kernel"] == "conv2d_implicit_gemm"]
+    calls += [dict(n=2, h=h, w=w, ci=ci, co=co, k=3, stride=s, pad=p)
+              for h, w, ci, co, s, p in [(16, 16, 3, 32, 2, 1),
+                                         (10, 10, 8, 24, 1, 1),
+                                         (15, 13, 5, 20, 2, 0)]]
+    seen = {}
+    for c in calls:
+        c = {k: c[k] for k in keys}
+        seen.setdefault(json.dumps(c, sort_keys=True), c)
+    return list(seen.values())
+
+
+K3_CASES = _k3_cases()
+
+
+@pytest.mark.parametrize("call", K3_CASES, ids=[
+    "{n}x{h}x{w}x{ci}-{co}s{stride}".format(**c) for c in K3_CASES])
+def test_k3_planner_covers_the_call_once(call):
+    """``plan_k3`` at every K3 call: the tiles cover the N*Ho*Wo x Co output
+    once, the ranks' k-steps cover K = 9 Ci once in rank order, the k
+    table holds the busiest rank's entries, the shared memory and the
+    cluster fit, and the layout and k-step are compiled."""
+    c = call
+    vec = c["ci"] % 4 == 0
+    p = gplan.plan_k3(c["n"], c["h"], c["w"], c["ci"], c["co"], c["k"],
+                      c["k"], c["stride"], c["pad"], vec)
+    ho = (c["h"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
+    wo = (c["w"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
+    m, k, n = c["n"] * ho * wo, c["k"] * c["k"] * c["ci"], c["co"]
+    cover = np.zeros((m, n), np.int64)
+    for tm in range(p.tiles_m):
+        for tn in range(p.tiles_n):
+            cover[tm * p.bm:(tm + 1) * p.bm, tn * p.bn:(tn + 1) * p.bn] += 1
+    assert (cover == 1).all()
+    edge, most = 0, 0
+    for lo, hi in gplan.k_splits(k, p.bk, p.cluster):
+        assert lo == edge and lo < hi and lo % p.bk == 0
+        most = max(most, -(-(hi - lo) // p.bk) * p.bk)
+        edge = hi
+    assert edge == k
+    assert gplan.k3_entries(k, p.bk, p.cluster, vec) * (4 if vec else 1) \
+        >= most
+    assert p.bk in gplan.K3_BKS[vec] and (p.mi, p.nj) in gplan.COMPILED
+    assert p.smem_bytes == 4 * gplan.k3_smem_floats(
+        p.bm, p.bn, p.bk, p.stages,
+        gplan.k3_entries(k, p.bk, p.cluster, vec)) <= 232_448
+    assert 1 <= p.cluster <= 16 and p.blocks == p.cluster * p.tiles_m \
+        * p.tiles_n
+
+
+DECODE_CASES = [(16, 14, 2, sk, 64) for sk in (513, 544, 575)] + [
+    (16, 40, 8, 576, 128), (16, 48, 1, 576, 128), (16, 96, 8, 576, 128),
+    (4, 14, 2, 576, 64), (3, 14, 2, 100, 8), (1, 14, 2, 0, 64),
+    (2, 6, 1, 9000, 16)]
+
+
+@pytest.mark.parametrize("call", DECODE_CASES, ids=[
+    "b{}-hq{}-hkv{}-sk{}-d{}".format(*c) for c in DECODE_CASES])
+def test_decode_planner_covers_every_key_once(call):
+    """``plan_decode``: the ranks' key runs cover the cache once, in rank
+    order and in whole 32-key tiles; the tensor cores take the groups
+    above 8; the slots, cluster and shared memory fit an H100."""
+    b, hq, hkv, sk, d = call
+    p = aplan.plan_decode(*call)
+    edge = 0
+    for lo, hi in aplan.key_splits(sk, p.cluster):
+        assert lo == edge and lo % aplan.TK == 0 and hi - lo <= p.keys
+        edge = max(edge, hi)
+    assert edge == sk
+    assert p.tc == (hq // hkv > aplan.GM)
+    assert 1 <= p.cluster <= 16 and p.blocks == p.cluster * b * hkv
+    assert (2 <= p.slots <= 4) if p.tc else (1 <= p.slots <= 8)
+    assert p.smem_bytes == 4 * aplan.decode_smem_floats(
+        hq // hkv, d, p.slots, p.cluster, p.tc) <= 232_448
+
+
+def test_k3_decode_planners_are_deterministic_and_refuse_what_cannot_fit():
+    assert gplan.plan_k3(2, 14, 14, 64, 256, 3, 3, 1, 1, True) == min(
+        gplan.k3_candidates(2, 14, 14, 64, 256, 3, 3, 1, 1, True),
+        key=lambda kp: kp[0])[1]
+    assert aplan.plan_decode(16, 14, 2, 575, 64) == min(
+        aplan.candidates(16, 14, 2, 575, 64), key=lambda kp: kp[0])[1]
+    with pytest.raises(ValueError, match="Ci % 4"):
+        gplan.plan_k3(2, 14, 14, 3, 32, 3, 3, 2, 1, True)
+    with pytest.raises(ValueError, match="empty"):
+        gplan.plan_k3(2, 2, 2, 3, 32, 5, 5, 1, 0, False)
+    with pytest.raises(ValueError, match="no tiling fits"):
+        gplan.plan_k3(1, 3, 3, 4, 9_000_000, 3, 3, 1, 1, True)
+    for bad in [(1, 49, 1, 64, 128), (1, 14, 2, 64, 256), (1, 14, 2, 64, 12),
+                (1, 32, 2, 64, 4)]:
+        with pytest.raises(ValueError, match="past the kernel"):
+            aplan.plan_decode(*bad)
+
+
+# --------------------------------------------------------------------------
 # K1's arithmetic: 3xTF32 emulated on the CPU
 # --------------------------------------------------------------------------
 def _tf32(a):
@@ -513,3 +621,74 @@ class _NoNvccPath(type(__import__("pathlib").Path())):
 
     def is_file(self):
         return False
+
+
+def _3xtf32(a, b):
+    """a @ b as the kernels run it: hi*hi plus the two correction terms
+    (lo*lo dropped), the main and correction products summed apart."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (ah @ bh) + (al @ bh + ah @ bl)
+
+
+def test_k3_3xtf32_emulation_matches_reference():
+    """K3 at SqueezeNet's 14^2, Ci 64 -> 256 layer (K = 576): the patch
+    matrix times the weight in 3xTF32 over each cluster rank's k-steps
+    under ``plan_k3``, the ranks' partials summed in rank order, then the
+    bias and relu, within 1e-4 of the reference Pallas kernel in interpret
+    mode."""
+    x, w, b = _arrays(14, (2, 14, 14, 64), (3, 3, 64, 256), (256,))
+    w = (w * np.sqrt(2.0 / 576)).astype(np.float32)
+    b = (b * 0.1).astype(np.float32)
+    p = gplan.plan_k3(2, 14, 14, 64, 256, 3, 3, 1, 1, True)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    pm = np.stack([xp[:, i:i + 14, j:j + 14, :] for i in range(3)
+                   for j in range(3)], axis=3).reshape(392, 576)
+    wm = w.reshape(576, 256)
+    got = np.zeros((392, 256), np.float32)
+    for lo, hi in gplan.k_splits(576, p.bk, p.cluster):
+        got = got + _3xtf32(pm[:, lo:hi], wm[lo:hi])
+    got = np.maximum(got + b, 0).reshape(2, 14, 14, 256)
+    ref = ref_implicit_gemm(_j(x), _j(w), _j(b), stride=1, pad=1,
+                            act="relu", interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+def test_decode_3xtf32_emulation_matches_reference():
+    """K7 decode at Granite's group (48 query heads on 1 kv head, D 128),
+    as its tensor-core path runs it under ``plan_decode``: each rank's
+    32-key tiles in order, S = Q K^T and P V in 3xTF32, the online softmax
+    between them, then the ranks' states merged in rank order; within 1e-4
+    of the reference's ``decode_attention`` in interpret mode."""
+    q, k, v = _arrays(15, (2, 48, 1, 128), (2, 1, 100, 128),
+                      (2, 1, 100, 128), scale=0.5)
+    p = aplan.plan_decode(2, 48, 1, 100, 128)
+    assert p.tc
+    scale = 1.0 / np.sqrt(128)
+    got = np.zeros((2, 48, 1, 128), np.float32)
+    for bi in range(2):
+        qs, ks, vs = q[bi, :, 0], k[bi, 0], v[bi, 0]
+        states = []
+        for lo, hi in aplan.key_splits(100, p.cluster):
+            m = np.full(48, -np.inf, np.float32)
+            l = np.zeros(48, np.float32)
+            acc = np.zeros((48, 128), np.float32)
+            for t in range(lo, hi, aplan.TK):
+                kt, vt = ks[t:min(t + aplan.TK, hi)], vs[t:min(t + aplan.TK,
+                                                               hi)]
+                s = _3xtf32(qs, kt.T) * np.float32(scale)
+                m_new = np.maximum(m, s.max(axis=1))
+                a = np.exp(m - m_new)
+                pr = np.exp(s - m_new[:, None])
+                l = l * a + pr.sum(axis=1)
+                acc = acc * a[:, None] + _3xtf32(pr.astype(np.float32), vt)
+                m = m_new
+            states.append((m, l, acc))
+        mx = np.max([st[0] for st in states], axis=0)
+        fs = [np.where(np.isinf(st[0]), 0, np.exp(st[0] - mx))
+              for st in states]
+        lsum = sum(f * st[1] for f, st in zip(fs, states))
+        got[bi, :, 0] = sum(st[2] * (f / lsum)[:, None]
+                            for f, st in zip(fs, states))
+    ref = ref_decode_attention(_j(q), _j(k), _j(v), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)

@@ -24,6 +24,7 @@ from repro.configs.registry import get_arch as ref_get_arch
 from repro.configs.registry import get_smoke as ref_get_smoke
 from repro.dualmesh import DualMeshRunner as RefRunner
 from repro.dualmesh import TpuModel
+from repro.dualmesh import cost as ref_cost
 from repro.dualmesh import plan_admission as ref_plan_admission
 from repro.dualmesh import split_mesh
 from repro.kernels.attention.kernel import \
@@ -37,7 +38,7 @@ from repro.lm import modules as ref_modules
 from repro.serving import DualMeshEngine as RefEngine
 from repro.serving import Request as RefRequest
 from repro_torch.configs.registry import ARCH_IDS, get_arch, get_smoke
-from repro_torch.dualmesh.cost import CardModel
+from repro_torch.dualmesh.cost import CardModel, decode_cost, prefill_cost
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner
 from repro_torch.dualmesh.schedule import plan_admission
@@ -52,13 +53,16 @@ from repro_torch.serving.api import Request
 from repro_torch.serving.lm import DualMeshEngine
 
 ARCH = "qwen2_0_5b"
+# the other registered dense configs
+DENSE = ("qwen2_5_14b", "granite_20b", "command_r_plus_104b")
 RMS_TOL = dict(rtol=3e-4, atol=3e-4)
 ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
-# the reference's constants, handed to the port's card model
+# the reference's constants and its bf16 element, handed to the port's card
+# model
 REF_HW = CardModel(peak_flops=197e12, mem_bw=819e9, link_bw=50e9,
                    mfu_ceiling=0.6, bw_ceiling=0.8, step_floor_base=25e-6,
-                   step_floor_tp=8e-6, step_floor_dp=2e-6)
+                   step_floor_tp=8e-6, step_floor_dp=2e-6, elem_bytes=2)
 
 
 def _arrays(seed, *shapes, scale=1.0):
@@ -97,7 +101,45 @@ def test_configs_match_reference():
 def test_registry_refuses_an_architecture_the_port_lacks():
     with pytest.raises(KeyError, match="qwen2_0_5b"):
         get_arch("qwen2_moe_a2_7b")
-    assert ARCH_IDS == (ARCH,)
+    assert ARCH_IDS == (ARCH, *DENSE)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_configs_match_reference(name):
+    """Qwen2.5-14B, Granite-20B and Command R+ at ``full()`` and
+    ``smoke()``: the reference's fields, padded vocabulary and parameter
+    count."""
+    for mine, ref in ((get_arch(name), ref_get_arch(name)),
+                      (get_smoke(name), ref_get_smoke(name))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.padded_vocab == ref.padded_vocab
+        assert mine.param_count() == ref.param_count()
+        model.check_supported(mine)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_smoke_forward_and_decode_match_reference(name):
+    """Each other dense config at its smoke width, the reference's
+    parameters carried over as numpy: the forward's logits, then an
+    8-token prefill and 3 decode steps fed the reference's argmax, at
+    1e-4."""
+    cfg = ref_get_smoke(name)
+    ref_params = ref_model.init_params(cfg, jax.random.PRNGKey(1))
+    params = model.params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                     device="cpu")
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab, (2, 8))
+    want = ref_model.forward(ref_params, cfg, jnp.asarray(tokens))
+    got = model.forward(params, get_smoke(name), _t(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+    rc = ref_model.init_cache(cfg, 2, 16)
+    pc = model.init_cache(get_smoke(name), 2, 16, device="cpu")
+    feed = tokens
+    for _ in range(4):
+        want, rc = ref_model.decode_step(ref_params, cfg, jnp.asarray(feed),
+                                         rc)
+        got, pc = model.decode_step(params, get_smoke(name), _t(feed), pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+        feed = np.asarray(jnp.argmax(want[:, -1, :cfg.vocab], -1))[:, None]
 
 
 def test_init_params_has_the_reference_shapes(smoke):
@@ -109,7 +151,8 @@ def test_init_params_has_the_reference_shapes(smoke):
     again = model.init_params(cfg, seed=0)
     assert np.array_equal(again["lm_head"], mine["lm_head"])
     moe = ref_get_arch("qwen2_moe_a2_7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 6.4"):
         model.init_params(dataclasses.replace(
             get_smoke(ARCH), family=moe.family, moe_experts=4, moe_top_k=2))
 
@@ -196,6 +239,27 @@ def test_k7_plain_decode_matches_reference(ragged):
     got = decode_attention(_t(q), _t(k), _t(v),
                            None if lens is None else _t(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("g,hkv,ragged", [(48, 1, False), (48, 1, True),
+                                          (12, 2, False), (12, 2, True)])
+def test_k7_plain_decode_matches_reference_at_wide_groups(g, hkv, ragged):
+    """Granite-20B's group (48 query heads on 1 kv head) and Command R+'s
+    (12), D = 128, whole and ragged (down to kv_len 0 and 1): the plain
+    decode against the reference's ``decode_attention`` (its flash kernel
+    in interpret mode, or its jnp ragged path)."""
+    q, k, v = _arrays(13, (4, g * hkv, 1, 128), (4, hkv, 70, 128),
+                      (4, hkv, 70, 128), scale=0.5)
+    lens = np.array([70, 0, 1, 33], np.int32) if ragged else None
+    want = np.array(ref_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if lens is None else jnp.asarray(lens), interpret=True))
+    if ragged:
+        want[1] = 0.0      # no visible key: the port writes 0 (the
+        #                    reference's ragged path averages every key)
+    got = decode_attention(_t(q), _t(k), _t(v),
+                           None if lens is None else _t(lens))
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
 
 
 def test_wrappers_count_no_launch_on_cpu():
@@ -302,6 +366,35 @@ def test_plan_admission_matches_reference(batch, plen, gen, n):
                          batch, plen, gen, n)
     assert got.group_size == want.group_size
     assert got.est_makespan == pytest.approx(want.est_makespan, rel=1e-12)
+
+
+@pytest.mark.parametrize("name", (ARCH, *DENSE))
+def test_cost_model_counts_the_served_element(name):
+    """At 2 bytes an element the card model's stage costs equal the
+    reference's at the same constants, term by term; at its default of 4
+    (the port serves f32) the memory terms, weights and KV cache alike,
+    double and the compute terms stay."""
+    cfg = get_arch(name)
+    tpu = TpuModel()
+    for args in ((2, 512, 1), (4, 2048, 8)):
+        want = ref_cost.prefill_cost(ref_get_arch(name), *args, tpu, 8)
+        got = prefill_cost(cfg, *args, REF_HW, 8)
+        assert dataclasses.astuple(got) == pytest.approx(
+            dataclasses.astuple(want), rel=1e-12)
+    for args in ((16, 544, 1, 1), (8, 4096, 4, 3)):
+        want = ref_cost.decode_cost(ref_get_arch(name), *args, tpu, 8)
+        got = decode_cost(cfg, *args, REF_HW, 8)
+        assert dataclasses.astuple(got) == pytest.approx(
+            dataclasses.astuple(want), rel=1e-12)
+    two = dataclasses.replace(REF_HW, step_floor_base=0.0, step_floor_tp=0.0,
+                              step_floor_dp=0.0)
+    four = dataclasses.replace(two, elem_bytes=4)
+    assert CardModel().elem_bytes == 4
+    for cost, args in ((prefill_cost, (2, 512, 1)),
+                       (decode_cost, (16, 544, 1, 1))):
+        a, b = cost(cfg, *args, two, 1), cost(cfg, *args, four, 1)
+        assert b.t_memory == pytest.approx(2 * a.t_memory, rel=1e-12)
+        assert b.t_compute == a.t_compute
 
 
 def test_resolve_device_names_the_card_by_index(monkeypatch):

@@ -1,28 +1,35 @@
-"""K1 and K2 at every CNN path shape on the card, and under every tiling.
+"""K1, K2, K3 and K7 decode at their path shapes on the card, and under
+every tiling.
 
     PYTHONPATH=src python tools/plan_sweep.py [--reps 20] [--sweep]
+                                              [--kernel NAME ...]
                                               [--out plan_sweep.json]
     PYTHONPATH=src python tools/plan_sweep.py --fit chiprun_out/plan_sweep.json
 
 Builds the kernel library from ``src/repro_torch/csrc`` and prints the
-``-Xptxas -v`` registers and spills of K1 (``matmul_bias_act``) and K2
-(``depthwise_conv2d``).  At every K1 and K2 call of the CNN paths that
-``chip_smoke.py`` drives (batch 2, 224 px) and at its edge cases, it holds
-the kernel against the plain version (rtol = atol = 1e-4, TF32 off in
-PyTorch) and times it on the device (``cuda_time_ms``) beside the PyTorch
-library call, with the planner's tiling.  Per path it prints the sums.
+``-Xptxas -v`` registers and spills of K1 (``matmul_bias_act``), K2
+(``depthwise_conv2d``), K3 (``conv2d_implicit_gemm``) and K7
+(``flash_attention``).  At every K1, K2 and K3 call of the CNN paths that
+``chip_smoke.py`` drives (batch 2, 224 px) and at its edge cases, and at K7
+decode's calls on the Qwen2-0.5B path (every 8th cache length, 513 to
+575) and at the other dense configs' head geometry, it holds the kernel
+against the plain version (rtol = atol = 1e-4, TF32 off in PyTorch) and
+times it on the device (``cuda_time_ms``) beside the PyTorch library call,
+with the planner's plan.  Per path it prints the sums.
 
-``--sweep`` also runs every tiling the planner considers
-(``plan.candidates``) at each path shape, holds each against the plain
-version and times it, and prints the planner's pick beside the fastest;
+``--sweep`` also runs every plan the planner considers (K1 and K2's
+tilings, K3's with ``plan.k3_candidates``, K7 decode's cluster sizes with
+``attention/plan.candidates``) at each path shape, holds each against the
+plain version and times it, and prints the planner's pick beside the
+fastest;
 the fastest is timed twice, and the largest difference of the two is
 printed as the sweep's noise.  Per path it prints the sum of the fastest
 tilings and of the planner's picks, and for each compiled choice of K1's
 warp tiles (``plan.COMPILED``) and K2's outputs a thread (``plan.OWS``),
 the sum of the fastest tilings without it: what the choice buys.
 
-``--fit FILE`` runs on any machine: it reads a sweep's rows and fits each
-planner's cost constants, coordinate by coordinate over a grid of factors,
+``--fit FILE`` runs on any machine: it reads a sweep's rows and fits K1's
+and K2's cost constants, coordinate by coordinate over a grid of factors,
 to the least summed time of the picks a request makes, then prints the
 constants and the picks' sum before and after.
 
@@ -47,10 +54,16 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 import repro_torch.kernels.util as util  # noqa: E402
+from repro_torch.kernels.attention import plan as k7plan  # noqa: E402
 from repro_torch.kernels.conv_gemm import plan as k1plan  # noqa: E402
 from repro_torch.kernels.depthwise import plan as k2plan  # noqa: E402
 
-KERNELS = ("matmul_bias_act", "depthwise_conv2d")
+KERNELS = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
+           "decode_attention")
+SOURCES = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
+           "flash_attention")
+# K7 decode's cache lengths on the LM path that the tool visits
+DECODE_SKS = range(cs.LM_PROMPT + 1, cs.LM_PROMPT + cs.LM_GEN, 8)
 # each planner's fitted constants
 CONSTS = {
     "matmul_bias_act": (k1plan, ("STEP_NS", "FLOP_PER_NS", "BYTES_PER_NS",
@@ -67,6 +80,12 @@ def candidates(call: dict) -> list:
     c = call
     if c["kernel"] == "matmul_bias_act":
         return k1plan.candidates(c["m"], c["k"], c["n"])
+    if c["kernel"] == "conv2d_implicit_gemm":
+        return k1plan.k3_candidates(c["n"], c["h"], c["w"], c["ci"],
+                                    c["co"], c["k"], c["k"], c["stride"],
+                                    c["pad"], c["ci"] % 4 == 0)
+    if c["kernel"] == "decode_attention":
+        return k7plan.candidates(c["b"], c["hq"], c["hkv"], c["sk"], c["d"])
     ho = (c["h"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
     wo = (c["w"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
     return k2plan.candidates(c["n"], ho, wo, c["c"], c["k"], c["k"],
@@ -77,6 +96,8 @@ def plan_id(p) -> str:
     """A tiling's name in the sweep's rows."""
     if isinstance(p, k1plan.GemmPlan):
         return f"{p.bm}x{p.bn} bk{p.bk} cl{p.cluster}"
+    if isinstance(p, k7plan.DecodePlan):
+        return f"cl{p.cluster} sl{p.slots}"
     return f"{p.th}x{p.tw} cq{p.cq} ow{p.ow}"
 
 
@@ -87,7 +108,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--out", default="plan_sweep.json")
     ap.add_argument("--fit", metavar="FILE")
+    ap.add_argument("--kernel", action="append", choices=KERNELS,
+                    help="visit only this kernel (repeatable)")
     args = ap.parse_args(argv)
+    kernels = tuple(args.kernel or KERNELS)
     if args.fit:
         return fit(json.loads(Path(args.fit).read_text()))
     if not torch.cuda.is_available():
@@ -97,18 +121,24 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}")
     print(f"kernels built and loaded in {util.timed_build():.1f} s")
-    for name in KERNELS:
+    for name in SOURCES:
         for line in util.ptxas_report(name):
             print(f"ptxas {name}: {line}")
 
     gen = np.random.default_rng(0)
-    paths_calls = {p: [c for c in calls if c["kernel"] in KERNELS]
+    paths_calls = {p: [c for c in calls if c["kernel"] in kernels]
                    for p, calls in cs.cnn_paths().items()}
     distinct: dict[str, dict] = {}
     for calls in paths_calls.values():
         for c in calls:
             distinct.setdefault(json.dumps(c, sort_keys=True), c)
-    edges = [c for c in cs.edge_calls() if c["kernel"] in KERNELS]
+    decode = [c for c, _w in cs.lm_request_calls(max(cs.lm_group_sizes()))
+              if c["kernel"] == "decode_attention" and c["sk"] in DECODE_SKS]
+    decode += cs.lm_geometry_calls()
+    decode = decode if "decode_attention" in kernels else []
+    for c in decode:
+        distinct.setdefault(json.dumps(c, sort_keys=True), c)
+    edges = [c for c in cs.edge_calls() if c["kernel"] in kernels]
     rows, worst, missed = {}, 0.0, False
     for key, c in [*distinct.items(), *((None, c) for c in edges)]:
         case = cs.make_case(c, gen)
@@ -140,6 +170,15 @@ def main(argv=None) -> int:
             if args.sweep:
                 for name, t in best_times(c["kernel"], r["sweep"]).items():
                     s[name] = s.get(name, 0.0) + t
+    if args.sweep and decode:
+        for name, calls in (("K7 decode, Qwen2-0.5B path", decode[:-3]),
+                            ("K7 decode, other geometries", decode[-3:])):
+            picked = sum(next(x["ms"] for x in rows[json.dumps(
+                c, sort_keys=True)]["sweep"] if x["picked"]) for c in calls)
+            best = sum(rows[json.dumps(c, sort_keys=True)]["sweep"][0]["ms"]
+                       for c in calls)
+            sums[name] = dict(calls=len(calls), picked_ms=picked,
+                              best_ms=best)
     for name, s in sums.items():
         print(f"per request, {name} x{s['calls']}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in s.items()
@@ -179,10 +218,14 @@ def sweep(call: dict, case: dict, timing: bool) -> tuple[list[dict], bool]:
     version and, if ``timing``, timed (fastest first, the fastest timed
     again as ``again_ms``); prints the planner's pick and the three
     fastest.  Returns the rows and whether any tiling missed."""
+    import repro_torch.kernels.attention.kernel as k7mod
     import repro_torch.kernels.conv_gemm.kernel as k1mod
     import repro_torch.kernels.depthwise.kernel as k2mod
-    k1 = call["kernel"] == "matmul_bias_act"
-    mod, name = (k1mod, "plan_k1") if k1 else (k2mod, "plan_k2")
+    mod, name = {"matmul_bias_act": (k1mod, "plan_k1"),
+                 "depthwise_conv2d": (k2mod, "plan_k2"),
+                 "conv2d_implicit_gemm": (k1mod, "plan_k3"),
+                 "decode_attention": (k7mod, "plan_decode")}[call["kernel"]]
+    gemm = call["kernel"] in ("matmul_bias_act", "conv2d_implicit_gemm")
     cands = candidates(call)
     pick = min(cands, key=lambda kp: kp[0])[1]
     real = getattr(mod, name)
@@ -194,7 +237,7 @@ def sweep(call: dict, case: dict, timing: bool) -> tuple[list[dict], bool]:
             bad = bad or not ok
             row = dict(name=plan_id(p), blocks=p.blocks, smem=p.smem_bytes,
                        picked=p == pick, err=err, ok=ok)
-            if k1:
+            if gemm:
                 row.update(mi=p.mi, nj=p.nj, stages=p.stages)
             if timing:
                 row["ms"] = util.cuda_time_ms(case["kernel"], reps=10,
@@ -225,10 +268,12 @@ def best_times(kernel: str, rows: list[dict]) -> dict[str, float]:
     compiled choice the fastest tiling without it."""
     out = dict(best_ms=rows[0]["ms"],
                picked_ms=next(r["ms"] for r in rows if r["picked"]))
-    if kernel == "matmul_bias_act":
+    if kernel in ("matmul_bias_act", "conv2d_implicit_gemm"):
         choices = {f"{mi}x{nj}": (lambda r, mi=mi, nj=nj:
                                   (r["mi"], r["nj"]) != (mi, nj))
                    for mi, nj in k1plan.COMPILED}
+    elif kernel == "decode_attention":
+        choices = {}
     else:
         choices = {f"ow{ow}": (lambda r, ow=ow: not r["name"].endswith(
             f"ow{ow}")) for ow in k2plan.OWS}
