@@ -10,30 +10,37 @@ any failure raises and the script exits non-zero:
             ``nvcc`` per source, all at once);
 2. kernels  hold every kernel against its plain PyTorch version on the card
             (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
-            order differs; K1, K4 and K5 run their products in 3xTF32,
-            which keeps f32's accuracy) at every distinct shape the paths
+            order differs; K1, K3, K4, K5 and K7 flash run their products
+            in 3xTF32, which keeps f32's accuracy) at every distinct shape
+            the paths
             below launch
             (the CNNs at 224 px and batch 2; Qwen2-0.5B's prefill of 2 x 512
             tokens and its decode steps at cache lengths 513..575), plus
             edge cases (no bias, each activation, residuals, ragged tails,
             stride 2, K5's nonzero expand bias against a zero-padded halo;
-            K6 at one row and an odd width; K7 at Sq = 37, a chunk against
-            a cache, a padding mask, ragged ``kv_len`` and D = 8); time each
+            K6 at one row and an odd width; K7 flash at Sq = 37 and 130, a
+            chunk against a cache, a padding mask, one query row, D = 8, 20,
+            37 and 48 heads on one kv head; K7 decode at ragged ``kv_len``
+            and D = 8); time each
             path call on the device (``cuda_time_ms``: CUDA events around
             back-to-back calls, the host's launch overhead held out) beside
             the plain version, a PyTorch library call or chain computing the
             same function (timed here only, never used by the port:
             ``F.rms_norm``, ``scaled_dot_product_attention``) and the least
-            time the card could take; the plans of K1 and K3 (tile,
-            k-step, cluster, blocks, stages, shared memory), K2 (pixel
-            tile, channel block, outputs a thread, blocks), K4 and K5
-            (pixel tile, cluster, blocks) and K7 decode (tensor or CUDA
-            cores, cluster, keys a rank, slots, blocks, shared memory)
-            beside them, and at build time their ``-Xptxas -v`` registers
-            and spills.  K7 decode is also timed at the head geometry of
+            time the card could take, and K6 also "after its producer":
+            each call behind the residual add that writes its input on the
+            path, the add's own time taken off (K6 may begin while the add
+            drains); the plans of K1 and K3 (tile, k-step, cluster, blocks,
+            stages, shared memory), K2 (pixel tile, channel block, outputs
+            a thread, blocks), K4 and K5 (pixel tile, cluster, blocks), K7
+            flash (rows a block, ring, key split, blocks) and K7 decode
+            (tensor or CUDA cores, cluster, keys a rank, slots, blocks,
+            shared memory) beside them, and at build time their ``-Xptxas -v``
+            registers and spills.  K7 is also timed at the head geometry of
             the other registered dense configs (Qwen2.5-14B 40/8,
-            Granite-20B 48/1, Command R+ 96/8, D 128; 16 rows, cache
-            576) and checked there with ragged ``kv_len`` down to 0 and 1;
+            Granite-20B 48/1, Command R+ 96/8, D 128): decode at 16 rows
+            and a cache of 576, checked there with ragged ``kv_len`` down
+            to 0 and 1, and flash at the path's prefill of 2 x 512;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the sequential
             kernel forward against the all-plain forward at 1e-3 (up to 53
@@ -122,13 +129,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32X3_FLOP_PER_S = 495e12 / 3
 FUSED_KERNELS = ("fused_dw_pw_conv", "fused_pw_dw_pw_conv")  # K4, K5
-# kernels planned per call on the host; K1, K3, K4 and K5 run their
-# products in 3xTF32 on the tensor cores, K7 decode where G > 8
+# kernels planned per call on the host; K1, K3, K4, K5 and K7 flash run
+# their products in 3xTF32 on the tensor cores, K7 decode where G > 8
 PLANNED = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
-           *FUSED_KERNELS, "decode_attention")
+           *FUSED_KERNELS, "flash_attention", "decode_attention")
 # the sources whose -Xptxas -v report setup prints
 PTXAS_SOURCES = ("matmul_bias_act", "depthwise_conv2d",
-                 "conv2d_implicit_gemm", *FUSED_KERNELS, "flash_attention")
+                 "conv2d_implicit_gemm", *FUSED_KERNELS, "flash_attention",
+                 "rmsnorm")
 
 
 def card_line() -> str:
@@ -466,9 +474,16 @@ def _lm_case(kt: dict, call: dict, gen) -> dict:
         rows, d = call["rows"], call["d"]
         x = rand(gen, (rows, d))
         w = rand(gen, (d,), 0.5) + 1.0
+        # on the path K6 reads the residual sum x + h the add before it
+        # wrote: "after" is that add and K6, "producer" the add alone
+        h = rand(gen, (rows, d))
+        y = torch.empty_like(x)
         return dict(kernel=lambda: kt["fn"](x, w, eps=1e-6),
                     plain=lambda: kt["plain"](x, w, 1e-6),
                     library=lambda: F.rms_norm(x, (d,), w, 1e-6),
+                    producer=lambda: torch.add(x, h, out=y),
+                    after=lambda: kt["fn"](torch.add(x, h, out=y), w,
+                                           eps=1e-6),
                     nbytes=4 * (2 * rows * d + d), flops=4 * rows * d)
     from repro_torch.kernels.attention.plan import plan_decode
     b, hq, hkv, sk, d = (call[k] for k in ("b", "hq", "hkv", "sk", "d"))
@@ -505,12 +520,13 @@ def _lm_case(kt: dict, call: dict, gen) -> dict:
     pairs = int(vis.sum().item())
     keys = min(kv_end, off + sq) if causal else kv_end
     plain_causal = causal and off == 0 and sq == sk and sk_valid is None
+    flops = 4 * d * pairs * b * hq
     return dict(kernel=lambda: kt["fn"](q, k, v, **kw),
                 plain=lambda: kt["plain"](q, k, v, **kw),
                 library=_sdpa(q, k, v, None if plain_causal else vis,
                               plain_causal, g),
                 nbytes=4 * (2 * b * hq * sq * d + 2 * b * hkv * keys * d),
-                flops=4 * d * pairs * b * hq)
+                flops=flops, tc_flops=flops)
 
 
 def _sdpa(q, k, v, mask, is_causal: bool, g: int):
@@ -560,13 +576,16 @@ def check_and_time(call: dict, gen, timing: bool) -> dict:
                    library_ms=cuda_time_ms(case["library"]),
                    bound_ms=b_ms, bound_by=b_by, bytes=case["nbytes"],
                    flops=case["flops"], tc_flops=tc)
+        if "after" in case:
+            row["after_ms"] = (cuda_time_ms(case["after"])
+                               - cuda_time_ms(case["producer"]))
     return row
 
 
 def kernel_plan(call: dict) -> dict:
-    """The plan K1's, K2's, K3's, K4's, K5's or K7 decode's wrapper
-    launches ``call`` with."""
-    from repro_torch.kernels.attention.plan import plan_decode
+    """The plan K1's, K2's, K3's, K4's, K5's or K7's wrapper launches
+    ``call`` with."""
+    from repro_torch.kernels.attention.plan import plan_decode, plan_flash
     from repro_torch.kernels.conv_gemm.plan import plan_k1, plan_k3
     from repro_torch.kernels.depthwise.plan import plan_k2
     c = call
@@ -583,6 +602,11 @@ def kernel_plan(call: dict) -> dict:
         return dict(cores="tensor" if p.tc else "cuda", cluster=p.cluster,
                     keys=p.keys, slots=p.slots, blocks=p.blocks,
                     smem=p.smem_bytes)
+    if c["kernel"] == "flash_attention":
+        p = plan_flash(c["b"], c["hq"], c["hkv"], c["sq"], c["sk"], c["d"],
+                       c["causal"], c["q_offset"], c["sk_valid"])
+        return dict(rows=p.rows, ring=p.ring, key_split=p.kv_split,
+                    blocks=p.blocks, per_sm=p.per_sm, smem=p.smem_bytes)
     if c["kernel"] == "depthwise_conv2d":
         p = plan_k2(c["n"], c["h"], c["w"], c["c"], c["k"], c["k"],
                     c["stride"], c["pad"])
@@ -836,12 +860,18 @@ def lm_request_calls(size: int) -> list[tuple[dict, float]]:
 
 def lm_edge_calls() -> list[dict]:
     """K6 at one row, at an odd width and past a warp's reach; K7 flash at
-    Sq = 37, a chunk against a cache, a padding mask and D = 8; K7 decode
-    at a cache of 576, ragged ``kv_len`` and D = 8."""
+    Sq = 37 and 130 (no multiple of a block's rows), a chunk against a
+    cache, a padding mask, one query row, D = 8, 20 and 37 (not a multiple
+    of 8, nor of 4) and Granite's 48 heads on one kv head; K7 decode at a
+    cache of 576, ragged ``kv_len`` and D = 8."""
     return [_k6(1), _k6(16), _k6(16, 897), _k6(3, 12288),
-            _flash(1, 37, 37, 37), _flash(2, 128, 512, LM_MAX_LEN, 384),
+            _flash(1, 37, 37, 37), _flash(2, 130, 130, 130),
+            _flash(2, 128, 512, LM_MAX_LEN, 384),
             _flash(1, 64, 200, 200, sk_valid=150, causal=False),
-            _flash(2, 33, 33, 33, d=8),
+            _flash(2, 1, 100, 100, causal=False),
+            _flash(2, 33, 33, 33, d=8), _flash(1, 50, 70, 70, 20, d=20),
+            _flash(1, 45, 45, 45, d=37),
+            _flash(1, 40, 40, 40, d=128, hq=48, hkv=1),
             _decode(2, 576, LM_MAX_LEN),
             _decode(4, 576, LM_MAX_LEN, kv_len=[513, 1, 576, 300]),
             _decode(3, 100, 100, kv_len=[100, 37, 1], d=8)]
@@ -849,7 +879,8 @@ def lm_edge_calls() -> list[dict]:
 
 def lm_geometry_calls() -> list[dict]:
     """K7 decode at the head geometry of the other registered dense
-    configs, at the LM path's decode rows and a cache of 576."""
+    configs, at the LM path's decode rows and a cache of 576, and K7 flash
+    there at the LM path's prefill (batch 2, 512 tokens)."""
     from repro_torch.configs.registry import get_arch
     out = []
     for name in LM_GEOMETRY_ARCHS:
@@ -857,13 +888,17 @@ def lm_geometry_calls() -> list[dict]:
         out.append(_decode(LM_GEOMETRY_ROWS, LM_GEOMETRY_CACHE, LM_MAX_LEN,
                            d=cfg.d_head, hq=cfg.n_heads,
                            hkv=cfg.n_kv_heads))
+    for name in LM_GEOMETRY_ARCHS:
+        cfg = get_arch(name)
+        out.append(_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN,
+                          d=cfg.d_head, hq=cfg.n_heads, hkv=cfg.n_kv_heads))
     return out
 
 
 def lm_geometry_edge_calls() -> list[dict]:
-    """The same geometries with ragged ``kv_len``, 0 and 1 among them."""
+    """The decode geometries with ragged ``kv_len``, 0 and 1 among them."""
     return [dict(c, b=4, kv_len=[576, 0, 1, 300])
-            for c in lm_geometry_calls()]
+            for c in lm_geometry_calls() if c["kernel"] == "decode_attention"]
 
 
 def weighted_sums(rows: dict, calls: list[tuple[dict, float]]) -> dict:
@@ -1062,6 +1097,12 @@ def lm_path(rows: dict) -> dict:
           f"host dispatch; f32 bytes {model['bytes_ms']:.3f} ms, compute "
           f"{model['compute_ms']:.3f} ms) against {host_step:.3f} ms of "
           f"host enqueue and {dev_step:.3f} ms on the device, measured")
+    k6_after = sum(wgt * rows[json.dumps(c, sort_keys=True)]["after_ms"]
+                   for c, wgt in lm_request_calls(s["fused_sizes"][0])
+                   if c["kernel"] == "rmsnorm")
+    print(f"[lm] K6 a request after its producer (each call timed behind "
+          f"the residual add that writes its input, the add's own time "
+          f"taken off): {k6_after:.4f} ms")
     rates = card_rates()
     print(f"[lm] card rates: f32 matmul 1024x896x4864 "
           f"{rates['matmul_tflops']:.2f} TFLOP/s "
@@ -1080,6 +1121,7 @@ def lm_path(rows: dict) -> dict:
                 host_ms_per_step=host_step, stream_ms_per_step=stream_step,
                 device_ms_per_step=dev_step, device_ms_prefill=dev_prefill,
                 k6_ms_per_step=k6_step, k7_decode_ms_per_step=k7_step,
+                k6_after_producer_ms=k6_after,
                 card_vs_cpu_max_abs_err=err, rates=rates,
                 group_size_bf16=gs_bf16, step_model=model)
 
@@ -1175,8 +1217,10 @@ def main() -> int:
         rows[key] = check_and_time(c, gen, timing=True)
         r = rows[key]
         plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
+        after = ("" if "after_ms" not in r
+                 else f"  after its producer {r['after_ms']:.4f}")
         print(f"[kernels] {r['kernel']:<21} "
-              f"{_shape_str(c):<40} ms {r['ms']:.4f}  plain "
+              f"{_shape_str(c):<40} ms {r['ms']:.4f}{after}  plain "
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
               f"{r['max_abs_err']:.1e}{plan}")

@@ -1,6 +1,6 @@
-// K7: GQA attention with the online softmax, f32: the flash kernel and the
-// decode of GQA groups up to 8 on the CUDA cores, wider groups' decode on
-// the tensor cores in 3xTF32 (tc_common.cuh).
+// K7: GQA attention with the online softmax, f32: the flash kernel on the
+// tensor cores in 3xTF32, the decode of GQA groups up to 8 on the CUDA
+// cores and wider groups' decode on the tensor cores (tc_common.cuh).
 //
 // Replaces the TPU kernel src/repro/kernels/attention/kernel.py
 // `flash_attention` (body `_flash_kernel`) and its decode entry
@@ -24,16 +24,51 @@
 //
 // Flash (prefill), bound on an H100: 4*D FLOPs per visible (query, key)
 // pair against q, k, v and out read or written once: at Sq = Sk = 512,
-// D = 64, G = 7 about 60 FLOPs a byte, so operations bound at 67 TFLOP/s
-// f32.  Design: the TPU kernel walks a sequential k grid axis carrying
-// (m, l, acc) in VMEM scratch; blocks carry nothing here, so one block owns
-// a 64-row q tile of one (batch, q head) and loops over 64-key tiles itself,
-// (m, l, acc) in registers.  Q and the k tile sit transposed in shared
-// memory (float4 reads along the tile), v row-major, and p goes through
-// shared memory to the P.V product.  256 threads, each a 4x4 patch of the
-// 64x64 score tile and 4 rows x D/16 columns of acc; the row max and sum
-// are 16-lane shuffle reductions.  Key tiles past the tile's causal limit
-// are skipped.  Plain f32 FMAs; wgmma and TMA come later.
+// D = 64, G = 7 about 60 FLOPs a byte, so operations bound, at 165 TFLOP/s
+// for 3xTF32 on the tensor cores.  Through mma.sync a warp issues about
+// one m16n8k8 product in 16 cycles, and one in 26 with the splits beside
+// it (tools/mma_rate.py), so the kernel keeps many warps on each SM and as
+// few instructions as it can beside the products.  Design
+// (flash_attention_kernel below; plan.py's plan_flash picks the warps,
+// the ring and the key split per call):
+//   * The TPU kernel walks a sequential k grid axis carrying (m, l, acc) in
+//     VMEM scratch; blocks carry nothing here, so a block owns one q tile
+//     of one (batch, q head) and loops over the key tiles
+//     itself, FlashAttention-2 style: a warp owns 16 query rows and keeps
+//     its score tile S, its output O and its (m, l) in registers.
+//   * S = Q K^T and O += P V are m16n8k8 mma.sync products in 3xTF32 (each
+//     operand split into tf32 hi and lo, lo*hi + hi*lo + hi*hi), the unit
+//     and precision of K1, K3-K5 and the wide decode; the split is done in
+//     integer operations (tc::split_tf32_bits, the bits of cvt.rna), since
+//     the loops issue more splits than products.  The online softmax
+//     reduces a row's max over the 4 lanes of a fragment row with shuffles;
+//     each lane keeps a partial row sum, added across the 4 lanes once, at
+//     the end.  P never leaves registers: S's n-tile j holds keys 8j + 2t
+//     and 8j + 2t + 1 in lane (g, t), which are exactly the k = t and k =
+//     t + 4 entries of P V's A fragment when its B fragment reads V rows
+//     8j + 2t and 8j + 2t + 1; so the accumulator is the A operand, with no
+//     shared memory, shuffle or barrier between the two products.
+//   * K and V tiles (64 keys, 32 where D > 64) are staged by cp.async into
+//     a ring of 2-3 stages: the copy of the next tile overlaps the products
+//     on this one, one block barrier a tile.  Rows at or past min(Sk,
+//     sk_valid) are zero-filled; the cache is read in place through kv_cap.
+//     q, K and V sit in shared memory padded with zero columns to 32, 64
+//     or 128 (every loop over features has a fixed count and no branch),
+//     rows 4 floats apart beyond that, so every fragment load is free of
+//     bank conflicts.
+//   * Q sits in shared memory, each warp of the first group staging its own
+//     rows once, before the key loop.  A warp skips the key tiles its rows
+//     cannot see, and masks only the tiles that cross its causal edge or
+//     sk_valid.
+//   * Causal work is uneven (q tile i sees i + 1 key tiles).  The grid
+//     runs the (batch, head, q tile) items heaviest first, decoded from
+//     blockIdx.x alone; and where the heaviest tile's serial key tiles set
+//     the time (the Qwen2-0.5B prefill), two groups of warps in one block
+//     split a q tile's key tiles, each with a ring stage of its own and
+//     both reading the same q rows, and the second group's (m, l, O) is
+//     merged into the first's through shared memory at the end, in a fixed
+//     order.
+// Limits: D from 1 to 128.
 //
 // Decode (Sq = 1), bound on an H100: it reads every visible cache row once
 // for G query heads, 4*G*D FLOPs against 8*D bytes a row: bytes bound at
@@ -74,160 +109,340 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int FLASH_THREADS = 256;   // 16 x 16, a 4x4 score patch each
-constexpr int TS = BQ + 4;           // stride of the transposed q/k tiles
-constexpr int PS = BK + 1;           // stride of the p tile
-constexpr int MAX_D = 128;
-constexpr int DPT = MAX_D / 16;      // acc columns a flash thread at most
+constexpr int MAX_D = 128;           // the widest head, flash and decode
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+namespace fl {
+
+constexpr int MAX_WARPS = 8;
+constexpr int WROWS = 16;            // query rows a warp: one m16 tile
+
+// D padded with zero columns to the instance's width (32, 64 or 128), so
+// that every loop over features has a fixed count and no branch
+__host__ __device__ inline int d_pad(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
+__host__ __device__ inline int stride(int D) { return d_pad(D) + 4; }
+// keys a tile: 64, or 32 where D > 64 (the ring's stages stay at 34 KB)
+__host__ __device__ inline int bk(int D) { return D > 64 ? 32 : 64; }
+
+// Shared memory in floats (plan.py's flash_smem_floats): the q tile's
+// rows [16 warps][D' + 4] (a group's warps), then `ring` stages of kvs
+// tiles of K and V rows [2 bk][D' + 4], D' = d_pad(D).
+__host__ __device__ inline int smem_floats(int D, int warps, int ring,
+                                           int kvs) {
+  return (WROWS * warps + ring * kvs * 2 * bk(D)) * stride(D);
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// q tiles of a (batch, head)
+__host__ __device__ inline int q_tiles(int Sq, int warps) {
+  return repro_cdiv(Sq, WROWS * warps);
 }
 
-__global__ void __launch_bounds__(FLASH_THREADS)
+// The keys [0, n) that any row below r1 sees: keys below kv_end, and, if
+// causal, up to q_offset + row.
+__device__ __forceinline__ int row_keys(int r1, int Sq, int kv_end,
+                                        int causal, int q_offset) {
+  return causal ? min(kv_end, q_offset + min(r1, Sq)) : kv_end;
+}
+
+// O / l for the warp's rows r0 + g and r0 + g + 8 (those below Sq) at
+// columns below D; a row with l = 0 (no key seen) is written as 0.  l is
+// the lane's partial sum, added over the 4 lanes of the fragment row here.
+template <int ND>
+__device__ __forceinline__ void store_rows(float* __restrict__ ob,
+                                           const float (&o)[ND][4],
+                                           const float (&l)[2], int r0,
+                                           int Sq, int D) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float inv = s == 0.f ? 0.f : 1.f / s;
+    const int row = r0 + g + 8 * h;
+    if (row >= Sq) continue;
+    float* orow = ob + (size_t)row * D;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int c = 8 * nd + 2 * t4;
+      if (c < D) orow[c] = o[nd][2 * h] * inv;
+      if (c + 1 < D) orow[c + 1] = o[nd][2 * h + 1] * inv;
+    }
+  }
+}
+
+// 2^x (ex2.approx.ftz: about 2 ulp; a result below 2^-126 is 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One (batch, q head) q tile a block, blockIdx.x decoded as bh = x % (B
+// Hq) and q tile n - 1 - x / (B Hq): the grid runs the heaviest tiles
+// first.  DM: d_pad(D), the width q, K and V take in shared memory (zero
+// past D).  The block's warps form kvs groups of blockDim.x / 32 / kvs
+// warps, 16 query rows each; with kvs = 2 the groups take the first and
+// the second half of the q tile's key tiles at once, and the second
+// group's softmax state is merged into the first's through shared memory
+// at the end.
+// scale_log2: softmax scale times log2(e) (the exponentials are exp2).
+// vec: K and V rows may be staged in 16-byte copies.
+template <int DM>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int Hq, int Hkv, int Sq, int Sk, int D, int kv_cap,
-                       int causal, int q_offset, int sk_valid, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qt = smem;                 // [D][TS]: q tile, transposed
-  float* kt = qt + D * TS;          // [D][TS]: k tile, transposed
-  float* vs = kt + D * TS;          // [BK][D]
-  float* ps = vs + BK * D;          // [BQ][PS]
+                       int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                       int kv_cap, int causal, int q_offset, int sk_valid,
+                       float scale_log2, int ring, int kvs, int vec) {
+  constexpr int BK = DM > 64 ? 32 : 64;
+  constexpr int NJ = BK / 8;           // S's n-tiles: 8 keys each
+  constexpr int ND = DM / 8;           // S's k-steps, O's n-tiles
+  constexpr int S = DM + 4;            // row stride of q, K and V
+  constexpr int TF = 2 * BK * S;       // floats a K and V tile
+  extern __shared__ __align__(16) float smem[];
+  const int NW = (blockDim.x >> 5) / kvs;   // warps a group
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / NW, wg = warp - grp * NW;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* qs = smem + wg * WROWS * S;   // the warp's q rows [WROWS][S]
+  float* ring_base = smem + NW * WROWS * S;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;          // score columns tx*4 .. +4
-  const int ty = tid >> 4;          // score rows ty*4 .. +4
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / Hq;
-  const int h = bh % Hq;
+  const int BQ = WROWS * NW;
+  const int BH = B * Hq;
+  const int bh = blockIdx.x % BH;
+  const int qt = q_tiles(Sq, NW) - 1 - blockIdx.x / BH;
+  const int b = bh / Hq, h = bh - b * Hq;
   const int hk = h / (Hq / Hkv);
-  const float* qb = q + ((size_t)bh * Sq) * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  float* ob = out + (size_t)bh * Sq * D;
   const float* kb = k + ((size_t)b * Hkv + hk) * kv_cap * D;
   const float* vb = v + ((size_t)b * Hkv + hk) * kv_cap * D;
-
   const int kv_end = min(Sk, max(sk_valid, 0));
-  int n_keys = kv_end;
-  if (causal) n_keys = min(n_keys, max(q_offset + min(q0 + BQ, Sq), 0));
 
-  for (int i = tid; i < BQ * D; i += FLASH_THREADS) {
-    const int r = i / D, d = i - r * D;
-    qt[d * TS + r] = (q0 + r < Sq) ? qb[(size_t)(q0 + r) * D + d] : 0.f;
+  // the q tile's rows see key tiles [0, nt); a tile no key reaches is 0
+  const int nt = repro_cdiv(
+      row_keys((qt + 1) * BQ, Sq, kv_end, causal, q_offset), BK);
+  if (nt == 0) {
+    const int rows = min(BQ, Sq - qt * BQ);
+    for (int e = threadIdx.x; e < rows * D; e += blockDim.x)
+      ob[(size_t)qt * BQ * D + e] = 0.f;
+    return;
+  }
+  // group gg takes key tiles [gg * steps, (gg + 1) * steps), one a step
+  const int steps = kvs == 2 ? repro_cdiv(nt, 2) : nt;
+
+  // step s: each group's key tile, if it has one, into its ring stage
+  auto stage = [&](int s) {
+    constexpr int QUADS = DM / 4;
+    for (int gg = 0; gg < kvs; ++gg) {
+      const int kt = gg * steps + s;
+      if (kt >= nt) continue;
+      float* dst = ring_base + ((s % ring) * kvs + gg) * TF;
+      for (int idx = threadIdx.x; idx < 2 * BK * QUADS; idx += blockDim.x) {
+        const int r = idx / QUADS;
+        const int c4 = 4 * (idx - r * QUADS);
+        const int isv = r >= BK;
+        const int key = kt * BK + r - isv * BK;
+        const int valid = key < kv_end ? min(4, max(0, D - c4)) : 0;
+        tc::cp_quad(dst + r * S + c4, (isv ? vb : kb) + (size_t)key * D + c4,
+                    valid, vec != 0, kb);
+      }
+    }
+  };
+
+  for (int j = 0; j < ring - 1; ++j) {
+    if (j < steps) stage(j);
+    tc::cp_commit();
   }
 
-  float m[4], l[4], acc[4][DPT];
+  // the warp's rows, the keys they see, and its q rows in shared memory
+  // (staged by the first group; the loop's first barrier publishes them)
+  const int r0 = qt * BQ + WROWS * wg;
+  const int wkeys =
+      r0 >= Sq ? 0 : row_keys(r0 + WROWS, Sq, kv_end, causal, q_offset);
+  if (grp == 0) {
+    float qv[DM / 2];                  // a lane's loads all in flight
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+    for (int i = 0; i < DM / 2; ++i) {
+      const int r = (lane + 32 * i) / DM, c = (lane + 32 * i) % DM;
+      qv[i] = r0 + r < Sq && c < D ? qb[(size_t)(r0 + r) * D + c] : 0.f;
+    }
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < DM / 2; ++i)
+      qs[((lane + 32 * i) / DM) * S + (lane + 32 * i) % DM] = qv[i];
+    __syncwarp();
   }
 
-  for (int k0 = 0; k0 < n_keys; k0 += BK) {
-    __syncthreads();   // the previous tile's readers are done (and q is in)
-    for (int i = tid; i < BK * D; i += FLASH_THREADS) {
-      const int c = i / D, d = i - c * D;
-      const bool ok = k0 + c < kv_end;
-      kt[d * TS + c] = ok ? kb[(size_t)(k0 + c) * D + d] : 0.f;
-      vs[c * D + d] = ok ? vb[(size_t)(k0 + c) * D + d] : 0.f;
+  float o[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    tc::cp_wait_n(ring - 2);           // step s has landed
+    __syncthreads();                   // ... for all; step s - 1 is done
+    if (s + ring - 1 < steps) stage(s + ring - 1);
+    tc::cp_commit();
+    const int kt = grp * steps + s;
+    const int key0 = kt * BK;
+    if (kt >= nt || key0 >= wkeys) continue;   // no key of it is visible
+    const float* Ks = ring_base + ((s % ring) * kvs + grp) * TF;
+    const float* Vs = Ks + BK * S;
+
+    // S = Q K^T: A (16 x 8) from q, B(k = d, n = key) = K[key][d]
+    float sc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      const float* A = qs + 8 * kk;
+      uint32_t ah[4], al[4];
+      tc::split_tf32_bits(A[g * S + t4], ah[0], al[0]);
+      tc::split_tf32_bits(A[(g + 8) * S + t4], ah[1], al[1]);
+      tc::split_tf32_bits(A[g * S + t4 + 4], ah[2], al[2]);
+      tc::split_tf32_bits(A[(g + 8) * S + t4 + 4], ah[3], al[3]);
+      const float* Bk = Ks + g * S + 8 * kk + t4;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bh2[2], bl2[2];
+        tc::split_tf32_bits(Bk[8 * j * S], bh2[0], bl2[0]);
+        tc::split_tf32_bits(Bk[8 * j * S + 4], bh2[1], bl2[1]);
+        tc::mma_tf32(sc[j], al, bh2);
+        tc::mma_tf32(sc[j], ah, bl2);
+        tc::mma_tf32(sc[j], ah, bh2);
+      }
+    }
+
+    // the online softmax, in log2 units: lane (g, t) holds rows g (e < 2)
+    // and g + 8 (e >= 2) at keys key0 + 8j + 2t + (e & 1).  A tile that
+    // every row of the warp sees whole needs no mask; else selects, not
+    // branches: the key limit of row g + 8h is lim[h] past the lane's
+    // first key.
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (key0 + BK <= kv_end &&
+        (!causal || key0 + BK - 1 <= q_offset + r0)) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] *= scale_log2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+    } else {
+      int lim[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        lim[hh] = (causal ? min(kv_end, q_offset + r0 + g + 8 * hh + 1)
+                          : kv_end) - key0 - 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = 8 * j + (e & 1) < lim[e >> 1]
+                              ? sc[j][e] * scale_log2 : -INFINITY;
+          sc[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      // a row with no key yet keeps m = -inf, l = 0, p = 0 and alpha = 1
+      alpha[hh] = m_new == -INFINITY ? 1.f : fast_exp2(m[hh] - m_new);
+      mx[hh] = m_new;
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mr = mx[e >> 1];
+        const float p = mr == -INFINITY ? 0.f : fast_exp2(sc[j][e] - mr);
+        sc[j][e] = p;
+        rs[e >> 1] += p;
+      }
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragment is S's accumulator (see the header), B(k,
+    // n = d) = V[key][d] at keys 8j + 2t (k = t) and 8j + 2t + 1 (k = t + 4)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ph[4], pl[4];
+      tc::split_tf32_bits(sc[j][0], ph[0], pl[0]);
+      tc::split_tf32_bits(sc[j][2], ph[1], pl[1]);
+      tc::split_tf32_bits(sc[j][1], ph[2], pl[2]);
+      tc::split_tf32_bits(sc[j][3], ph[3], pl[3]);
+      const float* Bv = Vs + (8 * j + 2 * t4) * S + g;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t bh2[2], bl2[2];
+        tc::split_tf32_bits(Bv[8 * nd], bh2[0], bl2[0]);
+        tc::split_tf32_bits(Bv[S + 8 * nd], bh2[1], bl2[1]);
+        tc::mma_tf32(o[nd], pl, bh2);
+        tc::mma_tf32(o[nd], ph, bl2);
+        tc::mma_tf32(o[nd], ph, bh2);
+      }
+    }
+  }
+  tc::cp_wait<0>();
+  if (kvs == 2) {
+    // the second group's (m, l, O) per lane, then merged into the first's
+    float* mb = ring_base + (wg * 32 + lane) * (4 * ND + 4);
+    __syncthreads();                   // the ring is free
+    if (grp == 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mb[4 * nd + e] = o[nd][e];
+      mb[4 * ND] = m[0];
+      mb[4 * ND + 1] = m[1];
+      mb[4 * ND + 2] = l[0];
+      mb[4 * ND + 3] = l[1];
     }
     __syncthreads();
-
-    float s[4][4];
+    if (grp == 1) return;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int hh = 0; hh < 2; ++hh) {
+      const float mo = mb[4 * ND + hh];
+      const float mn = fmaxf(m[hh], mo);
+      const float fa = m[hh] == -INFINITY ? 0.f : fast_exp2(m[hh] - mn);
+      const float fb = mo == -INFINITY ? 0.f : fast_exp2(mo - mn);
+      l[hh] = l[hh] * fa + mb[4 * ND + 2 + hh] * fb;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * TS + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * TS + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
+      for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
-        const bool ok = kpos < kv_end && (!causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float alpha = 1.f, rs = 0.f;
-      if (m_new != -INFINITY) {
-        alpha = expf(m[i] - m_new);    // 0 when m[i] is -inf
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);
-          rs += s[i][j];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      }
-      rs = half_warp_sum(rs);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * PS + tx * 4 + j] = s[i][j];
-    }
-    __syncthreads();
-
-    const int kn = min(BK, kv_end - k0);
-    for (int c = 0; c < kn; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float vv = vs[c * D + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e)
+          o[nd][e] = o[nd][e] * fa + mb[4 * nd + e] * fb;
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= Sq) continue;
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) out[((size_t)bh * Sq + r) * D + d] = acc[i][j] * inv;
-    }
-  }
+  store_rows(ob, o, l, r0, Sq, D);
 }
+
+using Kernel = decltype(&flash_attention_kernel<64>);
+
+Kernel pick(int D) {
+  return D <= 32 ? flash_attention_kernel<32>
+         : D <= 64 ? flash_attention_kernel<64>
+                   : flash_attention_kernel<128>;
+}
+
+}  // namespace fl
 
 // ------------------------------------------------------------------ decode
 namespace dec {
@@ -757,24 +972,34 @@ Kernel pick(bool tc, int G, int D) {
 }  // namespace dec
 }  // namespace
 
+// warps (4 or 8 a group), ring (2 or 3), kvs (1 or 2 groups splitting
+// the keys; 8 warps at most) and smem come from plan_flash;
+// smem must equal fl::smem_floats's bytes.  vec: k and v are 16-byte
+// aligned (their rows too where D % 4 == 0).
 extern "C" int repro_flash_attention(const float* q, const float* k,
                                      const float* v, float* out, int B,
                                      int Hq, int Hkv, int Sq, int Sk, int D,
                                      int kv_cap, int causal, int q_offset,
-                                     int sk_valid, float scale,
+                                     int sk_valid, float scale, int warps,
+                                     int ring, int kvs, int smem, int vec,
                                      void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk < 0 ||
-      D <= 0 || D > MAX_D || kv_cap < Sk || q_offset < 0)
+      D <= 0 || D > MAX_D || kv_cap < Sk || q_offset < 0 ||
+      (warps != 4 && warps != 8) || ring < 2 || ring > 3 ||
+      kvs < 1 || kvs > 2 || warps * kvs > fl::MAX_WARPS ||
+      smem != 4 * fl::smem_floats(D, warps, ring, kvs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)(2 * D * TS + BK * D + BQ * PS) * sizeof(float);
-  cudaError_t err = repro_smem_opt_in(flash_attention_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(repro_cdiv(Sq, BQ), B * Hq);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  flash_attention_kernel<<<grid, FLASH_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, Hq, Hkv, Sq, Sk, D, kv_cap, causal, q_offset, sk_valid,
-      scale);
+  const long long blocks = (long long)B * Hq * fl::q_tiles(Sq, warps);
+  if (blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const fl::Kernel kernel = fl::pick(D);
+  const int rc = tc::opt_in(kernel, (size_t)smem, false);
+  if (rc != 0) return rc;
+  kernel<<<(unsigned)blocks, 32 * warps * kvs, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, B, Hq, Hkv, Sq, Sk, D, kv_cap, causal, q_offset,
+      sk_valid, scale * 1.4426950408889634f, ring, kvs,
+      vec != 0 && D % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,26 +6,43 @@
 //
 // Bound on an H100: about 4 FLOPs per element against 8 bytes (one read,
 // one write), so bytes bound by far: the least time is the input read once
-// plus the output written once (plus w) over 3.35 TB/s.
-//
-// Design: a row is what a TPU grid step holds; here a warp owns a row, so
-// the sum of squares is a warp-shuffle reduction with no shared memory and
-// no block barrier.  For d <= 1024 and d % 4 == 0 (the LM path's d = 896)
-// each lane reads its share of the row once with float4 loads into
-// registers (at most 8 float4 a lane), reduces, then scales and writes from
-// the registers: x leaves device memory once.  Any other d (odd, or wider)
-// takes the general kernel: one 256-thread block per row, a shared-memory
-// reduction, and a second pass that reads x again from L2.  Four rows per
-// block keep a one-row call to one block.  The sum runs in a fixed order
-// per lane and per shuffle tree, so the result does not depend on the
-// stream or the launch.
-#include "common.cuh"
+// plus the output written once (plus w) over 3.35 TB/s.  On the LM path a
+// call moves 57 KB (16 decode rows) to 7.3 MB (1024 prefill rows), so it
+// takes a few microseconds at most, and its launch and its memory round
+// trips, not its bytes, set its time.  The design is shaped for that:
+//   * A warp owns a row, so the sum of squares is a warp-shuffle reduction
+//     with no shared memory and no block barrier.  For d <= 1024 and
+//     d % 4 == 0 (the LM path's d = 896) each lane reads its share of the
+//     row once with float4 loads into registers (at most 8 float4 a lane),
+//     reduces, then scales and writes from the registers: x leaves device
+//     memory once.
+//   * w is read into registers first, beside x, so a call waits on one
+//     memory round trip, not on x's and then w's.
+//   * The launch is programmatic dependent (tc::launch_pdl): the kernel may
+//     begin while the kernel before it in the stream drains.  It loads w
+//     (weights, which no kernel on the path writes) and sets up, runs
+//     griddepcontrol.wait before its first read of x, and runs
+//     griddepcontrol.launch_dependents once x is in registers.  A kernel
+//     after it that reads its output either is launched the plain way (the
+//     stream orders it) or runs griddepcontrol.wait itself (K1).
+//   * A call of up to 132 rows (a decode step's 16) takes a block a row, so
+//     its rows spread over as many SMs; a longer one (a prefill's 1024)
+//     takes 4 rows a block.
+//   * Any other d (odd, or wider) takes the general kernel: one 256-thread
+//     block a row, a shared-memory reduction; each thread keeps up to 8 of
+//     its elements of x and w in registers (d <= 2048) and reads the rest
+//     again, from L2, for the scale.
+// The sum runs in a fixed order per lane and per shuffle tree, so the
+// result does not depend on the stream or the launch.
+#include "tc_common.cuh"
 
 namespace {
 
-constexpr int ROWS_PER_BLOCK = 4;   // one warp each
 constexpr int MAX_VEC = 8;          // float4 a lane: d <= 32 * 4 * 8
+constexpr int WIDE_ROWS = 4;        // rows (warps) a block past SPREAD rows
+constexpr int SPREAD = 132;         // up to this many rows: a row a block
 constexpr int GEN_THREADS = 256;
+constexpr int GEN_REG = 8;          // elements a thread keeps: d <= 2048
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -33,23 +50,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
+// the kernel before this one in the stream has finished and its writes
+// are visible (a no-op for a launch without the programmatic attribute)
+__device__ __forceinline__ void wait_for_producer() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// the next kernel in the stream may begin its launch
+__device__ __forceinline__ void release_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(32 * WIDE_ROWS)
 rmsnorm_vec_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    float* __restrict__ out, int rows, int d, float eps) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= rows) return;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int nv = d >> 2;   // float4 per row
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * d);
   const float4* wr = reinterpret_cast<const float4*>(w);
+  float4 g[MAX_VEC];
+#pragma unroll
+  for (int i = 0; i < MAX_VEC; ++i) {
+    const int j = lane + 32 * i;
+    if (j < nv) g[i] = wr[j];
+  }
+  wait_for_producer();
+  if (row >= rows) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * d);
   float4* orow = reinterpret_cast<float4*>(out + (size_t)row * d);
   float4 v[MAX_VEC];
+#pragma unroll
+  for (int i = 0; i < MAX_VEC; ++i) {
+    const int j = lane + 32 * i;
+    if (j < nv) v[i] = xr[j];
+  }
+  release_dependents();
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < MAX_VEC; ++i) {
     const int j = lane + 32 * i;
     if (j < nv) {
-      v[i] = xr[j];
       ss = fmaf(v[i].x, v[i].x, ss);
       ss = fmaf(v[i].y, v[i].y, ss);
       ss = fmaf(v[i].z, v[i].z, ss);
@@ -61,11 +101,9 @@ rmsnorm_vec_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < MAX_VEC; ++i) {
     const int j = lane + 32 * i;
-    if (j < nv) {
-      const float4 g = wr[j];
-      orow[j] = make_float4(v[i].x * r * g.x, v[i].y * r * g.y,
-                            v[i].z * r * g.z, v[i].w * r * g.w);
-    }
+    if (j < nv)
+      orow[j] = make_float4(v[i].x * r * g[i].x, v[i].y * r * g[i].y,
+                            v[i].z * r * g[i].z, v[i].w * r * g[i].w);
   }
 }
 
@@ -76,9 +114,24 @@ rmsnorm_general_kernel(const float* __restrict__ x,
   __shared__ float part[GEN_THREADS / 32];
   const size_t row = blockIdx.x;
   const float* xr = x + row * d;
+  float xv[GEN_REG], wv[GEN_REG];
+#pragma unroll
+  for (int i = 0; i < GEN_REG; ++i) {
+    const int j = threadIdx.x + GEN_THREADS * i;
+    wv[i] = j < d ? w[j] : 0.f;
+  }
+  wait_for_producer();
   float ss = 0.f;
-  for (int j = threadIdx.x; j < d; j += GEN_THREADS)
+#pragma unroll
+  for (int i = 0; i < GEN_REG; ++i) {
+    const int j = threadIdx.x + GEN_THREADS * i;
+    xv[i] = j < d ? xr[j] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < GEN_REG; ++i) ss = fmaf(xv[i], xv[i], ss);
+  for (int j = threadIdx.x + GEN_THREADS * GEN_REG; j < d; j += GEN_THREADS)
     ss = fmaf(xr[j], xr[j], ss);
+  release_dependents();
   ss = warp_sum(ss);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
   __syncthreads();
@@ -86,7 +139,12 @@ rmsnorm_general_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < GEN_THREADS / 32; ++i) tot += part[i];
   const float r = rsqrtf(tot / (float)d + eps);
-  for (int j = threadIdx.x; j < d; j += GEN_THREADS)
+#pragma unroll
+  for (int i = 0; i < GEN_REG; ++i) {
+    const int j = threadIdx.x + GEN_THREADS * i;
+    if (j < d) out[row * d + j] = xv[i] * r * wv[i];
+  }
+  for (int j = threadIdx.x + GEN_THREADS * GEN_REG; j < d; j += GEN_THREADS)
     out[row * d + j] = xr[j] * r * w[j];
 }
 
@@ -95,16 +153,14 @@ rmsnorm_general_kernel(const float* __restrict__ x,
 extern "C" int repro_rmsnorm(const float* x, const float* w, float* out,
                              int rows, int d, float eps, void* stream) {
   if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned =
       ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w) |
         reinterpret_cast<size_t>(out)) & 15) == 0;
   if (d % 4 == 0 && d <= 32 * 4 * MAX_VEC && aligned) {
-    const int blocks = repro_cdiv(rows, ROWS_PER_BLOCK);
-    rmsnorm_vec_kernel<<<blocks, 32 * ROWS_PER_BLOCK, 0, s>>>(x, w, out,
-                                                              rows, d, eps);
-  } else {
-    rmsnorm_general_kernel<<<rows, GEN_THREADS, 0, s>>>(x, w, out, d, eps);
+    const int per = rows <= SPREAD ? 1 : WIDE_ROWS;
+    return tc::launch_pdl(rmsnorm_vec_kernel, repro_cdiv(rows, per),
+                          32 * per, 0, stream, x, w, out, rows, d, eps);
   }
-  return static_cast<int>(cudaGetLastError());
+  return tc::launch_pdl(rmsnorm_general_kernel, rows, GEN_THREADS, 0, stream,
+                        x, w, out, d, eps);
 }

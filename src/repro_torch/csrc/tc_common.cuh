@@ -1,11 +1,12 @@
 // Shared pieces of the tensor-core kernels K1 (matmul_bias_act.cu), K3
 // (conv2d_implicit_gemm.cu), K4 (fused_dw_pw_conv.cu), K5
-// (fused_pw_dw_pw_conv.cu) and K7's decode (flash_attention.cu), and of
-// K2's staging (depthwise_conv2d.cu): cp.async staging with zero fill,
-// products on the tensor cores in 3xTF32, the contiguous split of a
-// reduction between the ranks of a thread-block cluster, the cluster's
-// rank-order sum of partial tiles over distributed shared memory, the
-// clustered launch, and the split-K GEMM tile that K1 and K3 share.
+// (fused_pw_dw_pw_conv.cu) and K7 (flash_attention.cu), of K2's staging
+// (depthwise_conv2d.cu) and of K6's launch (rmsnorm.cu): cp.async staging
+// with zero fill, products on the tensor cores in 3xTF32, the contiguous
+// split of a reduction between the ranks of a thread-block cluster, the
+// cluster's rank-order sum of partial tiles over distributed shared
+// memory, the clustered and the programmatic dependent launches, and the
+// split-K GEMM tile that K1 and K3 share.
 //
 // 3xTF32: each f32 operand v is split into hi = tf32(v) and
 // lo = tf32(v - hi), and a product is lo*hi + hi*lo + hi*hi, each an
@@ -112,6 +113,18 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = to_tf32(v);
   lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// split_tf32 in integer operations: hi and lo get the bits cvt.rna gives
+// (round to nearest, ties away from zero: half an ulp of tf32 added to
+// the magnitude's bits, then the 13 low bits cleared) for every input but
+// a NaN, in five instructions, where ptxas expands each cvt.rna.tf32.f32
+// into a dozen (sm_90a has no instruction for it).  The flash kernel,
+// whose inner loops split every operand, is bound by that issue.
+__device__ __forceinline__ void split_tf32_bits(float v, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -383,6 +396,28 @@ static int launch_clustered_n(Kernel kernel, int threads, int cl, int tiles,
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 2 : 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch `kernel` on a plain grid of `blocks` blocks of `threads` threads
+// as a programmatic dependent launch (see launch_clustered_n): the kernel
+// must run griddepcontrol.wait before it reads what the kernel before it
+// in the stream wrote.
+template <typename Kernel, typename... Args>
+static int launch_pdl(Kernel kernel, int blocks, int threads, size_t smem,
+                      void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -7,6 +7,12 @@ the reference leaves to jnp); the source says what bounds each on an H100
 and how the key loop inside a block stands in for the TPU's sequential k
 grid axis.
 
+Flash is one launch a call: a warp a 16-row slice of a q tile, both
+products on the tensor cores in 3xTF32 with S, O and the softmax in
+registers, K and V tiles staged by a cp.async ring; ``plan.py``'s
+``plan_flash`` chooses the rows a block, the ring's depth and whether two
+warp groups split a q tile's keys, from the shape.  Its limit: D from 1 to 128.
+
 Decode is one launch a call: a thread-block cluster of up to 16 blocks a
 (batch row, kv head) splits the keys in 32-key tiles staged by cp.async,
 and the ranks merge their softmaxes in rank order through distributed
@@ -29,12 +35,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.attention.plan import plan_decode
+from repro_torch.kernels.attention.plan import plan_decode, plan_flash
 from repro_torch.kernels.attention.ref import (decode_attention_ref,
                                                flash_attention_ref)
 from repro_torch.kernels.util import check_cuda_operands, launch
-
-MAX_D = 128           # the kernels' widest head
 
 
 def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -84,13 +88,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    sk_valid=sk_valid)
     check_cuda_operands("flash_attention", q.device, q=q)
-    if d > MAX_D:
-        raise ValueError(f"flash_attention: D {d} > {MAX_D}")
+    plan = plan_flash(b, hq, hkv, sq, sk, d, bool(causal), int(q_offset),
+                      None if sk_valid is None else int(sk_valid))
     kv_cap = _kv_capacity("flash_attention", q, k, v)
     out = torch.empty_like(q)
+    vec = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     launch("repro_flash_attention", q.device, q, k, v, out, b, hq, hkv, sq,
            sk, d, kv_cap, int(causal), int(q_offset),
-           sk if sk_valid is None else int(sk_valid), 1.0 / math.sqrt(d))
+           sk if sk_valid is None else int(sk_valid), 1.0 / math.sqrt(d),
+           plan.warps, plan.ring, plan.kv_split, plan.smem_bytes, vec)
     flash_attention.launches += 1
     return out
 

@@ -1,4 +1,5 @@
-"""Host-side plan of K7's decode kernel (``decode_attention``) on an H100.
+"""Host-side plans of K7's kernels (``flash_attention``,
+``decode_attention``) on an H100.
 
 ``plan_decode`` chooses, from a call's shape alone, how
 ``csrc/flash_attention.cu``'s decode kernel covers q (B, Hq, 1, D) against
@@ -24,10 +25,34 @@ merge.  A sweep of every cluster size at the paths' shapes on an H100
 (``tools/plan_sweep.py --sweep --kernel decode_attention``) ranks the
 plans this way.  A shape's plan is memoised, since the LM path asks for
 it every layer.
+
+``plan_flash`` chooses, for the flash kernel, the query rows a block takes
+(``warps`` of 16 rows: 64 or 128), the depth of its cp.async ring of
+K / V stages (2 or 3), and whether two groups of warps split a q tile's
+key tiles between them (``kv_split``: twice the warps on the tile, half
+the serial key tiles, and a merge of the two softmax states at the end).
+Under a causal mask q tile i sees i + 1 key tiles, so the (batch, head, q
+tile) items differ in cost by up to the q tiles' count; the grid runs
+them heaviest first (block x takes q tile n - 1 - x // (B Hq) of (batch,
+head) x % (B Hq)).  A block that took tiles i and n - 1 - i in turn, so
+that every block's work is about the same, was slower than that order at
+every shape swept (the Qwen2-0.5B prefill and the other dense configs'
+geometry) and is not offered.  The choice is the least modelled
+makespan: blocks are placed in launch order on the earliest free of
+``blocks_per_sm`` slots on each of 132 SMs, a block lasting its serial
+key tiles plus one (its q rows and its stores; plus ``MERGE_COST`` for a
+key split) over the speed of a warp when the wave's blocks share its SM
+(``SM_RATE``, measured); ties go to fewer warps, no split, then the
+deeper ring.  A sweep of every plan on an H100
+(``tools/plan_sweep.py --sweep --kernel flash_attention``) ranks the
+plans this way at the LM paths' shapes.  One block serves one query head:
+the heads of a GQA group each stage the group's K / V tiles themselves
+(from L2), which keeps the kernel's work items small enough to balance.
 """
 from __future__ import annotations
 
 import functools
+import heapq
 from dataclasses import dataclass
 
 SMS = 132                   # streaming multiprocessors of an H100 SXM
@@ -156,3 +181,172 @@ def plan_decode(b: int, hq: int, hkv: int, sk: int, d: int) -> DecodePlan:
     """The decode kernel's plan for q (b, hq, 1, d) against (b, hkv, sk,
     d)."""
     return min(candidates(b, hq, hkv, sk, d), key=lambda kp: kp[0])[1]
+
+
+# --------------------------------------------------------------------------
+# the flash kernel
+# --------------------------------------------------------------------------
+FLASH_WARPS = (4, 8)        # 64 or 128 query rows a block
+WARP_ROWS = 16              # query rows a flash warp: one m16 tile
+FLASH_RINGS = (2, 3)        # K / V stages in the cp.async ring
+FLASH_MAX_WARPS = 8         # 256 threads a block
+MERGE_COST = 0.5            # the key split's merge, in key tiles
+# TF32 products an SM completes with the 3xTF32 splits beside them, by
+# warps resident on it: 72, 126 and 180 TFLOP/s over the card at 4, 8 and
+# 16 warps (tools/mma_rate.py, "mma+split", on an H100 at 700 W).  A warp
+# alone on its quarter of the SM waits on its own latencies.
+SM_RATE = ((4, 72.0), (8, 126.0), (16, 180.0))
+MAX_GRID = 2 ** 31 - 1
+# registers a thread at most (__launch_bounds__ of 256 threads, no floor
+# on the blocks an SM holds)
+FLASH_REGS = 255
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """One flash call's plan: ``blocks`` blocks of ``kv_split`` groups of
+    ``warps`` warps (16 query rows each: ``rows`` a block), a ring of
+    ``ring`` stages of K / V tiles of ``bk`` keys (one a group), q tiles
+    heaviest first; ``per_sm`` blocks fit an SM; ``makespan`` is the
+    model's, in key tiles over a warp's speed."""
+    warps: int
+    ring: int
+    kv_split: int
+    bk: int
+    q_tiles: int
+    blocks: int
+    per_sm: int
+    smem_bytes: int
+    makespan: float
+
+    @property
+    def rows(self) -> int:
+        return WARP_ROWS * self.warps
+
+
+def flash_bk(d: int) -> int:
+    """Keys a K / V tile: 64, or 32 where D > 64."""
+    return 32 if d > 64 else 64
+
+
+def flash_d_pad(d: int) -> int:
+    """The width q, K and V take in shared memory: D padded with zero
+    columns to 32, 64 or 128 (``fl::d_pad``)."""
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def flash_smem_floats(d: int, warps: int, ring: int, kv_split: int = 1
+                      ) -> int:
+    """Shared memory of the flash kernel in floats (``fl::smem_floats``):
+    the q tile's rows [16 warps][D' + 4] and ``ring`` stages of
+    ``kv_split`` tiles of K and V rows [2 bk][D' + 4], D' =
+    ``flash_d_pad(d)``."""
+    return ((WARP_ROWS * warps + ring * kv_split * 2 * flash_bk(d))
+            * (flash_d_pad(d) + 4))
+
+
+def flash_tile_keys(qt: int, rows: int, sq: int, sk: int, causal: bool,
+                    q_offset: int, sk_valid: int | None) -> int:
+    """The keys [0, n) any row of q tile ``qt`` sees (``fl::row_keys``)."""
+    kv_end = sk if sk_valid is None else max(0, min(sk, sk_valid))
+    if not causal:
+        return kv_end
+    return min(kv_end, q_offset + min((qt + 1) * rows, sq))
+
+
+def flash_items(plan: FlashPlan, b: int, hq: int
+                ) -> list[tuple[int, int, int]]:
+    """Each block's (batch, head, q tile), blocks in launch order: the
+    kernel's decoding of ``blockIdx.x``."""
+    bh_n = b * hq
+    return [((x % bh_n) // hq, x % hq, plan.q_tiles - 1 - x // bh_n)
+            for x in range(plan.blocks)]
+
+
+def flash_blocks_per_sm(warps: int, smem: int) -> int:
+    """Blocks of the flash kernel an SM holds: shared memory, threads and
+    registers (at the launch bounds' cap)."""
+    return min(SM_SMEM // (smem + 1024), 2048 // (32 * warps),
+               65536 // (32 * warps * (FLASH_REGS + 1)))
+
+
+def _warp_speed(n: int) -> float:
+    """A warp's share of ``SM_RATE`` when ``n`` warps share its SM."""
+    pts = SM_RATE
+    if n <= pts[0][0]:
+        return pts[0][1] / pts[0][0]
+    for (n0, r0), (n1, r1) in zip(pts, pts[1:]):
+        if n <= n1:
+            return (r0 + (r1 - r0) * (n - n0) / (n1 - n0)) / n
+    return pts[-1][1] / n
+
+
+def _makespan(costs: list[int], per_sm: int, warps: int) -> float:
+    """Blocks of ``costs`` (key tiles + 1 each) placed in launch order on
+    the earliest free of SMS * per_sm slots; each lasts its cost over a
+    warp's speed when the blocks of a full wave share the SM."""
+    live = min(per_sm, _cdiv(len(costs), SMS))
+    speed = _warp_speed(live * warps)
+    free = [0.0] * (SMS * per_sm)
+    end = 0.0
+    for c in costs:
+        t = heapq.heappop(free) + c / speed
+        end = max(end, t)
+        heapq.heappush(free, t)
+    return end
+
+
+def _flash_check(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+                 q_offset: int) -> None:
+    if b < 1 or hkv < 1 or hq % hkv or sq < 1 or sk < 0 or q_offset < 0:
+        raise ValueError(f"flash: shape B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                         f"Sk={sk} q_offset={q_offset}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"flash: D={d} is past the kernel: D from 1 to "
+                         f"{MAX_D}")
+
+
+def flash_candidates(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+                     causal: bool, q_offset: int, sk_valid: int | None
+                     ) -> list[tuple[tuple, FlashPlan]]:
+    """Every (warps, key split, ring) that fits, each with its sort key (the
+    plan is the least key)."""
+    _flash_check(b, hq, hkv, sq, sk, d, q_offset)
+    bk = flash_bk(d)
+    out = []
+    for warps, kvs in [(w, k) for w in FLASH_WARPS for k in (1, 2)
+                       if w * k <= FLASH_MAX_WARPS]:
+        rows = WARP_ROWS * warps
+        n = _cdiv(sq, rows)
+        tiles = [_cdiv(flash_tile_keys(t, rows, sq, sk, causal, q_offset,
+                                       sk_valid), bk) for t in range(n)]
+        for ring in FLASH_RINGS:
+            smem = 4 * flash_smem_floats(d, warps, ring, kvs)
+            per_sm = flash_blocks_per_sm(warps * kvs, smem)
+            if smem > MAX_SMEM or per_sm < 1:
+                continue
+            blocks = b * hq * n
+            if blocks > MAX_GRID:
+                continue
+            cost = [_cdiv(tiles[t], kvs) + 1 + (MERGE_COST if kvs == 2
+                                                else 0)
+                    for t in reversed(range(n))]
+            per_block = [c for c in cost for _ in range(b * hq)]
+            span = _makespan(per_block, per_sm, warps * kvs)
+            plan = FlashPlan(warps=warps, ring=ring, kv_split=kvs, bk=bk,
+                             q_tiles=n, blocks=blocks, per_sm=per_sm,
+                             smem_bytes=smem, makespan=span)
+            out.append(((span, warps * kvs, kvs, -ring), plan))
+    if not out:
+        raise ValueError(f"flash: no plan fits D={d}")
+    return out
+
+
+@functools.cache
+def plan_flash(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+               causal: bool = True, q_offset: int = 0,
+               sk_valid: int | None = None) -> FlashPlan:
+    """The flash kernel's plan for q (b, hq, sq, d) against (b, hkv, sk,
+    d)."""
+    return min(flash_candidates(b, hq, hkv, sq, sk, d, causal, q_offset,
+                                sk_valid), key=lambda kp: kp[0])[1]

@@ -2,8 +2,12 @@
 
 Wrapper of the hand-written CUDA kernel ``csrc/rmsnorm.cu``, which replaces
 the TPU kernel ``repro/kernels/rmsnorm/kernel.py::rmsnorm``; the source says
-what bounds it on an H100 (bytes) and how a warp per row keeps the row in
-registers between the reduction and the scale.
+what bounds it on an H100 (bytes, though at the LM path's sizes its launch
+and memory latency set its time) and how a warp per row keeps the row in
+registers between the reduction and the scale.  The launch is
+programmatic dependent: the kernel reads ``w`` before it waits for the
+kernel ahead of it in the stream, so ``w`` must not be written by that
+kernel (on the LM path it is a weight); ``x`` is read after the wait.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``rmsnorm.launches`` counts

@@ -200,7 +200,7 @@ SIGNATURES = {
     "repro_fused_dw_pw_conv": "p" * 7 + "i" * 19 + "s",
     "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 23 + "s",
     "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",
-    "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "s",
+    "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "i" * 5 + "s",
     "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,

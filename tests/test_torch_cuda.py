@@ -386,6 +386,113 @@ def test_k7_flash_matches_plain_on_card(b, hq, hkv, sq, sk, d, causal,
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
 
 
+# K7 flash at the planner's edges: (b, hq, hkv, sq, sk, d, causal,
+# q_offset, sk_valid, cap)
+FLASH_EDGES = {
+    "sq130": (2, 14, 2, 130, 130, 64, True, 0, None, 130),
+    "sq200-of-128": (1, 14, 2, 200, 200, 64, True, 0, None, 200),
+    "chunk": (2, 14, 2, 20, 50, 64, True, 30, None, 80),
+    "sk_valid": (1, 6, 3, 40, 100, 64, False, 0, 71, 100),
+    "causal-sk_valid": (1, 14, 2, 96, 96, 64, True, 0, 70, 120),
+    "d8": (2, 4, 2, 33, 33, 8, True, 0, None, 33),
+    "d37": (1, 4, 1, 45, 60, 37, True, 15, None, 64),
+    "g48-d128": (2, 48, 1, 70, 70, 128, True, 0, None, 90),
+    "g12-d128": (2, 24, 2, 70, 100, 128, True, 30, None, 100),
+    "sq1-noncausal": (2, 14, 2, 1, 100, 64, False, 0, None, 120),
+    "no-key": (1, 4, 2, 30, 40, 64, False, 0, 0, 40),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_EDGES))
+def test_k7_flash_every_plan_at_the_edges_on_card(case, card, monkeypatch):
+    """K7 flash under every plan ``plan_flash`` weighs (64 or 128 rows a
+    block, a ring of 2 or 3, one or two groups splitting the keys) at rows
+    that are no
+    multiple of a block's, a chunk against a cache, ``sk_valid`` (0 too),
+    D = 8, 37 and 128 with G = 48 and 12, and one query row: one launch a
+    call, within 1e-4 of the plain version; the planner's pick gives the
+    same bits on two other streams."""
+    import repro_torch.kernels.attention.kernel as k7mod
+    from repro_torch.kernels.attention.plan import flash_candidates, \
+        plan_flash
+    b, hq, hkv, sq, sk, d, causal, off, valid, cap = FLASH_EDGES[case]
+    q, k, v = _arrays(17, (b, hq, sq, d), (b, hkv, cap, d), (b, hkv, cap, d),
+                      scale=0.5)
+    kw = dict(causal=causal, q_offset=off, sk_valid=valid)
+    want = flash_attention(q, k[:, :, :sk], v[:, :, :sk], **kw).numpy()
+    qc, kc, vc = q.to(card), k.to(card)[:, :, :sk], v.to(card)[:, :, :sk]
+    for _key, plan in flash_candidates(b, hq, hkv, sq, sk, d, causal, off,
+                                       valid):
+        monkeypatch.setattr(k7mod, "plan_flash", lambda *a, p=plan: p)
+        before = flash_attention.launches
+        got = flash_attention(qc, kc, vc, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        np.testing.assert_allclose(got.cpu().numpy(), want, **TOL,
+                                   err_msg=str(plan))
+    monkeypatch.setattr(k7mod, "plan_flash", plan_flash)
+    case_fn = dict(kernel=lambda: flash_attention(qc, kc, vc, **kw))
+    first, outs = _on_two_streams(case_fn)
+    assert all(torch.equal(first, o) for o in outs)
+    if valid == 0:
+        assert not first.any()                  # no key: written as 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("producer", ["add", "K1", "K7"])
+def test_k6_waits_for_its_producer_on_card(producer, card):
+    """K6 launches as a programmatic dependent and reads ``w`` before it
+    waits: its input x, written by the kernel just before it in the stream
+    (a torch add, K1 with its own programmatic launch, or K7 flash), is
+    read only once that kernel is done.  Forty calls in a row, each on a
+    freshly written x, each equal to the plain version."""
+    gen = np.random.default_rng(18)
+    if producer == "K7":
+        ins = [tuple(t.to(card) for t in _arrays(
+            int(gen.integers(1 << 30)), (1, 14, 64, 64), (1, 2, 64, 64),
+            (1, 2, 64, 64))) for _ in range(40)]
+        make = lambda a: flash_attention(*a)  # noqa: E731
+        d = 64
+    elif producer == "K1":
+        wt = torch.from_numpy(gen.standard_normal((128, 896)).astype(
+            np.float32) * 0.1).to(card)
+        ins = [torch.from_numpy(gen.standard_normal((16, 128)).astype(
+            np.float32)).to(card) for _ in range(40)]
+        make = lambda a: matmul_bias_act(a, wt)  # noqa: E731
+        d = 896
+    else:
+        h = torch.from_numpy(gen.standard_normal((16, 896)).astype(
+            np.float32)).to(card)
+        ins = [torch.from_numpy(gen.standard_normal((16, 896)).astype(
+            np.float32)).to(card) for _ in range(40)]
+        make = lambda a: a + h  # noqa: E731
+        d = 896
+    w = torch.from_numpy(gen.standard_normal(d).astype(np.float32)).to(card)
+    torch.cuda.synchronize()
+    xs, outs = [], []
+    for a in ins:
+        xs.append(make(a))
+        outs.append(rmsnorm(xs[-1], w))
+    torch.cuda.synchronize()
+    for x, o in zip(xs, outs):
+        np.testing.assert_allclose(o.cpu().numpy(),
+                                   rmsnorm(x.cpu(), w.cpu()).numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(16, 896), (1024, 896), (7, 2500)])
+def test_k6_same_bits_on_two_streams_on_card(rows, d, card):
+    """K6 a row a block (16 rows), four rows a block (1024), and the general
+    kernel past the registers it keeps (d 2500): the same bits on two other
+    streams."""
+    x, w = (t.to(card) for t in _arrays(19, (rows, d), (d,)))
+    first, outs = _on_two_streams(dict(kernel=lambda: rmsnorm(x, w)))
+    np.testing.assert_allclose(first.cpu().numpy(),
+                               rmsnorm(x.cpu(), w.cpu()).numpy(), **TOL)
+    assert all(torch.equal(first, o) for o in outs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,ragged", [(64, False), (64, True), (8, True)])
 def test_k7_decode_matches_plain_on_card(d, ragged, card):

@@ -6,6 +6,7 @@ both sides are float32 and only the order of the sums differs.  On a CPU
 tensor every wrapper runs its plain version and counts no launch; the CUDA
 kernels are held against the plain versions in ``test_torch_cuda.py``.
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -20,6 +21,8 @@ from repro.kernels.conv_gemm.kernel import (
     matmul_bias_act as ref_matmul)
 from repro.kernels.attention.kernel import \
     decode_attention as ref_decode_attention
+from repro.kernels.attention.kernel import \
+    flash_attention as ref_flash_attention
 from repro.kernels.depthwise.kernel import depthwise_conv2d as ref_depthwise
 from repro.kernels.fused_block.kernel import fused_dw_pw_conv as ref_fused
 from repro.kernels.fused_block.kernel import (
@@ -511,6 +514,164 @@ def test_k3_decode_planners_are_deterministic_and_refuse_what_cannot_fit():
                 (1, 32, 2, 64, 4)]:
         with pytest.raises(ValueError, match="past the kernel"):
             aplan.plan_decode(*bad)
+
+
+# --------------------------------------------------------------------------
+# K7 flash planner
+# --------------------------------------------------------------------------
+# (b, hq, hkv, sq, sk, d, causal, q_offset, sk_valid): the Qwen2-0.5B
+# prefill, the other dense configs' geometry, a chunk against a cache, rows
+# past a block's, a padding mask, one query row, narrow and odd heads
+FLASH_CASES = [
+    (2, 14, 2, 512, 512, 64, True, 0, None),
+    (2, 40, 8, 512, 512, 128, True, 0, None),
+    (2, 48, 1, 512, 512, 128, True, 0, None),
+    (2, 96, 8, 512, 512, 128, True, 0, None),
+    (2, 14, 2, 128, 512, 64, True, 384, None),
+    (2, 14, 2, 130, 130, 64, True, 0, None),
+    (1, 6, 3, 40, 100, 64, False, 0, 71),
+    (2, 14, 2, 1, 100, 64, False, 0, None),
+    (2, 4, 2, 33, 33, 8, True, 0, None),
+    (1, 4, 1, 45, 60, 37, True, 15, None),
+]
+FLASH_IDS = ["b{}-hq{}-hkv{}-sq{}-sk{}-d{}-c{:d}-off{}-v{}".format(*c)
+             for c in FLASH_CASES]
+
+
+def _flash_costs(plan, call):
+    """Each block's serial key tiles, in launch order, under ``plan``."""
+    b, hq, _hkv, sq, sk, _d, causal, off, valid = call
+    return [-(-aplan.flash_tile_keys(t, plan.rows, sq, sk, causal, off,
+                                     valid) // (plan.bk * plan.kv_split))
+            for _b, _h, t in aplan.flash_items(plan, b, hq)]
+
+
+@pytest.mark.parametrize("call", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_planner_covers_every_item_once(call):
+    """Under every plan ``plan_flash`` weighs, the blocks take each
+    (batch, head, q tile) exactly once, and the q tiles cover Sq."""
+    b, hq, hkv, sq, sk, d, causal, off, valid = call
+    for _key, p in aplan.flash_candidates(*call):
+        seen = aplan.flash_items(p, b, hq)
+        assert len(seen) == len(set(seen)) == b * hq * p.q_tiles == p.blocks
+        assert set(seen) == {(i, h, t) for i in range(b) for h in range(hq)
+                             for t in range(p.q_tiles)}
+        assert (p.q_tiles - 1) * p.rows < sq <= p.q_tiles * p.rows
+
+
+@pytest.mark.parametrize("call", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_planner_orders_heaviest_first(call):
+    """Under every plan the blocks' serial key tiles never grow in launch
+    order, and a key split halves the heaviest block's (rounding up)."""
+    for _key, p in aplan.flash_candidates(*call):
+        costs = _flash_costs(p, call)
+        assert costs == sorted(costs, reverse=True)
+        whole = dataclasses.replace(p, kv_split=1)
+        assert costs[0] == -(-_flash_costs(whole, call)[0] // p.kv_split)
+
+
+@pytest.mark.parametrize("call", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_planner_fits_an_h100(call):
+    """Every plan's shared memory is the kernel's carve-up and fits 227
+    KB, at least one block fits an SM, the grid fits its x axis, and a
+    key split keeps the block at 8 warps."""
+    for _key, p in aplan.flash_candidates(*call):
+        assert p.smem_bytes == 4 * aplan.flash_smem_floats(
+            call[5], p.warps, p.ring, p.kv_split) <= 232_448
+        assert p.per_sm >= 1 and p.blocks <= 2 ** 31 - 1
+        assert p.warps in aplan.FLASH_WARPS and p.ring in aplan.FLASH_RINGS
+        assert p.kv_split in (1, 2) and p.warps * p.kv_split <= 8
+        assert p.bk == (32 if call[5] > 64 else 64)
+
+
+def test_flash_planner_is_deterministic_and_refuses_what_the_kernel_does():
+    call = (2, 14, 2, 512, 512, 64, True, 0, None)
+    assert aplan.plan_flash(*call) == min(aplan.flash_candidates(*call),
+                                          key=lambda kp: kp[0])[1]
+    assert aplan.plan_flash(*call) == aplan.plan_flash.__wrapped__(*call)
+    for bad in [(1, 4, 2, 8, 8, 129), (1, 4, 2, 8, 8, 0), (1, 5, 2, 8, 8, 64),
+                (1, 4, 2, 0, 8, 64), (1, 4, 2, 8, -1, 64)]:
+        with pytest.raises(ValueError, match="flash"):
+            aplan.plan_flash(*bad)
+    with pytest.raises(ValueError, match="q_offset"):
+        aplan.plan_flash(1, 4, 2, 8, 8, 64, True, -1)
+
+
+def _flash_state(qw, rows, ks, vs, tiles, bk, limit, c):
+    """One warp's (m, l, acc) over key ``tiles`` (those below ``limit``),
+    the kernel's arithmetic: S and P V in 3xTF32, the softmax in base 2."""
+    wr, d = qw.shape
+    m = np.full(wr, -np.inf, np.float32)
+    l = np.zeros(wr, np.float32)
+    acc = np.zeros((wr, d), np.float32)
+    for t in tiles:
+        k0 = t * bk
+        if k0 >= limit:
+            continue
+        kt, vt = ks[k0:k0 + bk], vs[k0:k0 + bk]
+        s = _3xtf32(qw, kt.T) * c
+        keys = np.arange(k0, k0 + len(kt))
+        s = np.where(keys[None, :] <= rows[:, None], s, -np.inf)
+        m_new = np.maximum(m, s.max(axis=1))
+        a = np.where(np.isinf(m_new), 1, np.exp2(m - m_new))
+        pr = np.where(np.isinf(m_new)[:, None], 0,
+                      np.exp2(s - m_new[:, None])).astype(np.float32)
+        l = l * a + pr.sum(axis=1)
+        acc = acc * a[:, None] + _3xtf32(pr, vt)
+        m = m_new
+    return m, l, acc
+
+
+def _flash_kv_splits():
+    """The planner's pick at 130 causal rows of Qwen2-0.5B's heads, and a
+    plan there whose two warp groups split the key tiles."""
+    call = (1, 14, 2, 130, 130, 64, True, 0, None)
+    split = next(p for _k, p in aplan.flash_candidates(*call)
+                 if p.kv_split == 2)
+    return [aplan.plan_flash(*call[:6]), split]
+
+
+@pytest.mark.parametrize("plan", _flash_kv_splits(),
+                         ids=["picked", "kv_split"])
+def test_flash_3xtf32_emulation_matches_reference(plan):
+    """K7 flash at Qwen2-0.5B's heads (14 on 2 kv heads, D 64) over 130
+    causal rows, as the kernel runs it under ``plan``: each warp's 16 rows
+    walk the key tiles they see (with a key split, each of two groups its
+    half of the q tile's tiles, the two states merged at the end), S = Q
+    K^T and O += P V in 3xTF32 with the operands split as
+    ``tc::split_tf32_bits`` splits them, the online softmax in base 2
+    between them, O / l at the end; within 1e-4 of the reference's
+    ``flash_attention`` in interpret mode."""
+    b, hq, hkv, sq, d = 1, 14, 2, 130, 64
+    q, k, v = _arrays(16, (b, hq, sq, d), (b, hkv, sq, d), (b, hkv, sq, d),
+                      scale=0.5)
+    p, wr = plan, aplan.WARP_ROWS
+    c = np.float32(np.log2(np.e) / np.sqrt(d))
+    got = np.zeros_like(q)
+    for h in range(hq):
+        qs, ks, vs = q[0, h], k[0, h // (hq // hkv)], v[0, h // (hq // hkv)]
+        for qt in range(p.q_tiles):
+            n = -(-min(sq, (qt + 1) * p.rows) // p.bk)
+            half = -(-n // 2)
+            groups = ([range(n)] if p.kv_split == 1
+                      else [range(half), range(half, n)])
+            for r0 in range(qt * p.rows, min(sq, (qt + 1) * p.rows), wr):
+                rows, nr = np.arange(r0, r0 + wr), min(wr, sq - r0)
+                qw = np.zeros((wr, d), np.float32)
+                qw[:nr] = qs[r0:r0 + nr]
+                (m, l, acc), *rest = [
+                    _flash_state(qw, rows, ks, vs, tiles, p.bk,
+                                 min(sq, r0 + wr), c) for tiles in groups]
+                for mo, lo, ao in rest:
+                    mn = np.maximum(m, mo)
+                    fa = np.where(np.isinf(m), 0, np.exp2(m - mn))
+                    fb = np.where(np.isinf(mo), 0, np.exp2(mo - mn))
+                    l, acc = l * fa + lo * fb, (acc * fa[:, None]
+                                                + ao * fb[:, None])
+                got[0, h, r0:r0 + nr] = (acc / l[:, None])[:nr]
+    ref = ref_flash_attention(_j(q), _j(k), _j(v), causal=True, block_q=32,
+                              block_k=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
 
 
 # --------------------------------------------------------------------------

@@ -161,7 +161,7 @@ def test_init_params_has_the_reference_shapes(smoke):
 # K6
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(4, 256), (2, 16, 896), (1, 1, 12288),
-                                   (3, 7, 1024)])
+                                   (3, 7, 1024), (16, 896)])
 def test_k6_plain_matches_pallas(shape):
     x, w = _arrays(1, shape, shape[-1:])
     x *= 2.0
@@ -180,6 +180,8 @@ def test_k6_plain_matches_pallas(shape):
     (1, 14, 2, 37, 37, 64, True),     # qwen2-0.5b heads (non-pow2)
     (1, 2, 2, 8, 200, 128, False),    # cross-attn shape (sq != sk)
     (1, 4, 2, 8, 24, 32, True),       # causal, sq < sk: query 0 at key 0
+    (2, 14, 2, 130, 130, 64, True),   # qwen2-0.5b heads across tile edges
+    (1, 48, 1, 40, 40, 128, True),    # granite-20b's MQA group, D 128
 ])
 def test_k7_plain_flash_matches_pallas(b, hq, hkv, sq, sk, d, causal):
     q, k, v = _arrays(2, (b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),

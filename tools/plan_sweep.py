@@ -1,5 +1,5 @@
-"""K1, K2, K3 and K7 decode at their path shapes on the card, and under
-every tiling.
+"""K1, K2, K3, K7 flash and K7 decode at their path shapes on the card, and
+under every tiling.
 
     PYTHONPATH=src python tools/plan_sweep.py [--reps 20] [--sweep]
                                               [--kernel NAME ...]
@@ -8,19 +8,22 @@ every tiling.
 
 Builds the kernel library from ``src/repro_torch/csrc`` and prints the
 ``-Xptxas -v`` registers and spills of K1 (``matmul_bias_act``), K2
-(``depthwise_conv2d``), K3 (``conv2d_implicit_gemm``) and K7
-(``flash_attention``).  At every K1, K2 and K3 call of the CNN paths that
+(``depthwise_conv2d``), K3 (``conv2d_implicit_gemm``), K7
+(``flash_attention``) and K6 (``rmsnorm``).  At every K1, K2 and K3 call of
+the CNN paths that
 ``chip_smoke.py`` drives (batch 2, 224 px) and at its edge cases, and at K7
 decode's calls on the Qwen2-0.5B path (every 8th cache length, 513 to
-575) and at the other dense configs' head geometry, it holds the kernel
-against the plain version (rtol = atol = 1e-4, TF32 off in PyTorch) and
+575) and at the other dense configs' head geometry, and at K7 flash's
+prefill of the Qwen2-0.5B path (2 x 512) and that geometry, it holds the
+kernel against the plain version (rtol = atol = 1e-4, TF32 off in PyTorch) and
 times it on the device (``cuda_time_ms``) beside the PyTorch library call,
 with the planner's plan.  Per path it prints the sums.
 
 ``--sweep`` also runs every plan the planner considers (K1 and K2's
 tilings, K3's with ``plan.k3_candidates``, K7 decode's cluster sizes with
-``attention/plan.candidates``) at each path shape, holds each against the
-plain version and times it, and prints the planner's pick beside the
+``attention/plan.candidates``, K7 flash's rows, rings and key splits with
+``attention/plan.flash_candidates``) at each path shape, holds each against
+the plain version and times it, and prints the planner's pick beside the
 fastest;
 the fastest is timed twice, and the largest difference of the two is
 printed as the sweep's noise.  Per path it prints the sum of the fastest
@@ -59,9 +62,9 @@ from repro_torch.kernels.conv_gemm import plan as k1plan  # noqa: E402
 from repro_torch.kernels.depthwise import plan as k2plan  # noqa: E402
 
 KERNELS = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
-           "decode_attention")
+           "flash_attention", "decode_attention")
 SOURCES = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
-           "flash_attention")
+           "flash_attention", "rmsnorm")
 # K7 decode's cache lengths on the LM path that the tool visits
 DECODE_SKS = range(cs.LM_PROMPT + 1, cs.LM_PROMPT + cs.LM_GEN, 8)
 # each planner's fitted constants
@@ -86,6 +89,10 @@ def candidates(call: dict) -> list:
                                     c["pad"], c["ci"] % 4 == 0)
     if c["kernel"] == "decode_attention":
         return k7plan.candidates(c["b"], c["hq"], c["hkv"], c["sk"], c["d"])
+    if c["kernel"] == "flash_attention":
+        return k7plan.flash_candidates(c["b"], c["hq"], c["hkv"], c["sq"],
+                                       c["sk"], c["d"], c["causal"],
+                                       c["q_offset"], c["sk_valid"])
     ho = (c["h"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
     wo = (c["w"] + 2 * c["pad"] - c["k"]) // c["stride"] + 1
     return k2plan.candidates(c["n"], ho, wo, c["c"], c["k"], c["k"],
@@ -98,6 +105,9 @@ def plan_id(p) -> str:
         return f"{p.bm}x{p.bn} bk{p.bk} cl{p.cluster}"
     if isinstance(p, k7plan.DecodePlan):
         return f"cl{p.cluster} sl{p.slots}"
+    if isinstance(p, k7plan.FlashPlan):
+        return (f"{p.rows} rows ring{p.ring}"
+                + (" key split" if p.kv_split == 2 else ""))
     return f"{p.th}x{p.tw} cq{p.cq} ow{p.ow}"
 
 
@@ -134,9 +144,15 @@ def main(argv=None) -> int:
             distinct.setdefault(json.dumps(c, sort_keys=True), c)
     decode = [c for c, _w in cs.lm_request_calls(max(cs.lm_group_sizes()))
               if c["kernel"] == "decode_attention" and c["sk"] in DECODE_SKS]
-    decode += cs.lm_geometry_calls()
+    decode += [c for c in cs.lm_geometry_calls()
+               if c["kernel"] == "decode_attention"]
     decode = decode if "decode_attention" in kernels else []
-    for c in decode:
+    flash = [c for c, _w in cs.lm_request_calls(max(cs.lm_group_sizes()))
+             if c["kernel"] == "flash_attention"]
+    flash += [c for c in cs.lm_geometry_calls()
+              if c["kernel"] == "flash_attention"]
+    flash = flash if "flash_attention" in kernels else []
+    for c in decode + flash:
         distinct.setdefault(json.dumps(c, sort_keys=True), c)
     edges = [c for c in cs.edge_calls() if c["kernel"] in kernels]
     rows, worst, missed = {}, 0.0, False
@@ -170,9 +186,13 @@ def main(argv=None) -> int:
             if args.sweep:
                 for name, t in best_times(c["kernel"], r["sweep"]).items():
                     s[name] = s.get(name, 0.0) + t
-    if args.sweep and decode:
+    if args.sweep:
         for name, calls in (("K7 decode, Qwen2-0.5B path", decode[:-3]),
-                            ("K7 decode, other geometries", decode[-3:])):
+                            ("K7 decode, other geometries", decode[-3:]),
+                            ("K7 flash, Qwen2-0.5B path", flash[:1]),
+                            ("K7 flash, other geometries", flash[1:])):
+            if not calls:
+                continue
             picked = sum(next(x["ms"] for x in rows[json.dumps(
                 c, sort_keys=True)]["sweep"] if x["picked"]) for c in calls)
             best = sum(rows[json.dumps(c, sort_keys=True)]["sweep"][0]["ms"]
@@ -224,7 +244,8 @@ def sweep(call: dict, case: dict, timing: bool) -> tuple[list[dict], bool]:
     mod, name = {"matmul_bias_act": (k1mod, "plan_k1"),
                  "depthwise_conv2d": (k2mod, "plan_k2"),
                  "conv2d_implicit_gemm": (k1mod, "plan_k3"),
-                 "decode_attention": (k7mod, "plan_decode")}[call["kernel"]]
+                 "decode_attention": (k7mod, "plan_decode"),
+                 "flash_attention": (k7mod, "plan_flash")}[call["kernel"]]
     gemm = call["kernel"] in ("matmul_bias_act", "conv2d_implicit_gemm")
     cands = candidates(call)
     pick = min(cands, key=lambda kp: kp[0])[1]
@@ -272,7 +293,7 @@ def best_times(kernel: str, rows: list[dict]) -> dict[str, float]:
         choices = {f"{mi}x{nj}": (lambda r, mi=mi, nj=nj:
                                   (r["mi"], r["nj"]) != (mi, nj))
                    for mi, nj in k1plan.COMPILED}
-    elif kernel == "decode_attention":
+    elif kernel in ("decode_attention", "flash_attention"):
         choices = {}
     else:
         choices = {f"ow{ow}": (lambda r, ow=ow: not r["name"].endswith(
