@@ -53,7 +53,22 @@ any failure raises and the script exits non-zero:
             MobileNet v2's ``fuse=True`` sequential forward (16 inverted
             residuals on K5) against the plain fused program at 1e-3, its
             launches counted the same way;
-4. lm       Qwen2-0.5B at its published width (24 layers, d 896, 14/2
+4. fleet    the three CNNs as one fleet (``build_cnn_fleet``, ``balanced``)
+            on one pool of the card's two streams: phase 3's 24 requests
+            (8 a model, all at slot 0, policy ``weighted_fair``, burst 4;
+            after one untimed pass that warms the new streams), each output bit-equal to its model's sequential kernel forward
+            of phase 3, launches reset just before and read just after
+            equal to the sum of the plans' per-request counts; the
+            ``compile_fleet`` stream's signature equal to the live one,
+            and a fresh fleet's replay of it bit-equal; two pools behind a
+            ``MultiPoolRouter`` with a forced migration and a REBALANCE
+            (theta 0.7) mid-run, every request completed and bit-equal;
+            aggregate img/s, per-model p50/p95, the host's enqueue time a
+            fleet slot (the RUN instructions' host windows), the fleet's
+            wall against the same requests drained one engine at a time
+            (in turns, 5 each), and the Table VII planner's rows (the
+            modelled FPGA's fps) beside the measured rates;
+5. lm       Qwen2-0.5B at its published width (24 layers, d 896, 14/2
             heads, vocab 151936), random weights from seed 0: a 16-token
             prompt's chunked prefill and decode steps on the card against
             the same on the CPU (plain versions) at 1e-3; then
@@ -75,7 +90,7 @@ any failure raises and the script exits non-zero:
             fit one card), random weights from seed 0: the same prefill,
             chunk and 3 decode steps (K7 decode at G = 48 on the tensor
             cores) on the card against the CPU's plain versions at 1e-3;
-5. report   one ``[report]`` line for each path and kernel (launches,
+6. report   one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line.
@@ -108,6 +123,9 @@ REQUESTS = 8
 KERNEL_TOL = 1e-4
 FORWARD_TOL = 1e-3
 DEV = "cuda"
+POLICY = "weighted_fair"                # the fleet CLI's defaults
+BURST = 4
+TURNS = 5                               # fleet / one-at-a-time wall pairs
 LM_ARCH = "qwen2_0_5b"
 LM_REQUESTS = 8
 LM_BATCH = 2
@@ -770,7 +788,7 @@ def serve_path(model: str, gen, rows: dict) -> dict:
                 forward_max_abs_err=err, wall_s=res.stats["wall_s"],
                 p50_ms=m.p50_ms(), p95_ms=m.p95_ms(), pipelined_s=t_pipe,
                 sequential_s=t_seq, host_enqueue_ms=host_ms,
-                device_ms=device_ms)
+                device_ms=device_ms, io=(images, seq))
 
 
 def fused_forward_path(gen, rows: dict) -> dict:
@@ -1176,6 +1194,197 @@ def granite_path() -> dict:
                 card_vs_cpu_max_abs_err=err, launches=launches)
 
 
+def fleet_path(served: dict) -> dict:
+    """The three CNNs as one fleet on one pool of the card's two streams:
+    phase 3's requests (8 a model, all at slot 0), outputs bit-equal to
+    phase 3's sequential kernel forward, launches as the plans say; the
+    compiled stream's signature and a fresh fleet's bitwise replay; two
+    pools with a forced migration and a REBALANCE; walls in turns against
+    the same requests drained one engine at a time."""
+    from repro_torch.core.arch import DUAL_MULTI
+    from repro_torch.fleet import (FleetEngine, MultiPoolRouter, Rebalance,
+                                   build_cnn_fleet, compile_fleet,
+                                   make_policy, plan_fleet, plan_rows,
+                                   stream_signature, validate_stream)
+    from repro_torch.fleet.trace import host_enqueue_ms
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+
+    models = list(served)
+    mix = {m: 1.0 / len(models) for m in models}
+    # requests in the mix's order, model by model round-robin
+    order = [(m, i) for i in range(REQUESTS) for m in models]
+    want = [served[m]["io"][1][i] for m, i in order]
+    per_fleet = Counter()
+    for m in models:
+        for k, v in served[m]["per_request"].items():
+            per_fleet[k] += REQUESTS * v
+
+    def requests():
+        return [Request(served[m]["io"][0][i], model=m) for m, i in order]
+
+    def build(pool=None):
+        return build_cnn_fleet(models, pool=pool, device=DEV, seed=0,
+                               scheme=SCHEME, policy=make_policy(POLICY),
+                               weights=mix, burst=BURST)
+
+    def check_outputs(what: str, outs) -> None:
+        if len(outs) != len(want):
+            raise AssertionError(f"{what}: {len(outs)} outputs, want "
+                                 f"{len(want)}")
+        for j, (a, b) in enumerate(zip(outs, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: request {j} ({order[j][0]}) "
+                                     f"differs from the sequential kernel "
+                                     f"forward of phase 3")
+
+    def over(fl):
+        """A fresh fleet over ``fl``'s runners (warm streams, no state)."""
+        return FleetEngine({mm.name: DualCoreEngine(mm.engine.runner)
+                            for mm in fl.members},
+                           policy=make_policy(POLICY), weights=mix,
+                           burst=BURST, pool=fl.pool)
+
+    tag = "[fleet]"
+    fleet, pool = build()
+    # one untimed pass first: the caching allocator keeps its blocks per
+    # stream, and the pool's two streams are new
+    replay(over(fleet), requests())
+    compiled = compile_fleet(fleet, requests())
+    validate_stream(compiled)
+    reset_counts()
+    res = replay(fleet, requests())
+    launches = launch_counts()
+    check_counts("fleet", launches, dict(per_fleet))
+    check_outputs("fleet", res.outputs)
+    validate_stream(fleet.stream)
+    if stream_signature(compiled) != stream_signature(fleet.stream):
+        raise AssertionError("fleet: the compiled stream's signature "
+                             "differs from the live stream's")
+    st, m = res.stats, res.metrics
+    host_ms = host_enqueue_ms(fleet.stream)
+    print(f"{tag} {'+'.join(models)} on one pool ({pool.cores.describe()})"
+          f": {len(order)} requests x batch {BATCH} @ {IMAGE}px, policy "
+          f"{POLICY}, burst {BURST}, in {st['slots']} fleet slots "
+          f"({st['dispatches']} member dispatches): {st['wall_s'] * 1e3:.2f}"
+          f" ms, {len(order) * BATCH / st['wall_s']:.1f} img/s; outputs "
+          f"bit-equal to the sequential kernel forward; launches "
+          f"{launches}")
+    for name, pm in st["per_model"].items():
+        print(f"{tag}   {name:<14} p50 {pm['p50_ms']:.2f} ms, p95 "
+              f"{pm['p95_ms']:.2f} ms, {pm['requests_per_s'] * BATCH:.1f} "
+              f"img/s")
+    print(f"{tag} host enqueue {host_ms:.3f} ms a fleet slot (the RUN "
+          f"instructions' host windows over {st['slots']} slots); compiled "
+          f"stream signature equal to the live one ({len(compiled)} "
+          f"instructions)")
+
+    # a fresh fleet replays the compiled stream bit for bit
+    fresh, _ = build()
+    reset_counts()
+    rep = fresh.executor.replay(compiled, requests())
+    check_counts("fleet replay", launch_counts(), dict(per_fleet))
+    check_outputs("fleet replay", rep.outputs)
+    if stream_signature(fresh.stream) != stream_signature(compiled):
+        raise AssertionError("fleet replay: executed stream differs")
+    print(f"{tag} a fresh fleet's replay of the compiled stream: every "
+          f"output bit-equal")
+
+    # two pools: a forced migration and a REBALANCE with work in flight
+    router = MultiPoolRouter({"p0": build()[0], "p1": build()[0]})
+    reset_counts()
+    for r in requests():
+        router.submit(r)
+    moved = router.migrate("p1", "p0", count=4)
+    router.step()
+    in_flight = router.in_flight
+    router.rebalance("p0", mix=mix, theta=0.7)
+    two = router.drain()
+    check_counts("two pools", launch_counts(), dict(per_fleet))
+    if moved != 4 or router.rebalances != [("p0", 0.7)]:
+        raise AssertionError(f"two pools: moved {moved}, rebalances "
+                             f"{router.rebalances}")
+    if [c.status for c in two.completions] != ["ok"] * len(order):
+        raise AssertionError("two pools: not every request completed ok")
+    check_outputs("two pools", two.outputs)
+    rb = [r for r in router.stream() if isinstance(r.instr, Rebalance)]
+    print(f"{tag} two pools: {moved} requests migrated p1 -> p0, "
+          f"REBALANCE theta 0.7 on p0 at slot {rb[0].slot} with "
+          f"{in_flight} requests in flight; {two.metrics.completed} "
+          f"completed ok, outputs bit-equal, launches as the plans say")
+
+    # walls, in turns: the fleet, then the same requests drained one
+    # engine at a time on standalone runners (each its own two streams)
+    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.dualcore.runtime import DualCoreRunner
+    from repro_torch.models.cnn import build_model
+    alone = {}
+    for mname in models:
+        params, _, graph = build_model(mname, seed=0, device=DEV)
+        sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+        alone[mname] = DualCoreRunner(mname, params, sched, device=DEV)
+        alone[mname].run_sequential(served[mname]["io"][0][:1])
+
+    def fleet_wall() -> tuple[float, float]:
+        fl = over(fleet)
+        t0 = time.perf_counter()
+        out = replay(fl, requests())
+        wall = time.perf_counter() - t0
+        check_outputs("fleet (timed)", out.outputs)
+        return wall, host_enqueue_ms(fl.stream)
+
+    def one_at_a_time() -> float:
+        t0 = time.perf_counter()
+        outs = {}
+        for mname in models:
+            eng = DualCoreEngine(alone[mname])
+            outs[mname] = replay(eng, [Request(x) for x in
+                                       served[mname]["io"][0]]).outputs
+        wall = time.perf_counter() - t0
+        check_outputs("one engine at a time",
+                      [outs[mm][i] for mm, i in order])
+        return wall
+
+    walls: dict[str, list[float]] = {"fleet": [], "alone": []}
+    hosts = []
+    for _ in range(TURNS):
+        w, h = fleet_wall()
+        walls["fleet"].append(w)
+        hosts.append(h)
+        walls["alone"].append(one_at_a_time())
+    t_fleet, t_alone = min(walls["fleet"]), min(walls["alone"])
+    n_img = len(order) * BATCH
+    print(f"{tag} in turns, {TURNS} each: fleet "
+          + ", ".join(f"{w * 1e3:.2f}" for w in walls["fleet"])
+          + " ms; one engine at a time "
+          + ", ".join(f"{w * 1e3:.2f}" for w in walls["alone"])
+          + f" ms; best {n_img / t_fleet:.1f} against {n_img / t_alone:.1f}"
+          f" img/s ({t_alone / t_fleet:.3f}x); host enqueue a fleet slot "
+          + ", ".join(f"{h:.3f}" for h in hosts) + " ms")
+
+    # the Table VII planner's rows beside the measured per-model rates
+    plan = plan_fleet(mix, config=DUAL_MULTI)
+    measured = {k: v["requests_per_s"] * BATCH
+                for k, v in st["per_model"].items()}
+    rows = plan_rows(plan, measured, n_img / st["wall_s"])
+    print(f"{tag} Table VII rows, {plan.config} (theta {plan.theta:.2f}): "
+          f"model-side and predicted fps on the modelled FPGA, measured "
+          f"img/s of the counted fleet run on the card")
+    for name, share, fps, pred, meas in rows:
+        print(f"{tag}   {name:<14} share {share:.3f}  model-side "
+              f"{fps:9.1f}  predicted {pred:9.1f}  measured {meas:9.1f}")
+    return dict(model="fleet", per_request={}, launches=launches,
+                kernels={}, per_fleet=dict(per_fleet),
+                slots=st["slots"], dispatches=st["dispatches"],
+                wall_s=st["wall_s"], per_model=st["per_model"],
+                host_enqueue_ms=host_ms, walls_fleet_s=walls["fleet"],
+                walls_alone_s=walls["alone"], host_enqueue_turns_ms=hosts,
+                two_pools=dict(moved=moved, stats={
+                    k: two.stats[k] for k in ("steps", "rebalances")}),
+                plan=dict(plan.summary(), rows=[list(r) for r in rows]))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1245,13 +1454,19 @@ def main() -> int:
 
     # 3. paths ------------------------------------------------------------
     paths = [serve_path(model, gen, rows) for model in SERVED]
+    served = {p["model"]: p for p in paths}
     paths.append(fused_forward_path(gen, rows))
 
-    # 4. lm ---------------------------------------------------------------
+    # 4. fleet ------------------------------------------------------------
+    paths.append(fleet_path(served))
+    for p in served.values():
+        del p["io"]
+
+    # 5. lm ---------------------------------------------------------------
     paths.append(lm_path(rows))
     granite = granite_path()
 
-    # 5. report -----------------------------------------------------------
+    # 6. report -----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]

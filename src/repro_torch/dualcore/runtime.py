@@ -21,6 +21,7 @@ per-core ``device_put`` and ``jax.jit`` donation have no counterpart.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 
@@ -153,6 +154,13 @@ class DualCores:
         else:
             self.streams = {"c": None, "p": None}
 
+    def resplit(self, theta: float) -> "DualCores":
+        """The same two streams under a new recorded ``theta`` (SMs are not
+        split, so only the record changes)."""
+        out = copy.copy(self)
+        out.theta = theta
+        return out
+
     @property
     def on_card(self) -> bool:
         """True when the cores are CUDA streams (events order them)."""
@@ -219,11 +227,16 @@ class DualCoreRunner:
     boundary; fuse=True partitions the full fusion-plan program; fuse=False
     keeps every layer its own kernel.  ``device`` defaults to the card and
     raises without one; ``device="cpu"`` runs the plain versions.
+    ``cores`` is a :class:`DualCores` leased from a fleet's pool, so that
+    every member dispatches onto the same two streams (the reference's
+    ``devices=`` taking a ``DualMesh``); without it the runner makes its
+    own at ``theta``.
     """
 
     def __init__(self, graph: LayerGraph | str, params: Params,
                  schedule: Schedule, *, device: str | torch.device = "cuda",
-                 theta: float = 0.5, fuse: bool | str = "group"):
+                 theta: float = 0.5, fuse: bool | str = "group",
+                 cores: DualCores | None = None):
         self.device = resolve_device(device)
         group_fusion = fuse == "group"
         self.program = build_program(graph,
@@ -233,13 +246,29 @@ class DualCoreRunner:
         self.plan = build_exec_plan(self.program, schedule,
                                     group_fusion=group_fusion)
         self.groups = self.plan.groups
-        self.cores = DualCores(self.device, theta)
+        if cores is None:
+            cores = DualCores(self.device, theta)
+        self._check_cores(cores)
+        self.cores = cores
         # one copy of the parameters, read by both cores
         self._params = {n: {k: v.to(self.device) for k, v in p.items()}
                         for n, p in params.items()}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # params visible to both
         self._fns = [self._group_fn(i) for i in range(len(self.groups))]
+
+    def _check_cores(self, cores: DualCores) -> None:
+        if cores.device != self.device:
+            raise ValueError(f"cores on {cores.device} cannot run a runner "
+                             f"on {self.device}")
+
+    def relocate(self, cores: DualCores) -> None:
+        """Rebind the runner onto a re-split pool's cores (the runner's
+        half of a REBALANCE).  The parameters stay where they are: one
+        copy on the device serves both cores.  Envs in flight keep their
+        ready events; the next group's stream waits on them."""
+        self._check_cores(cores)
+        self.cores = cores
 
     def _group_fn(self, gi: int):
         steps = self.groups[gi].steps

@@ -33,11 +33,34 @@ plan's modelled two-batch latency T_b2 beside the instruction-level
 simulator's cycles for two images (``core/simulator.py``, on the modelled
 FPGA), images per second, p50/p95 request latency, and the strictly
 sequential run's wall time beside the pipelined one.
+
+The ``fleet`` subcommand serves several CNNs at once through one pool of
+the card's two streams:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve fleet \\
+      --models mobilenet_v1,mobilenet_v2,squeezenet --image-size 224 \\
+      --batch 2 --requests 24 [--mix 2,1,1] [--policy weighted_fair] \\
+      [--burst 4] [--co-dispatch N | --no-interleave] [--plan] \\
+      [--pools N [--transport local|file [--spool DIR]]] \\
+      [--faults PLAN.json] [--slo-ms X] [--trace PATH] \\
+      [--metrics PATH [--metrics-every K]] [--device cuda]
+
+builds one ``DualCoreEngine`` per model on the pool's leased split behind
+a ``FleetEngine`` (or, with ``--pools N``, N such fleets behind a
+``MultiPoolRouter`` that places each request on the least loaded pool),
+streams model-tagged requests in the ``--mix`` proportions, and prints the
+aggregate rate, per-model p50/p95, the host's enqueue time per fleet slot
+and, with ``--plan``, the Table VII planner's predicted rows beside the
+measured ones.  The reference's ``--workers``, ``--transport socket``,
+``--kill-worker``, ``--verify-replay`` and ``--adapt`` are refused with
+the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -51,15 +74,39 @@ from repro_torch.dualmesh.cost import CardModel
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
 from repro_torch.dualmesh.schedule import plan_admission
+from repro_torch.fleet import (POLICY_NAMES, FaultInjector, FaultPlan,
+                               FileTransport, FleetEngine, MultiPoolRouter,
+                               build_cnn_fleet, make_policy, mix_schedule,
+                               normalize_mix, plan_fleet, plan_rows)
+from repro_torch.fleet.trace import (host_enqueue_ms, roofline_model,
+                                     write_chrome_trace)
 from repro_torch.kernels.util import resolve_device, timed_build
 from repro_torch.lm.model import init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
-from repro_torch.serving.api import Request, poisson_arrivals, replay
+from repro_torch.obs import write_metrics
+from repro_torch.serving.api import (Request, ShedPolicy, poisson_arrivals,
+                                     replay)
 from repro_torch.serving.cnn import DualCoreEngine
 from repro_torch.serving.lm import DualMeshEngine
 
 CNN_MODELS = ("mobilenet_v1", "mobilenet_v2", "squeezenet")
 CNN_SCHEMES = ("layer_type", "greedy", "round_robin", "balanced", "best")
+MODEL_ALIASES = {"mbv1": "mobilenet_v1", "mbv2": "mobilenet_v2",
+                 "sqz": "squeezenet", **{m: m for m in CNN_MODELS}}
+#: reference flags the port refuses, and the ROADMAP item porting each
+NOT_PORTED = {
+    "workers": "queue 1 item 4 (the fleet across processes)",
+    "kill_worker": "queue 1 item 4 (the fleet across processes)",
+    "verify_replay": "queue 1 item 4 (the fleet across processes)",
+    "adapt": "queue 1 item 6.3 (the controller, with the LM engine's "
+             "fleet surface)",
+}
+
+
+def _fail(msg: str) -> None:
+    """Usage error: one line on stderr and exit code 2."""
+    print(f"repro_torch.launch.serve: error: {msg}", file=sys.stderr)
+    raise SystemExit(2)
 
 
 def _arrivals(n: int, rate: float) -> list[int]:
@@ -157,12 +204,211 @@ def serve_cnn(args) -> int:
     return 0
 
 
+class _MetricsSink:
+    """``--metrics PATH`` / ``--metrics-every K``: without K the final
+    registry snapshot is written once (``-`` = Prometheus text on
+    stdout, ``.json`` = JSON, else Prometheus text); with K one
+    ``{"step", "snapshot"}`` JSON line every K steps plus a final one."""
+
+    def __init__(self, path: str | None, every: int | None):
+        self.path = path
+        self.every = every
+        self.registry = None      # set once the engine or router exists
+        self._started = False
+
+    def on_step(self, step: int) -> None:
+        """``replay``'s per-step hook."""
+        if self.registry is not None and self.every \
+                and (step + 1) % self.every == 0:
+            self._append(step)
+
+    def _append(self, step: int) -> None:
+        line = json.dumps({"step": step,
+                           "snapshot": self.registry.snapshot()},
+                          sort_keys=True)
+        if self.path == "-":
+            print(line)
+            return
+        with open(self.path, "a" if self._started else "w") as f:
+            f.write(line + "\n")
+        self._started = True
+
+    def finish(self, steps: int) -> None:
+        """Write the final snapshot (or the last series line)."""
+        if self.registry is None or self.path is None:
+            return
+        if self.every:
+            self._append(steps)
+            return
+        fmt = write_metrics(self.registry, self.path)
+        if self.path != "-":
+            print(f"[serve] wrote {fmt} metrics to {self.path}")
+
+
+def _parse_fleet_mix(args) -> dict[str, float]:
+    """``--models``/``--mix`` -> normalized {model: share}."""
+    names = []
+    for tok in args.models.split(","):
+        tok = tok.strip()
+        if tok not in MODEL_ALIASES:
+            _fail(f"unknown model {tok!r} in --models; one of "
+                  f"{sorted(MODEL_ALIASES)}")
+        names.append(MODEL_ALIASES[tok])
+    if len(set(names)) != len(names):
+        _fail(f"duplicate models in --models: {names}")
+    shares = [1.0] * len(names)
+    if args.mix is not None:
+        try:
+            shares = [float(t) for t in args.mix.split(",")]
+        except ValueError:
+            _fail(f"--mix must be comma-separated numbers "
+                  f"(got {args.mix!r})")
+        if len(shares) != len(names):
+            _fail(f"{len(names)} models in --models but {len(shares)} "
+                  f"shares in --mix")
+    try:
+        return normalize_mix(dict(zip(names, shares)))
+    except ValueError as e:
+        _fail(str(e))
+
+
+def serve_fleet(args) -> int:
+    """``fleet`` subcommand: several CNNs over one pool of the card's
+    two streams, or ``--pools N`` in-process pools behind a router."""
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag):
+            _fail(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
+                  f"{item}")
+    if args.transport == "socket":
+        _fail(f"--transport socket is not ported yet: ROADMAP "
+              f"{NOT_PORTED['workers']}")
+    mix = _parse_fleet_mix(args)
+    if args.pools < 1:
+        _fail(f"--pools must be >= 1, got {args.pools}")
+    if args.transport == "file" and args.pools < 2:
+        _fail("--transport file is the multi-pool spool mailbox; it "
+              "needs --pools >= 2")
+    if args.spool is not None and args.transport != "file":
+        _fail("--spool only applies to --transport file")
+    if args.slo_ms is not None and not args.slo_ms > 0:
+        _fail(f"--slo-ms must be > 0, got {args.slo_ms}")
+    if args.metrics_every is not None and not args.metrics:
+        _fail("--metrics-every needs --metrics PATH")
+    if args.metrics_every is not None and args.metrics_every < 1:
+        _fail(f"--metrics-every must be >= 1, got {args.metrics_every}")
+    fault_plan = None
+    if args.faults is not None:
+        try:
+            fault_plan = FaultPlan.load(args.faults)
+        except (OSError, ValueError) as e:
+            _fail(f"--faults {args.faults!r}: {e}")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"[serve] kernels built and loaded in {timed_build():.1f} s")
+    admission = None
+    if args.slo_ms is not None:
+        admission = {m: ShedPolicy(slo_s=args.slo_ms / 1e3, clock="wall")
+                     for m in mix}
+    plan = None
+    if args.plan:
+        plan = plan_fleet(mix, max_evals=args.plan_evals)
+        print(f"[serve] fleet plan: config={plan.config} "
+              f"theta={plan.theta:.2f} predicted aggregate "
+              f"{plan.aggregate_fps:.1f} fps on the modelled FPGA")
+
+    def build():
+        return build_cnn_fleet(
+            list(mix), device=dev, plan=plan, scheme=args.scheme,
+            policy=make_policy(args.policy), weights=mix,
+            admission=admission, max_queue=args.max_queue,
+            co_dispatch=0 if args.no_interleave else args.co_dispatch,
+            burst=args.burst)
+
+    n = args.requests
+    rng = np.random.default_rng(0)
+    images = [torch.from_numpy(rng.standard_normal(
+        (args.batch, args.image_size, args.image_size, 3),
+        dtype=np.float32)).to(dev) for _ in range(n)]
+    requests = [Request(x, model=t)
+                for x, t in zip(images, mix_schedule(mix, n))]
+    arrivals = _arrivals(n, args.arrival_rate)
+    sink = _MetricsSink(args.metrics, args.metrics_every)
+    injector = FaultInjector(fault_plan) if fault_plan is not None else None
+    if args.pools == 1:
+        engine = build()[0]
+        engine.executor.injector = injector
+        fleets = {"pool0": engine}
+    else:
+        fleets = {f"pool{p}": build()[0] for p in range(args.pools)}
+        transport = None
+        if args.transport == "file":
+            spool = args.spool or tempfile.mkdtemp(prefix="repro_spool_")
+            transport = FileTransport(spool)
+            print(f"[serve] inter-pool migration spooled through {spool}")
+        engine = MultiPoolRouter(fleets, injector=injector,
+                                 transport=transport)
+    for fl in fleets.values():
+        # warm-up: one untimed pass over the same runners builds the
+        # kernels and fills the caching allocator's pools of the new
+        # streams
+        replay(FleetEngine({m.name: DualCoreEngine(m.engine.runner)
+                            for m in fl.members}, burst=args.burst),
+               [Request(r.payload, model=r.model) for r in requests])
+    pool_desc = next(iter(fleets.values())).pool.cores.describe()
+    print(f"[serve] fleet {'+'.join(mix)} x {args.pools} pool(s) "
+          f"policy={args.policy} burst={args.burst}; {pool_desc}")
+    sink.registry = engine.executor.obs if args.pools == 1 else engine.obs
+    res = replay(engine, requests, arrivals, on_step=sink.on_step)
+    st = res.stats
+    steps = st["slots"] if args.pools == 1 else st["steps"]
+    streams = {name: fl.executor.records for name, fl in fleets.items()}
+    host = [host_enqueue_ms(recs) for recs in streams.values()]
+    print(f"[serve] streamed {n} request(s) x batch {args.batch} @ "
+          f"{args.image_size}px on {dev} in {steps} "
+          f"{'fleet slots' if args.pools == 1 else 'router steps'}: "
+          f"{st['wall_s'] * 1e3:.1f} ms, {n * args.batch / st['wall_s']:.2f}"
+          f" img/s; host enqueue a fleet slot "
+          + ", ".join(f"{h:.3f}" for h in host) + " ms")
+    for name, pm in st["per_model"].items():
+        print(f"  {name:<14} {pm['completed']} done  p50 "
+              f"{pm['p50_ms']:.2f} ms  p95 {pm['p95_ms']:.2f} ms  "
+              f"{pm['requests_per_s'] * args.batch:.2f} img/s")
+    if args.pools > 1:
+        for pname, pp in st["pools"].items():
+            served = ", ".join(f"{m}:{c}" for m, c in pp["served"].items())
+            print(f"  {pname:<8} {pp['slots']} slots {pp['dispatches']} "
+                  f"dispatches  served {served or '-'}")
+    if plan is not None:
+        measured = {m: v["requests_per_s"] * args.batch
+                    for m, v in st["per_model"].items()}
+        print("[serve] Table VII rows: model-side and predicted fps on the "
+              "modelled FPGA, measured img/s on the device:")
+        for name, share, fps, pred, meas in plan_rows(
+                plan, measured, n * args.batch / st["wall_s"]):
+            print(f"  {name:<14} share={share:.2f} model-side={fps:8.1f} "
+                  f"predicted={pred:8.1f} measured="
+                  + (f"{meas:8.2f}" if meas is not None else "     n/a"))
+    if args.slo_ms is not None or fault_plan is not None:
+        m = res.metrics
+        print(f"[serve] goodput {m.goodput_fps() * args.batch:.2f} img/s "
+              f"(shed {m.count('shed')}, failed {m.count('failed')}, "
+              f"recovered {m.count('recovered')})")
+    sink.finish(steps)
+    if args.trace:
+        events, _ = write_chrome_trace(streams, args.trace,
+                                       roofline=roofline_model(engine))
+        print(f"[serve] wrote {events} trace events to {args.trace} (host "
+              f"windows; open in chrome://tracing)")
+    return 0
+
+
 def main(argv=None):
     """Parse the command line and run the subcommand."""
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
-        description="Serve the LM or a CNN through the dual-core streaming "
-                    "engines on one CUDA card.")
+        description="Serve the LM, a CNN or a fleet of CNNs through the "
+                    "dual-core streaming engines on one CUDA card.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     lm = sub.add_parser("lm", help="dual-core LM continuous batching")
     lm.add_argument("--arch", choices=ARCH_IDS, required=True)
@@ -206,6 +452,82 @@ def main(argv=None):
                      help="'cuda' (default; raises without a card) or "
                           "'cpu' (the plain versions)")
     cnn.set_defaults(func=serve_cnn)
+    fleet = sub.add_parser("fleet", help="several CNNs over one pool of "
+                                         "the card's two streams")
+    fleet.add_argument("--models", default="mbv1,mbv2,squeezenet",
+                       help="comma-separated member models "
+                            "(aliases: mbv1, mbv2, sqz)")
+    fleet.add_argument("--mix", default=None,
+                       help="comma-separated qps shares aligned with "
+                            "--models (default: equal)")
+    fleet.add_argument("--policy", choices=POLICY_NAMES,
+                       default="weighted_fair",
+                       help="cross-engine step scheduling policy")
+    fleet.add_argument("--scheme", choices=CNN_SCHEMES, default="balanced",
+                       help="per-model allocation scheme (without --plan)")
+    fleet.add_argument("--plan", action="store_true",
+                       help="co-schedule the mix through the design-space "
+                            "search first and serve under its PE config")
+    fleet.add_argument("--plan-evals", type=int, default=8,
+                       help="search budget for --plan")
+    fleet.add_argument("--image-size", type=int, default=64,
+                       help="input H=W (224 = paper size)")
+    fleet.add_argument("--requests", type=int, default=2,
+                       help="number of requests to serve (>= 1)")
+    fleet.add_argument("--batch", type=int, default=2)
+    fleet.add_argument("--arrival-rate", type=float, default=float("inf"),
+                       help="Poisson-ish arrivals per scheduler slot "
+                            "(default inf: everything at slot 0)")
+    fleet.add_argument("--max-queue", type=int, default=None,
+                       help="bounded queue per member")
+    fleet.add_argument("--co-dispatch", type=int, default=None,
+                       help="max members co-dispatched per slot beyond "
+                            "the primary (default: all with work)")
+    fleet.add_argument("--burst", type=int, default=4,
+                       help="consecutive slots each member advances per "
+                            "fleet step (1: strict slot interleaving)")
+    fleet.add_argument("--no-interleave", action="store_true",
+                       help="one policy-picked member per slot (same as "
+                            "--co-dispatch 0)")
+    fleet.add_argument("--pools", type=int, default=1,
+                       help="in-process pools; > 1 serves through a "
+                            "MultiPoolRouter")
+    fleet.add_argument("--transport", default="local",
+                       choices=("local", "file", "socket"),
+                       help="inter-pool mailbox: 'local' (in memory) or "
+                            "'file' (spool directory, see --spool); "
+                            "'socket' is not ported")
+    fleet.add_argument("--spool", default=None, metavar="DIR",
+                       help="spool directory for --transport file "
+                            "(default: a fresh temporary directory)")
+    fleet.add_argument("--faults", default=None, metavar="PLAN.json",
+                       help="arm a FaultPlan (v1) on the executors")
+    fleet.add_argument("--slo-ms", type=float, default=None,
+                       help="per-request wall-clock SLO: shed requests "
+                            "past it and report goodput")
+    fleet.add_argument("--trace", default=None, metavar="PATH",
+                       help="write the executed streams as Chrome-tracing "
+                            "JSON")
+    fleet.add_argument("--metrics", default=None, metavar="PATH",
+                       help="write the telemetry registry: '-' = "
+                            "Prometheus text on stdout, *.json = JSON, "
+                            "else Prometheus text")
+    fleet.add_argument("--metrics-every", type=int, default=None,
+                       metavar="K",
+                       help="with --metrics: one JSON snapshot line every "
+                            "K steps")
+    fleet.add_argument("--workers", type=int, default=0,
+                       help="not ported (ROADMAP queue 1 item 4)")
+    fleet.add_argument("--kill-worker", default=None,
+                       help="not ported (ROADMAP queue 1 item 4)")
+    fleet.add_argument("--verify-replay", action="store_true",
+                       help="not ported (ROADMAP queue 1 item 4)")
+    fleet.add_argument("--adapt", action="store_true",
+                       help="not ported (ROADMAP queue 1 item 6.3)")
+    fleet.add_argument("--device", default="cuda",
+                       help="'cuda' (default; raises without a card) or "
+                            "'cpu' (the plain versions)")
+    fleet.set_defaults(func=serve_fleet)
     args = ap.parse_args(argv)
     if args.requests < 1:
         ap.error(f"--requests must be >= 1, got {args.requests}")

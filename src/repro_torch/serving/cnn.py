@@ -8,14 +8,19 @@ scheduler slot the engine
      (stream admitted at slot ``s`` runs group ``k - s`` at slot ``k``: the
      paper's one-slot offset, so neighbouring streams occupy different
      cores by the alternation invariant);
-  2. admits at most one queued request into the freed group-0 slot;
+  2. admits at most one queued request into the freed group-0 slot (under
+     a ``ShedPolicy`` past-deadline requests are shed first);
   3. retires streams that cleared the last group, waiting on each output's
      ready event only after every launch of the slot is queued, so the wait
      never serializes the cross-core overlap.
 
 On a card the launches of one slot go to the two cores' streams and run
 concurrently; the host only enqueues.  Capacity equals the number of exec
-groups.
+groups.  The fleet reads :meth:`DualCoreEngine.next_dispatch_cycles` and
+:attr:`DualCoreEngine.next_core` to pair a conv-heavy slot of one network
+with a dw-heavy slot of another, drives :meth:`DualCoreEngine.advance` and
+:meth:`DualCoreEngine.retire` separately, and moves the engine onto a
+re-split pool with :meth:`DualCoreEngine.relocate`.
 """
 from __future__ import annotations
 
@@ -61,9 +66,42 @@ class DualCoreEngine(EngineBase):
         self._slot = 0
 
     @property
+    def in_flight(self) -> int:
+        """Streams currently in the pipeline."""
+        return len(self._flight)
+
+    @property
     def has_work(self) -> bool:
         """True while any queued or in-flight work remains."""
         return bool(self._pending or self._flight)
+
+    def next_dispatch_cycles(self) -> tuple[float, float]:
+        """Modelled (c-cycles, p-cycles) the next ``step`` dispatches: each
+        in-flight stream's next group on its core, plus group 0 if an
+        admission would land (the exec schedule's group latencies)."""
+        lat = self.runner.plan.exec_schedule.group_latencies
+        groups = self.runner.groups
+        cyc = {"c": 0.0, "p": 0.0}
+        for f in self._flight:
+            cyc[groups[f.next_group].core] += lat[f.next_group]
+        if self._pending and len(self._flight) < self.capacity:
+            cyc[groups[0].core] += lat[0]
+        return cyc["c"], cyc["p"]
+
+    @property
+    def next_core(self) -> str | None:
+        """Core carrying the larger share of the next step's modelled
+        cycles (None when the engine has no work)."""
+        if not self.has_work:
+            return None
+        c, p = self.next_dispatch_cycles()
+        return "c" if c >= p else "p"
+
+    def relocate(self, cores) -> None:
+        """Move the engine onto a re-split pool (REBALANCE): rebind the
+        runner onto ``cores``.  In-flight envs keep their position and
+        their ready events, which the next group's stream waits on."""
+        self.runner.relocate(cores)
 
     def _dispatch(self, f: _Flight) -> None:
         """Run flight ``f``'s next group via the runner's group handle."""
@@ -83,6 +121,10 @@ class DualCoreEngine(EngineBase):
         admit into the freed group-0 slot; return the flights that cleared
         the last group without waiting for them."""
         self._start_clock()
+        # shed past-deadline queue entries against the engine's own slot,
+        # unless the fleet executor already swept with its slot
+        if self._ext_clock is None:
+            self._shed_buf.extend(self.shed_expired())
         finished: list[_Flight] = []
         kept: list[_Flight] = []
         for f in self._flight:
@@ -94,8 +136,9 @@ class DualCoreEngine(EngineBase):
                               capacity=self.capacity)
         n = max(0, min(n, 1, self.capacity - len(self._flight),
                        len(self._pending)))
-        if n:
-            req, ticket = self._pop_admission()
+        popped = self._pop_admission() if n else None
+        if popped is not None:          # None: the rest of the queue shed
+            req, ticket = popped
             self._metrics[req.rid].started_at = time.perf_counter()
             f = _Flight(rid=req.rid,
                         env=self.runner.place_input(req.payload),
@@ -111,9 +154,11 @@ class DualCoreEngine(EngineBase):
 
     def retire(self, finished: list[_Flight]) -> list[Completion]:
         """Wait for the outputs of flights returned by :meth:`advance` and
-        file their completions."""
-        return [self._finish(f.rid, f.env["out"], f.env.get(READY))
-                for f in finished]
+        file their completions, after the sheds of the dispatch phase."""
+        out = self._take_shed()
+        out.extend(self._finish(f.rid, f.env["out"], f.env.get(READY))
+                   for f in finished)
+        return out
 
     def _extra_stats(self, metrics: Metrics) -> dict:
         return {"engine": "dualcore", "slots": self._slot,

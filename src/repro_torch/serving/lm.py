@@ -18,11 +18,10 @@ lifecycle.  One ``step`` is one scheduler slot:
      completions: no wait inside the dispatch loops, so the host queues
      the whole slot before it blocks.
 
-The port's ``EngineBase`` has no shedding yet, so ``step`` has no shed
-sweep, as the port's CNN engine has none.  The fleet-facing surface of the
-reference engine (``retune``, ``next_dispatch_cycles``, ``next_core``, and
-its ``quantum``, ``policy`` and ``max_in_flight`` options) comes with the
-fleet (ROADMAP).
+``step`` has no shed sweep yet.  The fleet-facing surface of the
+reference engine (shedding, ``retune``, ``next_dispatch_cycles``,
+``next_core``, and its ``quantum``, ``policy`` and ``max_in_flight``
+options) comes with LM members of the fleet (ROADMAP queue 1 item 6.3).
 """
 from __future__ import annotations
 

@@ -30,11 +30,13 @@ from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
 from repro_torch.configs.registry import get_smoke
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+from repro_torch.fleet import Rebalance, build_cnn_fleet, make_policy
 from repro_torch.kernels.attention.kernel import (decode_attention,
                                                   flash_attention)
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.lm.model import forward, init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
+from repro_torch.serving.api import Request
 from repro_torch.serving.cnn import stream_images
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -346,6 +348,46 @@ def test_two_streams_mobilenet_v1_on_card(card):
     pw->dw->pw chains run on K5."""
     per_image = _check_two_streams("mobilenet_v1", card)
     assert per_image[fused_pw_dw_pw_conv] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("burst", [1, 4])
+def test_fleet_two_models_equal_standalone_on_card(burst, card):
+    """mobilenet_v1 + squeezenet as one fleet on one pool of the card's two
+    streams at 64 px (their groups interleave on the shared streams, four
+    slots a member a step with ``burst=4``), a REBALANCE with work in
+    flight: every output bit-equal to its model's standalone engine, and
+    the launches the plans' per-image counts."""
+    models = ["mobilenet_v1", "squeezenet"]
+    fleet, pool = build_cnn_fleet(models, device=card, seed=1, burst=burst,
+                                  policy=make_policy("weighted_fair"))
+    assert pool.cores.distinct and pool.stats()["sm_split"] is False
+    images = [t.to(card) for t in _arrays(9, *[(1, 64, 64, 3)] * 6)]
+    tags = [models[i % 2] for i in range(6)]
+    alone, per_image = {}, {}
+    for m in models:
+        params, _, graph = build_model(m, seed=1, device=card)
+        sched = build_schedule(graph, DUAL_BASELINE, BoardModel(),
+                               "balanced")
+        runner = DualCoreRunner(m, params, sched, device=card)
+        per_image[m] = Counter(_kernel_of(s, graph)
+                               for g in runner.groups for s in g.steps)
+        alone[m] = iter(stream_images(
+            runner, [x for x, t in zip(images, tags) if t == m]).outputs)
+    want = [next(alone[t]) for t in tags]
+    before = {fn: fn.launches for fn in WRAPPERS.values()}
+    for x, t in zip(images, tags):
+        fleet.submit(Request(x, model=t))
+    fleet.step()
+    fleet.executor.inject(Rebalance(theta=0.7))
+    res = fleet.drain()
+    for fn in WRAPPERS.values():
+        assert fn.launches - before[fn] == 3 * sum(
+            per_image[m][fn] for m in models)
+    assert pool.cores.theta == 0.7
+    assert [c.status for c in res.completions] == ["ok"] * 6
+    for a, b in zip(res.outputs, want):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------

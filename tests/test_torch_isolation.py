@@ -111,6 +111,55 @@ def test_lm_entry_points_without_device_raise_without_a_card(monkeypatch):
     assert init_cache(cfg, 1, 8, device="cpu").kv_k.device.type == "cpu"
 
 
+#: the fleet slice's modules: each a copy of the reference module at the
+#: same path, importing neither JAX nor ``repro``
+FLEET_MODULES = ("core/area", "core/search", "obs/__init__", "obs/registry",
+                 "obs/export", "fleet/__init__", "fleet/pool",
+                 "fleet/router", "fleet/planner", "fleet/instructions",
+                 "fleet/compiler", "fleet/faults", "fleet/net/__init__",
+                 "fleet/net/wire", "fleet/net/transport", "fleet/executor",
+                 "fleet/engine", "fleet/trace")
+
+
+@pytest.mark.parametrize("name", FLEET_MODULES)
+def test_fleet_modules_are_the_ports_own(name):
+    """Each fleet-slice module exists in the port beside its reference
+    counterpart (the probe imports it; the source scan reads it)."""
+    assert (PORT / f"{name}.py").is_file()
+    assert (ROOT / "src" / "repro" / f"{name}.py").is_file()
+
+
+def test_fleet_entry_points_raise_without_a_card(monkeypatch):
+    """The pool, ``build_cnn_fleet`` and ``serve fleet`` need a card unless
+    the caller passes ``device="cpu"`` (``--device cpu``)."""
+    from repro_torch.fleet import DevicePool, build_cnn_fleet
+    from repro_torch.launch.serve import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DevicePool()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_cnn_fleet(["squeezenet"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["fleet", "--models", "sqz", "--image-size", "32"])
+    assert DevicePool("cpu").cores.streams == {"c": None, "p": None}
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--workers", "2"], "item 4"), (["--transport", "socket"], "item 4"),
+    (["--kill-worker", "pool1@2"], "item 4"), (["--verify-replay"], "item 4"),
+    (["--adapt"], "item 6.3")])
+def test_serve_fleet_refuses_unported_flags(flags, item, capsys):
+    """The reference's process-fleet and controller flags exit with an
+    error naming the ROADMAP item that ports them; nothing falls back."""
+    from repro_torch.launch.serve import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["fleet", "--device", "cpu", *flags])
+    assert e.value.code == 2
+    assert f"ROADMAP queue 1 {item}" in capsys.readouterr().err
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """No card: a non-zero exit and no result on stdout, in the checkout
     and in a directory that holds the script alone."""
