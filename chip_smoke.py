@@ -42,50 +42,69 @@ any failure raises and the script exits non-zero:
             and a cache of 576, checked there with ragged ``kv_len`` down
             to 0 and 1, and flash at the path's prefill of 2 x 512;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
-            ``balanced`` (``fuse="group"`` exec plans): the sequential
-            kernel forward against the all-plain forward at 1e-3 (up to 53
-            f32 layers, each at 1e-4 against its plain version, compound),
-            then ``DualCoreEngine`` over the two streams, 8 requests x batch
-            2 at 224 px, outputs bit-equal to the sequential kernel forward,
-            launch counts reset just before the engine run and read just
-            after, exactly 8 x the plan's per-request counts; pipelined and
-            sequential walls in turns, and the host's enqueue time.  Then
-            MobileNet v2's ``fuse=True`` sequential forward (16 inverted
-            residuals on K5) against the plain fused program at 1e-3, its
-            launches counted the same way;
-4. fleet    the three CNNs as one fleet (``build_cnn_fleet``, ``balanced``)
-            on one pool of the card's two streams: phase 3's 24 requests
-            (8 a model, all at slot 0, policy ``weighted_fair``, burst 4;
-            after one untimed pass that warms the new streams), each output bit-equal to its model's sequential kernel forward
-            of phase 3, launches reset just before and read just after
-            equal to the sum of the plans' per-request counts; the
-            ``compile_fleet`` stream's signature equal to the live one,
-            and a fresh fleet's replay of it bit-equal; two pools behind a
-            ``MultiPoolRouter`` with a forced migration and a REBALANCE
-            (theta 0.7) mid-run, every request completed and bit-equal;
-            aggregate img/s, per-model p50/p95, the host's enqueue time a
-            fleet slot (the RUN instructions' host windows), the fleet's
-            wall against the same requests drained one engine at a time
-            (in turns, 5 each), and the Table VII planner's rows (the
-            modelled FPGA's fps) beside the measured rates;
+            ``balanced`` (``fuse="group"`` exec plans): the eager
+            sequential kernel forward (``jit_groups=False``) against the
+            all-plain forward at 1e-3 (up to 53 f32 layers, each at 1e-4
+            against its plain version, compound), then ``DualCoreEngine``
+            over the two streams, 8 requests x batch 2 at 224 px, on
+            compiled groups (a CUDA graph per exec group, after one
+            untimed warm-up run that captures the lanes) and eagerly:
+            outputs of both bit-equal to the eager sequential forward,
+            launch counts reset just before each engine run and read just
+            after, exactly 8 x the plan's per-request counts, through the
+            graphs' replays; one exec group captured again with its graph
+            kept, its kernel nodes (``debug_dump``) equal to the plan's
+            kernels of the group and to the counts the graph carries; the
+            lanes' capture time and device memory; pipelined and
+            sequential walls and the host's enqueue time a request, graphs
+            and eager in turns, and a request's device time with the host
+            held out, the lane's graphs against the same launches made
+            eagerly.  Then MobileNet v2's ``fuse=True``
+            sequential forward (16 inverted residuals on K5) against the
+            plain fused program at 1e-3, its launches counted the same way;
+4. fleet    the three CNNs as one fleet (``build_cnn_fleet``, ``balanced``,
+            compiled groups) on one pool of the card's two streams: phase
+            3's 24 requests (8 a model, all at slot 0, policy
+            ``weighted_fair``, burst 4; after one untimed pass that warms
+            the new streams and captures the lanes), each output bit-equal
+            to its model's sequential kernel forward of phase 3, launches
+            reset just before and read just after equal to the sum of the
+            plans' per-request counts; the ``compile_fleet`` stream's
+            signature equal to the live one, and a fresh fleet's replay of
+            it bit-equal; two pools behind a ``MultiPoolRouter`` with a
+            forced migration and a REBALANCE (theta 0.7) mid-run, every
+            request completed and bit-equal (every fresh fleet warmed first,
+            as ``serve fleet`` warms it); aggregate img/s, per-model
+            p50/p95, the host's enqueue time a fleet slot (the RUN
+            instructions' host windows), the fleet's wall against the same
+            requests drained one engine at a time (in turns, 5 each), on
+            graphs and eagerly in the same turns, and the Table VII
+            planner's rows (the modelled FPGA's fps) beside the measured
+            rates;
 5. lm       Qwen2-0.5B at its published width (24 layers, d 896, 14/2
             heads, vocab 151936), random weights from seed 0: a 16-token
             prompt's chunked prefill and decode steps on the card against
             the same on the CPU (plain versions) at 1e-3; then
             ``DualMeshEngine`` serves 8 requests of batch 2, prompt 512, 64
             generated tokens, all arriving at slot 0, prefill on the c
-            stream and fused decode groups on the p stream: launch counts
-            reset just before and read just after equal the plan (per
-            prefill forward K6 49 and K7 flash 24, per decode step K6 49 and
-            K7 decode 24), and the tokens equal those of the same engine
-            with both cores on one stream; tokens/s, p50/p95, the fused
-            sizes, the per-stage trace, the host's enqueue time per decode
-            step against its device time (one step timed with the host
-            held out) and the K6 and K7 device time in it, and the card's
-            f32 matmul and copy rates (the cost model's ceilings); the
-            planned group size with the cost model's f32 bytes beside the
-            one its former bf16 bytes gave, and the model's decode step
-            beside the measured one.  Then Granite-20B at its published
+            stream and fused decode groups on the p stream, each decode step
+            one CUDA graph replay (after an untimed warm-up at the served
+            group width): launch counts reset just before and read just
+            after equal the plan (per prefill forward K6 49 and K7 flash 24,
+            per decode step K6 49 and K7 decode 24), and the tokens equal
+            those of the same engine with both cores on one stream and
+            those of the eager decode; tokens/s, p50/p95, the fused sizes,
+            the per-stage trace, the host's enqueue time per decode step
+            against its device time, graphs and eager in turns (a graph
+            step's device time also timed with the host held out, and a
+            step's host time with a free launch queue), the
+            ``step_floor_base`` the graphs' enqueue implies, K7 decode a
+            request over the whole cache against the former cut-to-prefix
+            calls, the K6 and K7 device time in a step, and the card's f32
+            matmul and copy rates (the cost model's ceilings); the planned
+            group size under the cost model's former step floor and its
+            current one, and the model's decode step beside the measured
+            one.  Then Granite-20B at its published
             width cut to 2 of its 52 layers (f32 at full depth does not
             fit one card), random weights from seed 0: the same prefill,
             chunk and 3 decode steps (K7 decode at G = 48 on the tensor
@@ -139,6 +158,9 @@ LM_GEOMETRY_ARCHS = ("qwen2_5_14b", "granite_20b", "command_r_plus_104b")
 LM_GEOMETRY_ROWS = LM_BATCH * 8         # the LM path's decode rows
 LM_GEOMETRY_CACHE = 576
 GRANITE = "granite_20b"                 # checked at full width, cut depth
+# CardModel.step_floor_base before decode steps were graphs (the eager
+# enqueue of a step): the planned group size is printed under it too
+FORMER_STEP_FLOOR_BASE = 2.79e-3
 GRANITE_LAYERS = 2
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
 # the CUDA cores (no tensor cores) 67 TFLOP/s, TF32 on the tensor cores 495
@@ -710,10 +732,93 @@ def kernel_sums(rows: dict, calls: list[dict]) -> dict[str, dict]:
     return out
 
 
+# CUDA symbol of each kernel, as a graph's kernel nodes name it, and its
+# wrapper (longest first: no symbol is inside a longer one before it)
+KERNEL_SYMBOLS = (("fused_pw_dw_pw_kernel", "fused_pw_dw_pw_conv"),
+                  ("conv2d_implicit_gemm_kernel", "conv2d_implicit_gemm"),
+                  ("decode_attention_kernel", "decode_attention"),
+                  ("flash_attention_kernel", "flash_attention"),
+                  ("depthwise_conv2d_kernel", "depthwise_conv2d"),
+                  ("matmul_bias_act_kernel", "matmul_bias_act"),
+                  ("rmsnorm_general_kernel", "rmsnorm"),
+                  ("fused_dw_pw_kernel", "fused_dw_pw_conv"),
+                  ("rmsnorm_vec_kernel", "rmsnorm"))
+
+
+def graph_kernel_nodes(graph, name: str) -> tuple[dict[str, int], int]:
+    """The kernel nodes of a CUDA graph captured in debug mode, from its
+    ``debug_dump`` (written to ``chiprun_out/<name>.dot``): the count of
+    each wrapper's kernel, and of the other kernel nodes (PyTorch's)."""
+    import re
+    path = ROOT / "chiprun_out" / f"{name}.dot"
+    path.parent.mkdir(exist_ok=True)
+    graph.debug_dump(str(path))
+    text = path.read_text()
+    starts = [m.start() for m in re.finditer(
+        r'"?graph_\d+_node_\d+"?\s*\[', text)]
+    ours: Counter = Counter()
+    other = 0
+    for a, b in zip(starts, starts[1:] + [len(text)]):
+        block = text[a:b]
+        hit = next((w for sym, w in KERNEL_SYMBOLS if sym in block), None)
+        if hit is not None:
+            ours[hit] += 1
+        elif "KERNEL" in block.upper():
+            other += 1
+    if not starts:
+        raise AssertionError(f"{path}: no graph node in the dump: "
+                             f"{text[:400]!r}")
+    return dict(ours), other
+
+
+def group_nodes(runner, graph, tag: str) -> dict:
+    """Capture the runner's largest exec group again with the graph kept,
+    and hold its kernel nodes against the plan's kernels of the group and
+    against the counts the lane's graph of the group carries."""
+    (lane, *_), = runner.lanes.lanes.values()
+    gi = max(range(len(runner.groups)),
+             key=lambda i: len(runner.groups[i].steps))
+    env = {"h": lane.x} if gi == 0 else lane.envs[gi - 1]
+    debug, _ = runner._capture(gi, env, torch.cuda.graph_pool_handle(),
+                               debug=True)
+    want = dict(Counter(step_call(st, graph, BATCH)["kernel"]
+                        for st in runner.groups[gi].steps))
+    nodes, other = graph_kernel_nodes(debug.graph,
+                                      f"{graph.name}_group{gi}")
+    if nodes != want or lane.graphs[gi].launches != want \
+            or debug.launches != want:
+        raise AssertionError(f"{tag} group {gi}: kernel nodes {nodes}, "
+                             f"counted {lane.graphs[gi].launches}, plan "
+                             f"{want}")
+    return dict(group=gi, steps=len(runner.groups[gi].steps),
+                kernel_nodes=nodes, other_kernel_nodes=other)
+
+
+def chain_device_ms(runner, eager) -> dict[str, float]:
+    """Device ms of one request's whole exec-group chain on the current
+    stream, the host's launch cost held out (``cuda_time_ms``): the
+    lane's graphs replayed one after another, and the same groups
+    launched eagerly."""
+    from repro_torch.kernels.util import cuda_time_ms
+    lane = next(iter(runner.lanes.lanes.values()))[0]
+
+    def graphs():
+        for g in lane.graphs:
+            g.replay()
+
+    def launches():
+        env = {"h": lane.x}
+        for gi in range(len(eager.groups)):
+            env = eager._eager(gi, env)
+
+    return dict(graphs=cuda_time_ms(graphs, reps=10),
+                eager=cuda_time_ms(launches, reps=10))
+
+
 def serve_path(model: str, gen, rows: dict) -> dict:
     """One model's ``balanced`` serving path: the forward check, then the
-    engine over the two streams with its launches counted.  Returns the
-    path's numbers."""
+    engine over the two streams on compiled groups and eagerly, launches
+    counted.  Returns the path's numbers."""
     from repro_torch.core.arch import DUAL_BASELINE, BoardModel
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.dualcore.program import build_program
@@ -724,18 +829,21 @@ def serve_path(model: str, gen, rows: dict) -> dict:
 
     params, _, graph = build_model(model, seed=0, device="cuda")
     sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
-    runner = DualCoreRunner(model, params, sched, device="cuda")
+    runners = {"graphs": DualCoreRunner(model, params, sched, device="cuda"),
+               "eager": DualCoreRunner(model, params, sched, device="cuda",
+                                       jit_groups=False)}
+    runner, eager = runners["graphs"], runners["eager"]
     calls = plan_calls(runner.plan, graph, BATCH)
     per_request = dict(Counter(c["kernel"] for c in calls))
     tag = f"[{model}]"
     print(f"{tag} {SCHEME}: {len(runner.groups)} exec groups; launches per "
           f"request {per_request}")
 
-    # the sequential kernel forward against the all-plain forward
+    # the eager sequential kernel forward against the all-plain forward
     x = rand(gen, (BATCH, IMAGE, IMAGE, 3))
     plain_out = build_program(model, plain=True).run(params, x)
     reset_counts()
-    (seq_out,) = runner.run_sequential([x])
+    (seq_out,) = eager.run_sequential([x])
     counts = launch_counts()
     err = (seq_out - plain_out).abs().max().item()
     if not torch.allclose(seq_out, plain_out, rtol=FORWARD_TOL,
@@ -746,49 +854,96 @@ def serve_path(model: str, gen, rows: dict) -> dict:
     print(f"{tag} kernel forward vs plain forward: max |err| {err:.2e} "
           f"(tol {FORWARD_TOL})")
 
-    # serving
+    # serving, on graphs and eagerly
     images = [rand(gen, (BATCH, IMAGE, IMAGE, 3)) for _ in range(REQUESTS)]
-    seq = runner.run_sequential(images)
-    reset_counts()
-    engine = DualCoreEngine(runner)
-    res = replay(engine, [Request(im) for im in images])
-    served = launch_counts()
-    check_counts(f"{model} serving", served, per_request, REQUESTS)
-    for i, (a, b) in enumerate(zip(res.outputs, seq)):
-        if a.shape != (BATCH, 1000) or not torch.isfinite(a).all():
-            raise AssertionError(f"{model} request {i}: bad output "
-                                 f"{a.shape}")
-        if not torch.equal(a, b):
-            raise AssertionError(f"{model} request {i}: pipelined output "
-                                 f"differs from the sequential kernel "
-                                 f"forward")
+    seq = eager.run_sequential(images)
+    # warm-up, untimed: the first lane's eager run and capture, then the
+    # lanes the traffic holds at once (captures stay out of every window)
+    runner.run_pipelined(images)
+    served, results = {}, {}
+    for name, r in runners.items():
+        reset_counts()
+        res = replay(DualCoreEngine(r), [Request(im) for im in images])
+        served[name] = launch_counts()
+        results[name] = res
+        check_counts(f"{model} serving on {name}", served[name],
+                     per_request, REQUESTS)
+        for i, (a, b) in enumerate(zip(res.outputs, seq)):
+            if a.shape != (BATCH, 1000) or not torch.isfinite(a).all():
+                raise AssertionError(f"{model} request {i}: bad output "
+                                     f"{a.shape}")
+            if not torch.equal(a, b):
+                raise AssertionError(f"{model} request {i}: the engine on "
+                                     f"{name} differs from the eager "
+                                     f"sequential kernel forward")
+    res = results["graphs"]
+    nodes = group_nodes(runner, graph, tag)
+    lanes = [ln for v in runner.lanes.lanes.values() for ln in v]
+    lane_mb = sum(ln.nbytes for ln in lanes) / len(lanes) / 2 ** 20
+    print(f"{tag} compiled groups: {len(lanes)} lanes of "
+          f"{len(runner.groups)} graphs captured in "
+          f"{runner.capture_s * 1e3:.1f} ms, {lane_mb:.1f} MiB a lane; "
+          f"group {nodes['group']} ({nodes['steps']} steps) has kernel "
+          f"nodes {nodes['kernel_nodes']} (the plan's) and "
+          f"{nodes['other_kernel_nodes']} of PyTorch's")
     m = res.metrics
-    walls: dict[str, list[float]] = {"pipelined": [], "sequential": []}
-    for mode in ("pipelined", "sequential") * 3:      # in turns
-        walls[mode].append(runner.timed(images, mode)[1])
-    t_pipe, t_seq = min(walls["pipelined"]), min(walls["sequential"])
-    print(f"{tag} {REQUESTS} requests x batch {BATCH} @ {IMAGE}px in "
-          f"{res.stats['slots']} slots: {res.stats['wall_s'] * 1e3:.2f} ms, "
-          f"{REQUESTS * BATCH / res.stats['wall_s']:.1f} img/s, p50 "
-          f"{m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; outputs bit-equal "
-          f"to the sequential kernel forward; launches {served}")
-    print(f"{tag} best of 3, in turns: pipelined {t_pipe * 1e3:.2f} ms "
-          f"({REQUESTS * BATCH / t_pipe:.1f} img/s), sequential "
-          f"{t_seq * 1e3:.2f} ms ({REQUESTS * BATCH / t_seq:.1f} img/s), "
-          f"speedup {t_seq / t_pipe:.3f}x")
-    host_ms = host_enqueue_ms(runner, images)
+    walls = {(n, mode): [] for n in runners
+             for mode in ("pipelined", "sequential")}
+    for _ in range(3):                                 # in turns
+        for name, r in runners.items():
+            for mode in ("pipelined", "sequential"):
+                walls[name, mode].append(r.timed(images, mode)[1])
+    best = {k: min(v) for k, v in walls.items()}
+    print(f"{tag} {REQUESTS} requests x batch {BATCH} @ {IMAGE}px on graphs "
+          f"in {res.stats['slots']} slots: {res.stats['wall_s'] * 1e3:.2f} "
+          f"ms, {REQUESTS * BATCH / res.stats['wall_s']:.1f} img/s, p50 "
+          f"{m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; outputs on graphs "
+          f"and eager bit-equal to the eager sequential kernel forward; "
+          f"launches {served['graphs']} on each")
+    host = {name: [] for name in runners}
+    for name in (*runners, *reversed(runners)):        # in turns
+        host[name].append(host_enqueue_ms(runners[name], images))
     sums = kernel_sums(rows, calls)
     device_ms = sum(v["ms"] for v in sums.values())
-    print(f"{tag} per request: host enqueue {host_ms:.3f} ms ({len(calls)} "
-          f"launches; {REQUESTS} requests queued back to back, best of 3), "
-          f"device kernel time {device_ms:.3f} ms (phase 2, summed over the "
-          f"request's calls)")
+    chain_ms = chain_device_ms(runner, eager)
+    print(f"{tag} device ms a request, the whole chain on one stream with "
+          f"the host held out: graphs {chain_ms['graphs']:.4f}, eager "
+          f"{chain_ms['eager']:.4f} (K1's launches are programmatic "
+          f"dependents, K2-K5's are not)")
+    for name in runners:
+        print(f"{tag} {name}: pipelined "
+              + ", ".join(f"{w * 1e3:.2f}" for w in walls[name, "pipelined"])
+              + " ms, sequential "
+              + ", ".join(f"{w * 1e3:.2f}"
+                          for w in walls[name, "sequential"])
+              + f" ms (3 each, in turns); best "
+              f"{REQUESTS * BATCH / best[name, 'pipelined']:.1f} and "
+              f"{REQUESTS * BATCH / best[name, 'sequential']:.1f} img/s"
+              f"; host enqueue a request "
+              + ", ".join(f"{h:.3f}" for h in host[name])
+              + f" ms ({REQUESTS} requests queued back to back, best of 3 a "
+              f"turn) against {device_ms:.3f} ms of device kernel time "
+              f"(phase 2, summed over the request's {len(calls)} launches)")
     return dict(model=model, groups=len(runner.groups),
-                per_request=per_request, launches=served, kernels=sums,
-                forward_max_abs_err=err, wall_s=res.stats["wall_s"],
-                p50_ms=m.p50_ms(), p95_ms=m.p95_ms(), pipelined_s=t_pipe,
-                sequential_s=t_seq, host_enqueue_ms=host_ms,
-                device_ms=device_ms, io=(images, seq))
+                per_request=per_request, launches=served["graphs"],
+                kernels=sums, forward_max_abs_err=err,
+                wall_s=res.stats["wall_s"], p50_ms=m.p50_ms(),
+                p95_ms=m.p95_ms(),
+                pipelined_s=best["graphs", "pipelined"],
+                sequential_s=best["graphs", "sequential"],
+                host_enqueue_ms=min(host["graphs"]), device_ms=device_ms,
+                eager=dict(pipelined_s=walls["eager", "pipelined"],
+                           sequential_s=walls["eager", "sequential"],
+                           host_enqueue_ms=host["eager"],
+                           launches=served["eager"]),
+                graphs=dict(pipelined_s=walls["graphs", "pipelined"],
+                            sequential_s=walls["graphs", "sequential"],
+                            host_enqueue_ms=host["graphs"],
+                            lanes=len(lanes), capture_s=runner.capture_s,
+                            chain_device_ms=chain_ms,
+                            lane_bytes=[ln.nbytes for ln in lanes],
+                            group_nodes=nodes),
+                io=(images, seq))
 
 
 def fused_forward_path(gen, rows: dict) -> dict:
@@ -863,7 +1018,8 @@ def lm_request_calls(size: int) -> list[tuple[dict, float]]:
     forward (48 norms over the 2 x 512 prompt rows, the final norm over the
     last position's 2 rows, 24 flash calls), and its share 1/size of the
     63 decode steps of a group of ``size`` requests (49 norms over the
-    group's rows and 24 decode calls at cache lengths 513..575)."""
+    group's rows and 24 decode calls over the whole cache of 584, masked
+    to 513..575 keys)."""
     from repro_torch.configs.registry import get_arch
     cfg = get_arch(LM_ARCH)
     L, rows = cfg.n_layers, LM_BATCH * size
@@ -871,9 +1027,20 @@ def lm_request_calls(size: int) -> list[tuple[dict, float]]:
              (_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN), L)]
     steps = LM_GEN - 1
     calls.append((_k6(rows), (2 * L + 1) * steps / size))
-    calls += [(_decode(rows, LM_PROMPT + 1 + t, LM_MAX_LEN), L / size)
-              for t in range(steps)]
+    calls += [(c, L / size) for c in lm_decode_calls(rows)]
     return calls
+
+
+def lm_decode_calls(rows: int, whole: bool = True) -> list[dict]:
+    """K7 decode's calls in one layer over the 63 decode steps of a group
+    of ``rows`` rows: over the whole cache, masked to ``kv_len`` (the
+    shape-static decode the path runs), or cut to the filled prefix (the
+    former path's calls)."""
+    lens = range(LM_PROMPT + 1, LM_PROMPT + LM_GEN)
+    if whole:
+        return [_decode(rows, LM_MAX_LEN, LM_MAX_LEN, kv_len=[n] * rows)
+                for n in lens]
+    return [_decode(rows, n, LM_MAX_LEN) for n in lens]
 
 
 def lm_edge_calls() -> list[dict]:
@@ -985,8 +1152,9 @@ def lm_device_ms(cfg, params, rows_dec: int) -> tuple[float, float]:
     prompt, the host's launch cost held out (``cuda_time_ms``)."""
     from repro_torch.kernels.util import cuda_time_ms
     from repro_torch.lm.model import decode_step, init_cache
+    mid = LM_PROMPT + LM_GEN // 2
     cache = init_cache(cfg, rows_dec, LM_MAX_LEN, DEV)._replace(
-        pos=LM_PROMPT + LM_GEN // 2)
+        pos=mid, pos_dev=torch.tensor(mid, dtype=torch.int32, device=DEV))
     tok = torch.zeros((rows_dec, 1), dtype=torch.int64, device=DEV)
     step = cuda_time_ms(lambda: decode_step(params, cfg, tok, cache), reps=4)
     pcache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, DEV)
@@ -996,12 +1164,16 @@ def lm_device_ms(cfg, params, rows_dec: int) -> tuple[float, float]:
     return step, prefill
 
 
-def lm_path(rows: dict) -> dict:
-    """Qwen2-0.5B served through ``DualMeshEngine`` on the two streams."""
+def lm_path(rows: dict, former: dict) -> dict:
+    """Qwen2-0.5B served through ``DualMeshEngine`` on the two streams, its
+    decode steps replayed from CUDA graphs, beside one stream and the
+    eager decode.  ``former`` holds phase 2's rows of K7 decode cut to the
+    filled prefix (the former path's calls)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.dualmesh.cost import CardModel
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+    from repro_torch.kernels.util import cuda_time_ms
     from repro_torch.lm.model import init_params, params_from_numpy
     from repro_torch.serving.api import Request, replay
     from repro_torch.serving.lm import DualMeshEngine
@@ -1023,21 +1195,27 @@ def lm_path(rows: dict) -> dict:
 
     prompts = random_prompts(cfg, LM_REQUESTS, LM_BATCH, LM_PROMPT, seed=1,
                              device=DEV)
-    runners = {}
-    for name, one in (("two", False), ("one", True)):
-        r = DualMeshRunner(cfg, params,
-                           split_streams(DEV, LM_THETA, one_stream=one),
-                           max_len=LM_MAX_LEN)
-        r.serve(prompts[:1], gen_steps=2, group_size=1)     # warm-up
-        runners[name] = r
-    torch.cuda.synchronize()
+    runners = {name: DualMeshRunner(
+        cfg, params, split_streams(DEV, LM_THETA, one_stream=one),
+        max_len=LM_MAX_LEN, jit_groups=jit)
+        for name, one, jit in (("two", False, True), ("one", True, True),
+                               ("eager", False, False))}
     runner = runners["two"]
-    gs = runner.planned_group_size(prompts, [LM_GEN] * LM_REQUESTS)
-    gs_bf16 = runner.planned_group_size(prompts, [LM_GEN] * LM_REQUESTS,
-                                        CardModel(elem_bytes=2))
+    gens = [LM_GEN] * LM_REQUESTS
+    gs = runner.planned_group_size(prompts, gens)
+    gs_former = runner.planned_group_size(
+        prompts, gens, CardModel(step_floor_base=FORMER_STEP_FLOOR_BASE))
+    for r in runners.values():       # warm-up: a decode graph at width gs
+        r.serve(prompts[:gs], gen_steps=2, group_size=gs)
+    torch.cuda.synchronize()
     print(f"[lm] {runner.dual.cores.describe()}; planned group size {gs} "
-          f"(the cost model's f32 bytes; its former bf16 bytes gave "
-          f"{gs_bf16})")
+          f"(step floor {CardModel().step_floor_base * 1e3:.3f} ms; the "
+          f"former {FORMER_STEP_FLOOR_BASE * 1e3:.3f} ms gave {gs_former}); "
+          f"decode graphs: {runner.lanes.count} lane(s) captured in "
+          f"{runner.capture_s * 1e3:.1f} ms, "
+          + ", ".join(f"{ln.nbytes / 2 ** 20:.1f}"
+                      for v in runner.lanes.lanes.values() for ln in v)
+          + " MiB a lane")
 
     def run(name):
         r = runners[name]
@@ -1067,54 +1245,108 @@ def lm_path(rows: dict) -> dict:
                 or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
             raise AssertionError(f"lm request {i}: bad output "
                                  f"{tuple(out.shape)} {out.dtype}")
-    res_one, _ = run("one")
-    for i, (a, b) in enumerate(zip(res.outputs, res_one.outputs)):
-        if not torch.equal(a, b):
-            raise AssertionError(f"lm request {i}: two streams and one "
-                                 f"stream generated different tokens")
-    walls = {"two": [res.stats["wall_s"]], "one": [res_one.stats["wall_s"]]}
-    for name in ("one", "two"):                         # in turns
-        walls[name].append(run(name)[0].stats["wall_s"])
+    runs = {"two": (res, stream_ms)}
+    for name in ("one", "eager"):
+        runs[name] = run(name)
+        for i, (a, b) in enumerate(zip(res.outputs, runs[name][0].outputs)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"lm request {i}: graphs on two "
+                                     f"streams and {name} generated "
+                                     f"different tokens")
+    walls = {name: [r.stats["wall_s"]] for name, (r, _) in runs.items()}
+    per_step = {name: [] for name in ("two", "eager")}
+
+    def step_times(trace, sms) -> tuple[float, float]:
+        dec = [(h, d) for (kind, _, h), d in zip(trace, sms)
+               if kind == "decode"]
+        return (sum(h for h, _ in dec) * 1e3 / steps,
+                sum(d for _, d in dec) / steps)
+
+    for name in ("two", "eager"):
+        per_step[name].append(step_times(runs[name][0].trace,
+                                         runs[name][1]))
+    for name in ("eager", "one", "two"):                # in turns
+        r, sms = run(name)
+        walls[name].append(r.stats["wall_s"])
+        if name in per_step:
+            per_step[name].append(step_times(r.trace, sms))
     s, m = res.stats, res.metrics
     print(f"[lm] {LM_REQUESTS} requests x batch {LM_BATCH}, prompt "
           f"{LM_PROMPT}, {LM_GEN} generated: {s['wall_s'] * 1e3:.2f} ms, "
           f"{s['tokens_per_s']:.1f} tokens/s ({s['total_tokens']} tokens: "
           f"{s['prefill_tokens']} prefill, {s['decode_tokens']} generated), "
           f"p50 {m.p50_ms():.2f} ms, p95 {m.p95_ms():.2f} ms; fused sizes "
-          f"{s['fused_sizes']}; launches {launches} (the plan's)")
-    print(f"[lm] tokens equal on two streams and on one; walls two "
-          f"{[round(w * 1e3, 2) for w in walls['two']]} ms, one "
-          f"{[round(w * 1e3, 2) for w in walls['one']]} ms (runs 1 and 2 "
-          f"of each, in turns)")
+          f"{s['fused_sizes']}; launches {launches} (the plan's, through "
+          f"the decode graphs' replays)")
+    print(f"[lm] tokens equal on graphs over two streams, one stream and "
+          f"the eager decode; walls (runs 1 and 2 of each, in turns) "
+          + "; ".join(f"{name} " + ", ".join(f"{w * 1e3:.2f}" for w in v)
+                      + " ms" for name, v in walls.items()))
     for (kind, core, host_s), sms in zip(res.trace, stream_ms):
         print(f"[lm]   {kind:<8} on {core}  host {host_s * 1e3:9.2f} ms  "
               f"on its stream {sms:9.2f} ms")
-    dec = [(h, d) for (kind, _, h), d in zip(res.trace, stream_ms)
-           if kind == "decode"]
-    host_step = sum(h for h, _ in dec) * 1e3 / steps
-    stream_step = sum(d for _, d in dec) / steps
+    host_step = min(h for h, _ in per_step["two"])
+    stream_step = min(d for _, d in per_step["two"])
     rows_dec = LM_BATCH * gs
     dev_step, dev_prefill = lm_device_ms(cfg, params, rows_dec)
+    lane = runner.lanes.lanes[rows_dec, LM_MAX_LEN][0]
+    mid = LM_PROMPT + LM_GEN // 2
+
+    def replay_step():
+        lane.pos.fill_(mid)          # every replay at the mid position
+        lane.graph.replay()
+
+    graph_step = cuda_time_ms(replay_step, reps=4)
+    eager_lane = runners["eager"].lanes.lanes[rows_dec, LM_MAX_LEN][0]
+
+    def eager_step():
+        eager_lane.pos.fill_(mid)
+        runners["eager"]._step(eager_lane)
+
+    launch_ms = {"graphs": launch_host_ms(replay_step),
+                 "eager": launch_host_ms(eager_step)}
     k6_step = (2 * L + 1) * rows[json.dumps(_k6(rows_dec),
                                             sort_keys=True)]["ms"]
-    k7_step = L * sum(rows[json.dumps(_decode(rows_dec, LM_PROMPT + 1 + t,
-                                              LM_MAX_LEN),
-                                      sort_keys=True)]["ms"]
-                      for t in range(LM_GEN - 1)) / (LM_GEN - 1)
-    print(f"[lm] per decode step ({rows_dec} rows): host enqueue "
-          f"{host_step:.3f} ms and {stream_step:.3f} ms on the p stream "
-          f"(events around each decode stage, over {steps} steps); device "
-          f"{dev_step:.3f} ms (one step at cache {LM_PROMPT + LM_GEN // 2}, "
-          f"host held out), of it K6 {k6_step:.4f} ms (49 calls) and K7 "
-          f"decode {k7_step:.4f} ms (24 calls, phase 2); one prefill "
+    k7 = {name: L * sum(table[json.dumps(c, sort_keys=True)]["ms"]
+                        for c in lm_decode_calls(rows_dec, whole))
+          / (LM_GEN - 1)
+          for name, table, whole in (("whole", rows, True),
+                                     ("cut", former, False))}
+    implied = {"served": 4 * host_step * 1e-3 / L,
+               "launch": 4 * launch_ms["graphs"] * 1e-3 / L}
+    print(f"[lm] per decode step ({rows_dec} rows): host enqueue graphs "
+          + ", ".join(f"{h:.3f}" for h, _ in per_step["two"])
+          + " ms, eager "
+          + ", ".join(f"{h:.3f}" for h, _ in per_step["eager"])
+          + " ms; on the p stream graphs "
+          + ", ".join(f"{d:.3f}" for _, d in per_step["two"])
+          + " ms, eager "
+          + ", ".join(f"{d:.3f}" for _, d in per_step["eager"])
+          + f" ms (events around each decode stage, over {steps} steps, "
+          f"runs 1 and 2 in turns); device, host held out: one graph "
+          f"replay {graph_step:.3f} ms, one eager step {dev_step:.3f} ms "
+          f"(cache {mid}); of it K6 {k6_step:.4f} ms (49 calls) and K7 "
+          f"decode {k7['whole']:.4f} ms (24 calls over the whole cache; "
+          f"cut to the prefix {k7['cut']:.4f} ms, phase 2); one prefill "
           f"forward (2 x {LM_PROMPT}) {dev_prefill:.3f} ms on the device")
+    print(f"[lm] host time to queue one decode step with the launch queue "
+          f"free (the card held by a sleep; median of 20): graph replay "
+          f"{launch_ms['graphs']:.4f} ms, eager {launch_ms['eager']:.4f} ms; "
+          f"the served steps' enqueue above includes waits on a full queue")
+    gs_launch = runner.planned_group_size(
+        prompts, gens, CardModel(step_floor_base=implied["launch"]))
+    print(f"[lm] step_floor_base implied by the served graphs' enqueue: 4 x "
+          f"{host_step:.3f} ms / {L} = {implied['served']:.4e} s "
+          f"(CardModel's {CardModel().step_floor_base:.4e}); by the launch "
+          f"alone {implied['launch']:.4e} s, under which the planner picks "
+          f"group size {gs_launch}")
     model = step_model(cfg, runner.dual, rows_dec)
     print(f"[lm] cost model, one decode step of {rows_dec} rows at cache "
-          f"{LM_PROMPT + LM_GEN // 2}: {model['latency_ms']:.3f} ms "
+          f"{mid}: {model['latency_ms']:.3f} ms "
           f"({model['bound']}: the step floor {model['floor_ms']:.3f} ms of "
           f"host dispatch; f32 bytes {model['bytes_ms']:.3f} ms, compute "
           f"{model['compute_ms']:.3f} ms) against {host_step:.3f} ms of "
-          f"host enqueue and {dev_step:.3f} ms on the device, measured")
+          f"host enqueue and {graph_step:.3f} ms on the device, measured")
     k6_after = sum(wgt * rows[json.dumps(c, sort_keys=True)]["after_ms"]
                    for c, wgt in lm_request_calls(s["fused_sizes"][0])
                    if c["kernel"] == "rmsnorm")
@@ -1131,17 +1363,40 @@ def lm_path(rows: dict) -> dict:
     return dict(model=LM_ARCH, launches=launches,
                 kernels=weighted_sums(rows, lm_request_calls(
                     s["fused_sizes"][0])),
-                group_size=gs, fused_sizes=s["fused_sizes"],
+                group_size=gs, group_size_former_floor=gs_former,
+                fused_sizes=s["fused_sizes"],
                 wall_s=s["wall_s"], tokens_per_s=s["tokens_per_s"],
                 p50_ms=m.p50_ms(), p95_ms=m.p95_ms(), walls=walls,
                 trace=[[k, c, h, d] for (k, c, h), d in zip(res.trace,
                                                              stream_ms)],
-                host_ms_per_step=host_step, stream_ms_per_step=stream_step,
-                device_ms_per_step=dev_step, device_ms_prefill=dev_prefill,
-                k6_ms_per_step=k6_step, k7_decode_ms_per_step=k7_step,
+                per_step=per_step, host_ms_per_step=host_step,
+                stream_ms_per_step=stream_step,
+                device_ms_per_step=dev_step, graph_ms_per_step=graph_step,
+                device_ms_prefill=dev_prefill,
+                k6_ms_per_step=k6_step, k7_decode_ms_per_step=k7["whole"],
+                k7_decode_cut_ms_per_step=k7["cut"],
+                step_floor_base_implied=implied,
+                step_launch_host_ms=launch_ms,
+                capture_s=runner.capture_s,
+                lane_bytes=[ln.nbytes for v in runner.lanes.lanes.values()
+                            for ln in v],
                 k6_after_producer_ms=k6_after,
                 card_vs_cpu_max_abs_err=err, rates=rates,
-                group_size_bf16=gs_bf16, step_model=model)
+                step_model=model)
+
+
+def launch_host_ms(fn, n: int = 20) -> float:
+    """Median host ms of one ``fn()`` call while a sleep kernel holds the
+    card, so no launch waits on a full launch queue."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)              # ~50 ms
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[n // 2]
 
 
 def step_model(cfg, dual, rows: int) -> dict:
@@ -1200,7 +1455,8 @@ def fleet_path(served: dict) -> dict:
     phase 3's sequential kernel forward, launches as the plans say; the
     compiled stream's signature and a fresh fleet's bitwise replay; two
     pools with a forced migration and a REBALANCE; walls in turns against
-    the same requests drained one engine at a time."""
+    the same requests drained one engine at a time, on compiled groups and
+    eagerly."""
     from repro_torch.core.arch import DUAL_MULTI
     from repro_torch.fleet import (FleetEngine, MultiPoolRouter, Rebalance,
                                    build_cnn_fleet, compile_fleet,
@@ -1223,10 +1479,17 @@ def fleet_path(served: dict) -> dict:
     def requests():
         return [Request(served[m]["io"][0][i], model=m) for m, i in order]
 
-    def build(pool=None):
+    def build(pool=None, jit_groups=True):
         return build_cnn_fleet(models, pool=pool, device=DEV, seed=0,
                                scheme=SCHEME, policy=make_policy(POLICY),
-                               weights=mix, burst=BURST)
+                               weights=mix, burst=BURST,
+                               jit_groups=jit_groups)
+
+    def warm(fl):
+        """Warm each member's graphs, as ``serve fleet`` does."""
+        for mm in fl.members:
+            mm.engine.runner.run_sequential(served[mm.name]["io"][0][:1])
+        return fl
 
     def check_outputs(what: str, outs) -> None:
         if len(outs) != len(want):
@@ -1280,7 +1543,7 @@ def fleet_path(served: dict) -> dict:
           f"instructions)")
 
     # a fresh fleet replays the compiled stream bit for bit
-    fresh, _ = build()
+    fresh = warm(build()[0])
     reset_counts()
     rep = fresh.executor.replay(compiled, requests())
     check_counts("fleet replay", launch_counts(), dict(per_fleet))
@@ -1291,7 +1554,8 @@ def fleet_path(served: dict) -> dict:
           f"output bit-equal")
 
     # two pools: a forced migration and a REBALANCE with work in flight
-    router = MultiPoolRouter({"p0": build()[0], "p1": build()[0]})
+    router = MultiPoolRouter({"p0": warm(build()[0]),
+                              "p1": warm(build()[0])})
     reset_counts()
     for r in requests():
         router.submit(r)
@@ -1314,31 +1578,37 @@ def fleet_path(served: dict) -> dict:
           f"completed ok, outputs bit-equal, launches as the plans say")
 
     # walls, in turns: the fleet, then the same requests drained one
-    # engine at a time on standalone runners (each its own two streams)
+    # engine at a time on standalone runners (each its own two streams),
+    # on compiled groups and eagerly
     from repro_torch.core.arch import DUAL_BASELINE, BoardModel
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.dualcore.runtime import DualCoreRunner
     from repro_torch.models.cnn import build_model
-    alone = {}
+    fleets = {"graphs": fleet, "eager": build(jit_groups=False)[0]}
+    replay(over(fleets["eager"]), requests())        # warm its streams
+    alone: dict[str, dict] = {"graphs": {}, "eager": {}}
     for mname in models:
         params, _, graph = build_model(mname, seed=0, device=DEV)
         sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
-        alone[mname] = DualCoreRunner(mname, params, sched, device=DEV)
-        alone[mname].run_sequential(served[mname]["io"][0][:1])
+        for name in alone:
+            r = alone[name][mname] = DualCoreRunner(
+                mname, params, sched, device=DEV,
+                jit_groups=name == "graphs")
+            r.run_pipelined(served[mname]["io"][0])   # warm, lanes grown
 
-    def fleet_wall() -> tuple[float, float]:
-        fl = over(fleet)
+    def fleet_wall(fl) -> tuple[float, float]:
+        fl = over(fl)
         t0 = time.perf_counter()
         out = replay(fl, requests())
         wall = time.perf_counter() - t0
         check_outputs("fleet (timed)", out.outputs)
         return wall, host_enqueue_ms(fl.stream)
 
-    def one_at_a_time() -> float:
+    def one_at_a_time(runners) -> float:
         t0 = time.perf_counter()
         outs = {}
         for mname in models:
-            eng = DualCoreEngine(alone[mname])
+            eng = DualCoreEngine(runners[mname])
             outs[mname] = replay(eng, [Request(x) for x in
                                        served[mname]["io"][0]]).outputs
         wall = time.perf_counter() - t0
@@ -1346,22 +1616,30 @@ def fleet_path(served: dict) -> dict:
                       [outs[mm][i] for mm, i in order])
         return wall
 
-    walls: dict[str, list[float]] = {"fleet": [], "alone": []}
-    hosts = []
+    walls = {(k, n): [] for k in ("fleet", "alone") for n in fleets}
+    hosts: dict[str, list[float]] = {n: [] for n in fleets}
     for _ in range(TURNS):
-        w, h = fleet_wall()
-        walls["fleet"].append(w)
-        hosts.append(h)
-        walls["alone"].append(one_at_a_time())
-    t_fleet, t_alone = min(walls["fleet"]), min(walls["alone"])
+        for name in fleets:
+            w, h = fleet_wall(fleets[name])
+            walls["fleet", name].append(w)
+            hosts[name].append(h)
+            walls["alone", name].append(one_at_a_time(alone[name]))
     n_img = len(order) * BATCH
-    print(f"{tag} in turns, {TURNS} each: fleet "
-          + ", ".join(f"{w * 1e3:.2f}" for w in walls["fleet"])
-          + " ms; one engine at a time "
-          + ", ".join(f"{w * 1e3:.2f}" for w in walls["alone"])
-          + f" ms; best {n_img / t_fleet:.1f} against {n_img / t_alone:.1f}"
-          f" img/s ({t_alone / t_fleet:.3f}x); host enqueue a fleet slot "
-          + ", ".join(f"{h:.3f}" for h in hosts) + " ms")
+    for name in fleets:
+        t_fleet = min(walls["fleet", name])
+        t_alone = min(walls["alone", name])
+        print(f"{tag} {name}, in turns, {TURNS} each: fleet "
+              + ", ".join(f"{w * 1e3:.2f}" for w in walls["fleet", name])
+              + " ms; one engine at a time "
+              + ", ".join(f"{w * 1e3:.2f}" for w in walls["alone", name])
+              + f" ms; best {n_img / t_fleet:.1f} against "
+              f"{n_img / t_alone:.1f} img/s ({t_alone / t_fleet:.3f}x); "
+              f"host enqueue a fleet slot "
+              + ", ".join(f"{h:.3f}" for h in hosts[name]) + " ms")
+    lanes = {mm.name: mm.engine.runner.lanes.count for mm in fleet.members}
+    print(f"{tag} compiled groups: lanes a member {lanes}, captured in "
+          + ", ".join(f"{mm.engine.runner.capture_s * 1e3:.1f}"
+                      for mm in fleet.members) + " ms")
 
     # the Table VII planner's rows beside the measured per-model rates
     plan = plan_fleet(mix, config=DUAL_MULTI)
@@ -1378,8 +1656,14 @@ def fleet_path(served: dict) -> dict:
                 kernels={}, per_fleet=dict(per_fleet),
                 slots=st["slots"], dispatches=st["dispatches"],
                 wall_s=st["wall_s"], per_model=st["per_model"],
-                host_enqueue_ms=host_ms, walls_fleet_s=walls["fleet"],
-                walls_alone_s=walls["alone"], host_enqueue_turns_ms=hosts,
+                host_enqueue_ms=host_ms,
+                walls_fleet_s=walls["fleet", "graphs"],
+                walls_alone_s=walls["alone", "graphs"],
+                host_enqueue_turns_ms=hosts["graphs"],
+                eager=dict(walls_fleet_s=walls["fleet", "eager"],
+                           walls_alone_s=walls["alone", "eager"],
+                           host_enqueue_turns_ms=hosts["eager"]),
+                lanes=lanes,
                 two_pools=dict(moved=moved, stats={
                     k: two.stats[k] for k in ("steps", "rebalances")}),
                 plan=dict(plan.summary(), rows=[list(r) for r in rows]))
@@ -1442,6 +1726,12 @@ def main() -> int:
               f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})  err {r['max_abs_err']:.1e}  plan "
               f"{plan_str(r['plan'])}")
+    former = {}
+    for c in lm_decode_calls(LM_BATCH * max(lm_group_sizes()), whole=False):
+        former[json.dumps(c, sort_keys=True)] = check_and_time(c, gen,
+                                                               timing=True)
+    print(f"[kernels] K7 decode also cut to the filled prefix (the former "
+          f"path's calls): {len(former)} shapes checked and timed")
     edges = edge_calls() + lm_edge_calls() + lm_geometry_edge_calls()
     for c in edges:
         r = check_and_time(c, gen, timing=False)
@@ -1463,7 +1753,7 @@ def main() -> int:
         del p["io"]
 
     # 5. lm ---------------------------------------------------------------
-    paths.append(lm_path(rows))
+    paths.append(lm_path(rows, former))
     granite = granite_path()
 
     # 6. report -----------------------------------------------------------
@@ -1486,6 +1776,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, torch=torch.__version__,
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
+        former_decode_rows=list(former.values()),
         paths=paths, granite=granite, kernels=kernels), indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")

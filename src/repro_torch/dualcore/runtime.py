@@ -11,19 +11,44 @@ offset through ``repro_torch.serving.cnn.DualCoreEngine``.
 The two cores on one card (:class:`DualCores`): the c-core and the p-core
 are two CUDA streams of the same device.  Both streams share all of the
 card's SMs: ``theta`` (the Eq.10 split) is recorded but does not split SMs
-yet.  A group waits on the ready event of the env it receives, runs its
-steps on its core's stream, and records a new ready event; tensors handed
-across streams are marked with ``record_stream`` so the caching allocator
-never reuses their memory while the other stream may still read them.  On
-the CPU both cores alias one queue, like the reference's degenerate
-single-device split.  Parameters live once on the device: the reference's
-per-core ``device_put`` and ``jax.jit`` donation have no counterpart.
+yet.  A group waits on the ready event of the env it receives, runs on its
+core's stream, and records a new ready event; tensors handed across
+streams are marked with ``record_stream`` so the caching allocator never
+reuses their memory while the other stream may still read them.  On the
+CPU both cores alias one queue, like the reference's degenerate
+single-device split.  Parameters live once on the device, read by both
+cores: the reference's per-core ``device_put`` has no counterpart.
+
+Compiled groups (``jit_groups``, the reference's per-group ``jax.jit``):
+on the card each exec group runs as one CUDA graph, replayed between the
+ready-event wait and the new event's record.  A graph reads and writes
+fixed addresses, so a request runs on a :class:`Lane`: one graph per exec
+group, captured in chain order from one private memory pool, group g+1's
+graph reading in place what group g's graph wrote (the counterpart of
+``donate_argnums=(1,)``).  ``place_input`` copies the image into the lane
+(group 0 never writes the caller's tensor), the last group clones
+``"out"`` out of it and hands the lane back to its :class:`LanePool`,
+behind that group's ready event.  Lanes are pooled per input shape and
+dtype; a lane is reused only behind a device-side wait on its previous
+request's last ready event, and when every lane is held the pool grows by
+a new capture.  A capture can wait until the card is idle
+(``tools/capture_wait.py``), so the lanes a traffic pattern holds at once
+are made by a warm-up run of that traffic (``serve``, ``chip_smoke.py``);
+after it the host never waits.  The first lane of a shape is
+preceded by one eager run of the chain on the cores' streams (the library
+build, the kernels' attributes, the host planners, the allocator).  A
+failed capture raises with the group and the step; nothing falls back to
+the eager path, which runs only with ``jit_groups=False``.  On the CPU
+``jit_groups`` and ``donate`` are accepted and change nothing, as donation
+changes nothing on the reference's CPU backend.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import time
+from collections import deque
+from typing import Callable
 
 import torch
 
@@ -33,10 +58,13 @@ from repro_torch.core.latency import layer_latency
 from repro_torch.core.scheduler import Group, Schedule
 from repro_torch.dualcore.program import (Env, Params, Program, Step,
                                           build_program, regroup_fused)
-from repro_torch.kernels.util import resolve_device
+from repro_torch.kernels.util import (CountedGraph, capture_graph,
+                                     resolve_device)
 
 #: env key of the CUDA event that marks the env's tensors as written
 READY = "ready_event"
+#: env key of the :class:`Lane` a request runs on (compiled groups)
+LANE = "lane"
 
 
 @dataclasses.dataclass
@@ -202,6 +230,70 @@ def wait_ready(env: Env) -> None:
 
 
 # --------------------------------------------------------------------------
+# lanes: the static buffers of compiled groups
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(eq=False)
+class Lane:
+    """One request's static buffers and the graphs that use them: the
+    input ``x``, and for each exec group its graph and the env it leaves
+    (the next group's graph reads that env in place)."""
+
+    key: tuple                       # (input shape, dtype)
+    x: torch.Tensor                  # the static input group 0 reads
+    graphs: list[CountedGraph]       # one per exec group, in chain order
+    envs: list[dict]                 # the static env each group leaves
+    nbytes: int = 0                  # device memory the capture took
+    free_after: torch.cuda.Event | None = None  # last user's final event
+
+    def load(self, x: torch.Tensor) -> dict:
+        """Copy ``x`` into the lane on the current stream, behind a
+        device-side wait on the previous request's final ready event;
+        return group 0's env.  The caller's tensor is only read."""
+        if self.free_after is not None:
+            torch.cuda.current_stream(self.x.device).wait_event(
+                self.free_after)
+        self.x.copy_(x)
+        return {"h": self.x}
+
+
+class LanePool:
+    """Lanes pooled by key: a :class:`Lane` by input shape and dtype, the
+    LM runtime's ``DecodeLane`` by rows and capacity (anything with a
+    ``key`` and a ``free_after`` event).  ``acquire`` hands out the free
+    lane of the key released longest ago, whose next user waits for its
+    ``free_after`` event on the card, or makes a new one with
+    ``make(key)`` when every lane of the key is held; ``retire`` takes a
+    lane back with the event after which its buffers are free.  Plain
+    Python: it never waits.  Making a lane captures graphs, which can wait
+    until the card is idle, so the lanes a traffic pattern holds at once
+    are made by a warm-up run of that traffic."""
+
+    def __init__(self, make: Callable[[tuple], Lane]):
+        self._make = make
+        self._free: dict[tuple, deque[Lane]] = {}
+        self.lanes: dict[tuple, list[Lane]] = {}   # every lane made, by key
+
+    def acquire(self, key: tuple) -> Lane:
+        """The free lane of ``key`` released longest ago, or a new one."""
+        free = self._free.get(key)
+        if free:
+            return free.popleft()
+        lane = self._make(key)
+        self.lanes.setdefault(key, []).append(lane)
+        return lane
+
+    def retire(self, lane: Lane, ready: torch.cuda.Event | None) -> None:
+        """Return ``lane``; its next user waits on ``ready`` on the card."""
+        lane.free_after = ready
+        self._free.setdefault(lane.key, deque()).append(lane)
+
+    @property
+    def count(self) -> int:
+        """Lanes made, over every key."""
+        return sum(len(v) for v in self.lanes.values())
+
+
+# --------------------------------------------------------------------------
 # runner
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -231,12 +323,21 @@ class DualCoreRunner:
     every member dispatches onto the same two streams (the reference's
     ``devices=`` taking a ``DualMesh``); without it the runner makes its
     own at ``theta``.
+
+    ``jit_groups`` (the reference's name and default) runs each exec group
+    as one CUDA graph on the card, on a :class:`Lane` the request holds
+    (module docstring); ``donate`` (default: on the card) lets a group
+    hand on the lane's buffers in place, and without it each group's env is
+    cloned out of the lane, so an env a caller holds stays valid.  Neither
+    changes anything on the CPU.  ``lanes`` is the :class:`LanePool`, and
+    ``capture_s`` the host seconds spent capturing lanes.
     """
 
     def __init__(self, graph: LayerGraph | str, params: Params,
                  schedule: Schedule, *, device: str | torch.device = "cuda",
                  theta: float = 0.5, fuse: bool | str = "group",
-                 cores: DualCores | None = None):
+                 cores: DualCores | None = None, jit_groups: bool = True,
+                 donate: bool | None = None):
         self.device = resolve_device(device)
         group_fusion = fuse == "group"
         self.program = build_program(graph,
@@ -253,9 +354,16 @@ class DualCoreRunner:
         # one copy of the parameters, read by both cores
         self._params = {n: {k: v.to(self.device) for k, v in p.items()}
                         for n, p in params.items()}
-        if self.device.type == "cuda":
+        on_card = self.device.type == "cuda"
+        if on_card:
             torch.cuda.synchronize(self.device)   # params visible to both
-        self._fns = [self._group_fn(i) for i in range(len(self.groups))]
+        self.jit_groups = jit_groups
+        self.donate = on_card if donate is None else donate
+        self._compiled = jit_groups and on_card
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self._compiled else None)
+        self.lanes = LanePool(self._new_lane)
+        self.capture_s = 0.0
 
     def _check_cores(self, cores: DualCores) -> None:
         if cores.device != self.device:
@@ -265,42 +373,114 @@ class DualCoreRunner:
     def relocate(self, cores: DualCores) -> None:
         """Rebind the runner onto a re-split pool's cores (the runner's
         half of a REBALANCE).  The parameters stay where they are: one
-        copy on the device serves both cores.  Envs in flight keep their
-        ready events; the next group's stream waits on them."""
+        copy on the device serves both cores, and the lanes' graphs are
+        kept (a replay runs on whichever stream is current).  Envs in
+        flight keep their ready events; the next group's stream waits on
+        them."""
         self._check_cores(cores)
         self.cores = cores
 
-    def _group_fn(self, gi: int):
-        steps = self.groups[gi].steps
+    def _eager(self, gi: int, env: Env, at: list | None = None) -> Env:
+        """Exec group ``gi``'s steps, one launch each, on the current
+        stream; returns the env the next group needs.  ``at[0]`` names
+        the step running, when given."""
+        env = dict(env)
+        for s in self.groups[gi].steps:
+            if at is not None:
+                at[0] = s.name
+            s.fn(self._params, env, None)
         live = self.plan.live_after[gi]
-
-        def group_fn(params: Params, env: Env) -> Env:
-            env = dict(env)
-            for s in steps:
-                s.fn(params, env, None)
-            return {k: v for k, v in env.items() if k in live}
-
-        return group_fn
+        return {k: v for k, v in env.items() if k in live}
 
     def _run_group(self, gi: int, env: Env) -> Env:
         """Run exec group ``gi`` on its core.  On CUDA: wait for the env's
         ready event on the core's stream, mark the incoming tensors as used
-        there, run, and record the new env's ready event."""
+        there, run the group (its lane's graph, or eagerly), and record the
+        new env's ready event.  The last group clones ``"out"`` out of
+        the lane and retires the lane behind that event."""
         stream = self.cores.streams[self.groups[gi].core]
         if stream is None:
-            return self._fns[gi](self._params, env)
+            return self._eager(gi, env)
         env = dict(env)
         ready = env.pop(READY, None)
+        lane = env.pop(LANE, None)
+        last = gi == len(self.groups) - 1
         with torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
             for v in env.values():
                 v.record_stream(stream)
-            out = self._fns[gi](self._params, env)
+            if lane is None:
+                out = self._eager(gi, env)
+            else:
+                lane.graphs[gi].replay()
+                out = {k: v.clone() if last or not self.donate else v
+                       for k, v in lane.envs[gi].items()}
             done = torch.cuda.Event()
             done.record(stream)
+        if lane is not None:
+            if last:
+                self.lanes.retire(lane, done)
+            else:
+                out[LANE] = lane
         out[READY] = done
         return out
+
+    # ------------------------------------------------------------------
+    # compiled groups
+    # ------------------------------------------------------------------
+    def _new_lane(self, key: tuple) -> Lane:
+        """Capture a lane for inputs of ``key`` (shape, dtype): every
+        exec group in chain order, from one new private pool.  The first
+        lane of a key first runs the chain eagerly on the cores' streams."""
+        shape, dtype = key
+        x = torch.zeros(shape, dtype=dtype, device=self.device)
+        if not self.lanes.lanes.get(key):
+            self._warm(x)
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        env: Env = {"h": x}
+        graphs, envs = [], []
+        for gi in range(len(self.groups)):
+            graph, env = self._capture(gi, env, pool)
+            graphs.append(graph)
+            envs.append(env)
+        nbytes = (torch.cuda.memory_reserved(self.device) - reserved
+                  + x.numel() * x.element_size())
+        self.capture_s += time.perf_counter() - t0
+        return Lane(key=key, x=x, graphs=graphs, envs=envs, nbytes=nbytes)
+
+    def _warm(self, x: torch.Tensor) -> None:
+        """Run the chain eagerly once on the cores' streams: it builds the
+        library, sets the kernels' attributes, fills the host planners'
+        caches and the allocator's pools for the streams."""
+        env = self._eager_input(x)
+        for gi in range(len(self.groups)):
+            env = self._run_group(gi, env)
+
+    def _capture(self, gi: int, env: Env, pool,
+                 debug: bool = False) -> tuple[CountedGraph, Env]:
+        """Capture exec group ``gi`` reading ``env`` (static tensors) on
+        the runner's capture stream; raises naming the group and the step
+        that broke the capture."""
+        at: list[str | None] = [None]
+
+        def body() -> Env:
+            out = self._eager(gi, env, at)
+            at[0] = None
+            return out
+
+        try:
+            return capture_graph(body, stream=self._capture_stream,
+                                 pool=pool, debug=debug)
+        except Exception as err:
+            where = (f"in step {at[0]!r}" if at[0] is not None
+                     else "at the end of the capture")
+            raise RuntimeError(
+                f"{self.graph.name}: capturing exec group {gi} "
+                f"({self.groups[gi].core}-core) failed {where}: {err}"
+            ) from err
 
     # ------------------------------------------------------------------
     # executor-facing surface: what a RUN instruction needs
@@ -314,15 +494,28 @@ class DualCoreRunner:
     def place_input(self, x: torch.Tensor) -> Env:
         """Wrap a raw input into the env of a new stream, on the runner's
         device, with a ready event recorded on the caller's stream (the
-        first group's core waits on it)."""
+        first group's core waits on it).  With compiled groups the input
+        is copied into a lane the request holds until its last group."""
         if x.device != self.device:
             x = x.to(self.device)
-        env: Env = {"h": x.contiguous()}
-        if self.cores.on_card:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            env[READY] = ready
+        if not self._compiled:
+            return self._eager_input(x.contiguous())
+        lane = self.lanes.acquire((tuple(x.shape), x.dtype))
+        env = lane.load(x)
+        env[READY] = self._record_ready()
+        env[LANE] = lane
         return env
+
+    def _eager_input(self, x: torch.Tensor) -> Env:
+        env: Env = {"h": x}
+        if self.cores.on_card:
+            env[READY] = self._record_ready()
+        return env
+
+    def _record_ready(self) -> torch.cuda.Event:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return ready
 
     # ------------------------------------------------------------------
     def run_pipelined(self, images, record: list | None = None):
@@ -351,7 +544,8 @@ class DualCoreRunner:
     def timed(self, images, mode: str = "pipelined",
               reps: int = 1) -> tuple[list, float]:
         """Best-of-``reps`` wall-clock of a full run (every output
-        materialized before the clock stops)."""
+        materialized before the clock stops).  With reps > 1 the best rep
+        excludes the lanes' captures (they land in the first rep)."""
         run = (self.run_pipelined if mode == "pipelined"
                else self.run_sequential)
         outs, best = None, float("inf")

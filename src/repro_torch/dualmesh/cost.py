@@ -42,12 +42,19 @@ class CardModel:
     bw_ceiling: float = 0.905
     # Per-decode-step floor: the reference's dispatch + collective + DP
     # sync term, which makes decode prefer large fused groups.  On one card
-    # it is the host's dispatch: chip_smoke.py measured 16.738 ms of host
-    # enqueue per Qwen2-0.5B decode step (24 layers) on the same card
-    # (PERF.md, section 6); the formula charges n_layers * base / 4 a step, so
-    # base = 4 * 16.738 ms / 24.  The TP and DP parts have no card number:
-    # one card has no TP or DP group (ROADMAP).
-    step_floor_base: float = 2.79e-3
+    # it is what the serving loop waits a step: chip_smoke.py measured 5.387
+    # ms of host enqueue per Qwen2-0.5B decode step (24 layers) replayed
+    # from a CUDA graph, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+    # section 6); the formula charges n_layers * base / 4 a step, so
+    # base = 4 * 5.387 ms / 24.  With graphs that enqueue waits on the
+    # card's full launch queue, so it stands for the step's time on the
+    # card (6.35 ms on its stream, against 0.72 ms of f32 bytes in this
+    # model); the launch alone, 0.409 ms of host time, would give 6.82e-5,
+    # and the planner would then size groups by the 0.72 ms alone (2, not
+    # 8, for the path's 8 requests).  Eager launches, 16.738 ms a step,
+    # gave 2.79e-3 before decode steps were graphs.  The TP and DP parts
+    # have no card number: one card has no TP or DP group (ROADMAP).
+    step_floor_base: float = 8.978e-4
     step_floor_tp: float = 0.0     # x log2(tp)
     step_floor_dp: float = 0.0     # x log2(chips / tp)
     # bytes of one served element (weights, activations, KV cache): the

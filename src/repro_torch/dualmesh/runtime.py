@@ -17,12 +17,27 @@ event after its last step or eviction; completions wait on that one
 event, never on the whole device.
 
 The KV cache is written in place (no copy per step): prefill writes a
-stream's cache on the c-core, and from the fuse on only the p-core writes
-it, whether the group reuses it (one member) or concatenates the members'
-caches into a new one.  No cache is written by both streams.
+stream's cache on the c-core; the fuse copies the members' caches and
+tokens into a :class:`DecodeLane` on the p-core, and from then on only the
+p-core writes it.  No buffer is written by both streams.
 
-Streams fuse only at equal cache position, because ``DecodeCache.pos`` is
-one host int per group; equal-length prompts always align.
+Compiled decode (``jit_groups``, the reference's ``jax.jit`` of
+``decode_fn``): a decode group runs on a lane, the static buffers of its
+key (rows, cache capacity): the cache, each row's tokens (prompt, then
+every generated token, at its position) and the device position.  One
+fused step (embed, every layer, the final norm, the LM head, the argmax
+written into the token buffer, the position advanced) reads and writes
+only those, at the same shapes at every position (``lm/model.py``'s
+shape-static decode), so on the card it is captured once per lane into a
+CUDA graph and replayed once a step.  Lanes are pooled per key: the fuse
+and the eviction copy into a free lane of their width (a new capture when
+every lane of the key is held) and hand the old one back behind the
+p-core's event, so two live groups never share buffers.  The first lane of
+a key is preceded by one eager step.  Without ``jit_groups``, or on the
+CPU, the same step runs eagerly on the same lanes.  Prefill stays eager.
+
+Streams fuse only at equal cache position, because a group's position is
+one host int (and one device scalar); equal-length prompts always align.
 ``run_two_streams`` is the N=2, group_size=1 case, the paper's two-image
 interleave.
 """
@@ -36,38 +51,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.dualcore.runtime import LanePool
 from repro_torch.dualmesh.cost import CardModel
 from repro_torch.dualmesh.partition import DualStreams
 from repro_torch.dualmesh.schedule import plan_admission
+from repro_torch.kernels.util import CountedGraph, capture_graph
 from repro_torch.lm.config import ArchConfig
 from repro_torch.lm.model import (DecodeCache, check_supported, decode_step,
                                   init_cache)
-
-Rows = list[tuple[int, int]]     # [row0, row1) ranges of a fused batch
-
-
-def _concat_caches(caches: Sequence[DecodeCache]) -> DecodeCache:
-    """Stack position-aligned caches along the batch axis (the first one
-    itself when there is one)."""
-    first = caches[0]
-    if len(caches) == 1:
-        return first
-    if any(c.pos != first.pos for c in caches):
-        raise ValueError("only position-aligned caches fuse")
-    return DecodeCache(torch.cat([c.kv_k for c in caches], dim=1),
-                       torch.cat([c.kv_v for c in caches], dim=1),
-                       first.pos)
-
-
-def _take_rows(cache: DecodeCache, rows: Rows) -> DecodeCache:
-    """A new cache holding the given row ranges, in order."""
-    return DecodeCache(torch.cat([cache.kv_k[:, a:b] for a, b in rows], 1),
-                       torch.cat([cache.kv_v[:, a:b] for a, b in rows], 1),
-                       cache.pos)
-
-
-def _rows_of(t: torch.Tensor, rows: Rows) -> torch.Tensor:
-    return torch.cat([t[a:b] for a, b in rows], 0)
 
 
 @dataclasses.dataclass
@@ -82,6 +73,22 @@ class StreamState:
     ready: torch.cuda.Event | None = None   # c-core: tokens/cache written
 
 
+@dataclasses.dataclass(eq=False)
+class DecodeLane:
+    """The static buffers of a fused decode group of ``key`` = (rows,
+    cache capacity), and the graph of one step over them (on the card)."""
+
+    key: tuple[int, int]
+    kv_k: torch.Tensor         # (L, rows, Hkv, capacity, Dh)
+    kv_v: torch.Tensor
+    seq: torch.Tensor          # (rows, capacity + 1) int64: every token
+    pos: torch.Tensor          # () int32: positions cached
+    logits: torch.Tensor | None = None   # the last step's (rows, 1, V)
+    graph: CountedGraph | None = None
+    nbytes: int = 0            # device memory of buffers and capture
+    free_after: torch.cuda.Event | None = None  # last user's final event
+
+
 @dataclasses.dataclass
 class _Member:
     """A stream's slice of a fused decode group."""
@@ -89,7 +96,6 @@ class _Member:
     rid: int
     row0: int                  # first row in the fused batch
     batch: int
-    prefix: torch.Tensor       # tokens up to (and incl.) the prefill emit
     remaining: int
 
 
@@ -98,9 +104,8 @@ class DecodeGroup:
     """Several position-aligned streams decoding as one fused batch."""
 
     members: list[_Member]
-    last_tok: torch.Tensor     # (B_total, 1)
-    cache: DecodeCache
-    history: list[torch.Tensor] = dataclasses.field(default_factory=list)
+    lane: DecodeLane
+    pos: int                   # positions cached (the lane's, on the host)
     ready: torch.cuda.Event | None = None   # p-core: last work written
 
     @property
@@ -127,11 +132,14 @@ class DualMeshRunner:
     ``trace``
     gets one ``(kind, core, host seconds)`` entry per stage, the host's
     enqueue time of the stage; :meth:`trace_stream_ms` gives the time
-    each took on its core's stream (CUDA only).
+    each took on its core's stream (CUDA only).  ``jit_groups`` replays
+    each decode step as one CUDA graph on the card (module docstring);
+    ``lanes`` is the :class:`~repro_torch.dualcore.runtime.LanePool` of
+    decode lanes and ``capture_s`` the host seconds spent capturing.
     """
 
     def __init__(self, cfg: ArchConfig, params: dict, dual: DualStreams,
-                 max_len: int = 256):
+                 max_len: int = 256, jit_groups: bool = True):
         check_supported(cfg)
         self.cfg = cfg
         self.dual = dual
@@ -145,6 +153,12 @@ class DualMeshRunner:
             torch.cuda.synchronize(self.device)   # params visible to both
         self.trace: list[tuple[str, str, float]] = []
         self._trace_events: list[tuple | None] = []
+        self.jit_groups = jit_groups
+        self._compiled = jit_groups and self.device.type == "cuda"
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self._compiled else None)
+        self.lanes = LanePool(self._new_lane)
+        self.capture_s = 0.0
 
     # ------------------------------------------------------------------
     def _on(self, core: str):
@@ -226,10 +240,74 @@ class DualMeshRunner:
         return out
 
     # ------------------------------------------------------------------
+    # decode lanes
+    # ------------------------------------------------------------------
+    def _new_lane(self, key: tuple[int, int]) -> DecodeLane:
+        """Buffers for a decode group of ``key`` = (rows, capacity), made
+        on the current stream (the p-core's); on the card, also the graph
+        of one step over them, after one eager step if the key is new."""
+        rows, cap = key
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.n_layers, rows, cfg.n_kv_heads, cap, cfg.d_head)
+        lane = DecodeLane(
+            key=key, kv_k=torch.zeros(shape, device=dev),
+            kv_v=torch.zeros(shape, device=dev),
+            seq=torch.zeros((rows, cap + 1), dtype=torch.int64, device=dev),
+            pos=torch.zeros((), dtype=torch.int32, device=dev))
+        lane.nbytes = sum(t.numel() * t.element_size()
+                          for t in (lane.kv_k, lane.kv_v, lane.seq, lane.pos))
+        if not self._compiled:
+            return lane
+        if not self.lanes.lanes.get(key):
+            self._step(lane)           # warm-up; the fuse overwrites it
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(dev)
+        try:
+            lane.graph, lane.logits = capture_graph(
+                lambda: self._step(lane), stream=self._capture_stream)
+        except Exception as err:
+            raise RuntimeError(f"{cfg.name}: capturing the decode step of "
+                               f"{rows} rows at capacity {cap} failed: "
+                               f"{err}") from err
+        lane.nbytes += torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s += time.perf_counter() - t0
+        return lane
+
+    def _step(self, lane: DecodeLane) -> torch.Tensor:
+        """One fused decode step on ``lane``: the token at the lane's
+        position through the model, its argmax written at the next
+        position, the position advanced.  Returns the logits.  Reads the
+        position only on the card (the graph's body); bounds are the
+        caller's to check, on the host."""
+        at = lane.pos.reshape(1).long()
+        tok = lane.seq.index_select(1, at)
+        logits, cache = decode_step(
+            self.params, self.cfg, tok,
+            DecodeCache(lane.kv_k, lane.kv_v, 0, lane.pos))
+        nxt = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
+        lane.seq.index_copy_(1, cache.pos_dev.reshape(1).long(),
+                             nxt[:, None])
+        lane.pos.copy_(cache.pos_dev)
+        return logits
+
+    def _take_lane(self, rows: int) -> DecodeLane:
+        """A free lane of ``rows`` rows on the p-core, behind the event of
+        its previous group's last work."""
+        lane = self.lanes.acquire((rows, self.max_len))
+        if lane.free_after is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                lane.free_after)
+        return lane
+
+    # ------------------------------------------------------------------
     # fused decode groups (continuous batching on the p-core)
     # ------------------------------------------------------------------
     def _fuse(self, streams: list[StreamState]) -> DecodeGroup:
-        """Fuse prefilled streams into one decode group on the p-core."""
+        """Fuse prefilled streams into one decode group on the p-core:
+        their caches and tokens are copied into a lane of their width."""
+        pos = streams[0].cache.pos
+        if any(s.cache.pos != pos for s in streams):
+            raise ValueError("only position-aligned caches fuse")
         p = self.dual.stream("p")
         members, row = [], 0
         with self._on("p"):
@@ -241,51 +319,66 @@ class DualMeshRunner:
                         t.record_stream(p)
                 b = s.tokens.shape[0]
                 members.append(_Member(rid=s.rid, row0=row, batch=b,
-                                       prefix=s.tokens,
                                        remaining=s.gen_target))
                 row += b
-            last = torch.cat([s.tokens[:, -1:] for s in streams], 0)
-            cache = _concat_caches([s.cache for s in streams])
-        return DecodeGroup(members=members, last_tok=last, cache=cache)
+            lane = self._take_lane(row)
+            torch.cat([s.cache.kv_k for s in streams], 1, out=lane.kv_k)
+            torch.cat([s.cache.kv_v for s in streams], 1, out=lane.kv_v)
+            for m, s in zip(members, streams):
+                lane.seq[m.row0:m.row0 + m.batch, :pos + 1].copy_(s.tokens)
+            lane.pos.fill_(pos)
+        return DecodeGroup(members=members, lane=lane, pos=pos)
 
     def _decode_group(self, g: DecodeGroup, steps: int) -> None:
-        """``steps`` fused decode steps of group ``g`` on the p-core."""
+        """``steps`` fused decode steps of group ``g`` on the p-core: its
+        lane's graph replayed ``steps`` times, or the step run eagerly."""
+        if g.pos + steps > self.max_len:
+            raise ValueError(f"decode: {g.pos} cached + {steps} new "
+                             f"positions exceed the cache's {self.max_len}")
         t0 = time.perf_counter()
+        lane = g.lane
         with self._on("p"):
             start = self._event("p")
-            tok, cache = g.last_tok, g.cache
             for _ in range(steps):
-                logits, cache = decode_step(self.params, self.cfg, tok,
-                                            cache)
-                tok = torch.argmax(logits[:, -1, :self.cfg.vocab],
-                                   dim=-1)[:, None]
-                g.history.append(tok)
-            g.last_tok, g.cache = tok, cache
+                if lane.graph is not None:
+                    lane.graph.replay()
+                else:
+                    lane.logits = self._step(lane)
+            g.pos += steps
             g.ready = self._event("p")
         for m in g.members:
             m.remaining -= steps
         self._log("decode", "p", t0, start)
 
     def _evict(self, g: DecodeGroup, outputs: dict) -> DecodeGroup | None:
-        """Slice finished members' rows out of the fused batch.  Each
+        """Take finished members' rows out of the fused batch: each
         finished member's ``outputs[rid]`` is ``(tokens, ready event)``;
-        returns None once the group is empty."""
+        the other members' rows are copied into a lane of their width.
+        Returns None once the group is empty."""
         done = [m for m in g.members if m.remaining <= 0]
         if not done:
             return g
         finished = {}
+        old = g.lane
+        end = g.pos + 1
         with self._on("p"):
             for m in done:
-                cols = [h[m.row0:m.row0 + m.batch] for h in g.history]
-                finished[m.rid] = (torch.cat([m.prefix] + cols, 1) if cols
-                                   else m.prefix)
+                finished[m.rid] = old.seq[m.row0:m.row0 + m.batch,
+                                          :end].clone()
             alive = [m for m in g.members if m.remaining > 0]
             if alive:
                 rows = [(m.row0, m.row0 + m.batch) for m in alive]
-                g.cache = _take_rows(g.cache, rows)
-                g.last_tok = _rows_of(g.last_tok, rows)
-                g.history = [_rows_of(h, rows) for h in g.history]
+                new = self._take_lane(sum(b - a for a, b in rows))
+                torch.cat([old.kv_k[:, a:b] for a, b in rows], 1,
+                          out=new.kv_k)
+                torch.cat([old.kv_v[:, a:b] for a, b in rows], 1,
+                          out=new.kv_v)
+                new.seq[:, :end].copy_(torch.cat(
+                    [old.seq[a:b, :end] for a, b in rows], 0))
+                new.pos.copy_(old.pos)
+                g.lane = new
             g.ready = self._event("p")
+        self.lanes.retire(old, g.ready)
         for rid, out in finished.items():
             outputs[rid] = (out, g.ready)
         if not alive:

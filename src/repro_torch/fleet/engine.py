@@ -326,6 +326,7 @@ def build_cnn_fleet(models: Sequence[str], *,
                     max_queue: int | None = None,
                     co_dispatch: int | None = None,
                     burst: int = 1,
+                    jit_groups: bool = True,
                     ) -> tuple[FleetEngine, DevicePool]:
     """Stand up a CNN fleet: one shared :class:`DevicePool` on ``device``
     (the card unless the caller passes ``device="cpu"``), one
@@ -336,7 +337,9 @@ def build_cnn_fleet(models: Sequence[str], *,
     ``plan`` (a ``fleet.planner.FleetPlan``) supplies the co-scheduled
     PE config, per-model schedules and mix weights; without one, every
     model is scheduled under ``DUAL_BASELINE`` with ``scheme``
-    (``"best"`` runs the full §V-A flow per model).
+    (``"best"`` runs the full §V-A flow per model).  ``jit_groups`` goes
+    to every member's runner (compiled exec groups on the card; see
+    ``DualCoreRunner``).
     """
     board = BoardModel()
     if pool is None:
@@ -364,7 +367,8 @@ def build_cnn_fleet(models: Sequence[str], *,
                      if scheme == "best"
                      else build_schedule(graph, cfg, board, scheme))
         runner = DualCoreRunner(model, params, sched, device=pool.device,
-                                fuse=fuse, cores=pool.lease(model))
+                                fuse=fuse, cores=pool.lease(model),
+                                jit_groups=jit_groups)
         members[model] = DualCoreEngine(runner, max_queue=max_queue)
     engine = FleetEngine(members, policy=policy, weights=weights,
                          admission=admission, co_dispatch=co_dispatch,

@@ -38,7 +38,7 @@ import torch
 from repro_torch.kernels.attention.plan import plan_decode, plan_flash
 from repro_torch.kernels.attention.ref import (decode_attention_ref,
                                                flash_attention_ref)
-from repro_torch.kernels.util import check_cuda_operands, launch
+from repro_torch.kernels.util import check_cuda_operands, counted, launch
 
 
 def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -132,5 +132,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention.launches = 0
-decode_attention.launches = 0
+counted(flash_attention)
+counted(decode_attention)

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.kernels.conv_gemm.plan import plan_k1, plan_k3
 from repro_torch.kernels.conv_gemm.ref import conv2d_ref, matmul_bias_act_ref
-from repro_torch.kernels.util import act_code, check_cuda_operands, launch
+from repro_torch.kernels.util import (act_code, check_cuda_operands, counted,
+                                     launch)
 
 
 def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
@@ -50,7 +51,7 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-matmul_bias_act.launches = 0
+counted(matmul_bias_act)
 
 
 def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
@@ -90,4 +91,4 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-conv2d_implicit_gemm.launches = 0
+counted(conv2d_implicit_gemm)

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.kernels.depthwise.plan import plan_k2
 from repro_torch.kernels.depthwise.ref import depthwise_conv2d_ref
-from repro_torch.kernels.util import act_code, check_cuda_operands, launch
+from repro_torch.kernels.util import (act_code, check_cuda_operands, counted,
+                                     launch)
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -52,4 +53,4 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-depthwise_conv2d.launches = 0
+counted(depthwise_conv2d)

@@ -21,7 +21,8 @@ import torch
 from repro_torch.kernels.fused_block.plan import plan_k4, plan_k5
 from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
                                                  fused_pw_dw_pw_ref)
-from repro_torch.kernels.util import act_code, check_cuda_operands, launch
+from repro_torch.kernels.util import (act_code, check_cuda_operands, counted,
+                                     launch)
 
 
 def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
@@ -69,7 +70,7 @@ def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
     return out
 
 
-fused_dw_pw_conv.launches = 0
+counted(fused_dw_pw_conv)
 
 
 def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
@@ -127,7 +128,7 @@ def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
     return out
 
 
-fused_pw_dw_pw_conv.launches = 0
+counted(fused_pw_dw_pw_conv)
 
 
 def _vec(channels: tuple[int, ...], *staged: torch.Tensor) -> int:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.kernels.util import check_cuda_operands, launch
+from repro_torch.kernels.util import check_cuda_operands, counted, launch
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
@@ -39,4 +39,4 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
-rmsnorm.launches = 0
+counted(rmsnorm)

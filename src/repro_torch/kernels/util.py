@@ -13,11 +13,20 @@ is compiled on its own, all at once, then linked.  The library lands in
 so a changed source rebuilds and an unchanged one loads what is there.
 Every failure (no ``nvcc``, a compile error, a refused launch) raises:
 nothing falls back to the plain versions on a CUDA tensor.
+
+Every wrapper counts its launches in its ``launches`` attribute and is
+registered with :func:`counted`.  :func:`capture_graph` records a body's
+launches into a CUDA graph (the port's counterpart of ``jax.jit``): the
+counts the wrappers took while capturing are taken back off, since a
+capture launches nothing, and the graph carries them, adding them again at
+each :meth:`CountedGraph.replay`.  So the counts read the same with graphs
+or without.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import hashlib
 import os
 import shutil
@@ -25,6 +34,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Any, Callable
 
 import torch
 
@@ -278,3 +288,96 @@ def launch(entry: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+
+
+# --------------------------------------------------------------------------
+# launch counts and captured graphs
+# --------------------------------------------------------------------------
+#: every kernel wrapper, by name (registered by :func:`counted`)
+COUNTED: dict[str, Callable] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Register kernel wrapper ``fn`` and start its launch count at 0."""
+    fn.launches = 0
+    COUNTED[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> dict[str, int]:
+    """Each registered wrapper's launch count, by name."""
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+class CountedGraph:
+    """A captured CUDA graph and the launches of each wrapper in it.
+    :meth:`replay` launches the graph on the current stream and adds those
+    launches to the wrappers' counts."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph,
+                 launches: dict[str, int]):
+        self.graph = graph
+        self.launches = launches
+
+    def replay(self) -> None:
+        """Launch the graph on the current stream; count its launches."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            COUNTED[name].launches += n
+
+
+def capture_graph(body: Callable[[], Any], *, stream: torch.cuda.Stream,
+                  pool=None, debug: bool = False) -> tuple[CountedGraph, Any]:
+    """Capture ``body()`` into a CUDA graph on ``stream`` (a side stream)
+    from the memory pool ``pool`` (a new private one when None); return
+    the graph and what ``body`` returned, whose tensors are the graph's
+    static outputs.
+
+    Nothing runs while capturing, so the launches the wrappers count in
+    ``body`` are taken back off and carried by the graph.  Unlike
+    ``torch.cuda.graph`` this neither synchronises the device nor empties
+    the allocator's cache, though a capture can still wait until the card
+    is idle (``tools/capture_wait.py``).  The kernel
+    library is loaded first (a build may not happen under capture); the
+    kernels' own attributes (``tc::opt_in``) must already be set, by an
+    eager run of the same launches.  Any failure raises: a failed capture
+    is ended and discarded.  ``debug`` keeps the captured graph (not
+    instantiated until a replay) for ``graph.debug_dump``."""
+    kernel_library()
+    graph = torch.cuda.CUDAGraph(keep_graph=debug)
+    if debug:
+        graph.enable_debug_mode()
+    before = launch_counts()
+    # a garbage collection inside the capture could destroy another graph
+    # or release its memory pool, calls that CUDA refuses while a capture
+    # runs (and that invalidate it): collect only after the capture
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                out = body()
+            except BaseException:
+                _end_failed_capture(graph)
+                raise
+            graph.capture_end()
+        after = launch_counts()
+    finally:
+        if collecting:
+            gc.enable()
+        for name, fn in COUNTED.items():
+            fn.launches = before.get(name, 0)
+    taken = {name: n - before.get(name, 0) for name, n in after.items()
+             if n != before.get(name, 0)}
+    return CountedGraph(graph, taken), out
+
+
+def _end_failed_capture(graph: torch.cuda.CUDAGraph) -> None:
+    """End a capture whose body raised.  CUDA then reports the capture
+    invalidated, which says no more than the body's own error, so that
+    report is dropped and the body's error propagates."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass

@@ -138,8 +138,12 @@ def serve_lm(args) -> int:
                             max_len=args.prompt_len + args.gen + 8)
     prompts = random_prompts(cfg, n, args.batch, args.prompt_len, seed=1,
                              device=dev)
-    if dev.type == "cuda":                          # warm-up
-        runner.serve(prompts[:1], gen_steps=2, group_size=1)
+    if dev.type == "cuda":
+        # warm-up, untimed: builds the kernels and captures a decode graph
+        # for each width the queue's fused groups take
+        for width in sorted({min(group_size, n - i)
+                             for i in range(0, n, group_size)}):
+            runner.serve(prompts[:width], gen_steps=2, group_size=width)
     engine = DualMeshEngine(runner, group_size=group_size,
                             prefill_chunk=args.prefill_chunk,
                             max_queue=args.max_queue)
@@ -178,7 +182,9 @@ def serve_cnn(args) -> int:
     images = [torch.from_numpy(rng.standard_normal(
         (args.batch, args.image_size, args.image_size, 3),
         dtype=np.float32)).to(runner.device) for _ in range(n)]
-    runner.run_sequential(images[:1])              # warm-up (kernel build)
+    # warm-up, untimed: builds the kernels and, on the card, captures the
+    # exec groups' graphs on as many lanes as the traffic holds at once
+    runner.run_pipelined(images)
 
     engine = DualCoreEngine(runner, max_queue=args.max_queue)
     res = replay(engine, [Request(x) for x in images],
@@ -188,6 +194,10 @@ def serve_cnn(args) -> int:
     sim = simulate_dual_core(es)
     print(f"[serve] cnn {args.model} scheme={sched.scheme}: "
           f"{len(es.groups)} exec groups; {runner.cores.describe()}")
+    if runner.lanes.count:
+        print(f"[serve] compiled groups: {runner.lanes.count} lane(s) of "
+              f"{len(es.groups)} CUDA graphs captured in "
+              f"{runner.capture_s * 1e3:.1f} ms before serving")
     print(f"[serve] model-side: T_b2={es.t_b2():,} cyc "
           f"(sim {sim.cycles_two_images:,} cyc, "
           f"{board.cycles_to_seconds(sim.cycles_two_images)*1e3:.2f} ms "
@@ -350,8 +360,9 @@ def serve_fleet(args) -> int:
                                  transport=transport)
     for fl in fleets.values():
         # warm-up: one untimed pass over the same runners builds the
-        # kernels and fills the caching allocator's pools of the new
-        # streams
+        # kernels, fills the caching allocator's pools of the new streams
+        # and captures each member's per-group graphs on the lanes the
+        # traffic holds at once
         replay(FleetEngine({m.name: DualCoreEngine(m.engine.runner)
                             for m in fl.members}, burst=args.burst),
                [Request(r.payload, model=r.model) for r in requests])

@@ -20,8 +20,8 @@ import torch
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.util import resolve_device
 from repro_torch.lm.config import ArchConfig
-from repro_torch.lm.modules import (KVCache, gqa_attention, rope_freqs,
-                                    swiglu_mlp)
+from repro_torch.lm.modules import (KVCache, decode_position, gqa_attention,
+                                    rope_freqs, swiglu_mlp)
 
 INIT_SCALE = 0.02
 
@@ -136,12 +136,16 @@ def forward(params: dict, cfg: ArchConfig,
 # Decode (new tokens against a cache)
 # ==========================================================================
 class DecodeCache(NamedTuple):
-    """The stacked KV cache and the number of positions already cached
-    (a host int: reading it never waits on the card)."""
+    """The stacked KV cache and the number of positions already cached,
+    twice: ``pos`` a host int (scheduling and bounds checks never wait on
+    the card) and ``pos_dev`` the same count as a device int32 scalar
+    (what a decode step reads, so its shapes do not change with the
+    position, as the reference's traced ``pos``)."""
 
     kv_k: torch.Tensor          # (L, B, Hkv, S_max, Dh)
     kv_v: torch.Tensor
     pos: int
+    pos_dev: torch.Tensor       # () int32, equal to pos
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -151,7 +155,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
     return DecodeCache(torch.zeros(shape, device=dev),
-                       torch.zeros(shape, device=dev), 0)
+                       torch.zeros(shape, device=dev), 0,
+                       torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor,
@@ -159,9 +164,13 @@ def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor,
                 ) -> tuple[torch.Tensor, DecodeCache]:
     """token: (B, S), S >= 1 -> (logits (B, S, padded_vocab), cache).
 
-    S == 1 is the serve step (K7 decode); S > 1 is a (chunked) prefill
-    (K7 flash at ``q_offset = cache.pos``).  The cache tensors are written
-    in place; the returned cache shares them with ``pos`` advanced by S.
+    S == 1 is the serve step: it reads the position from ``cache.pos_dev``
+    on the card (RoPE, the indexed k/v write, K7 decode over the whole
+    cache with ``kv_len = pos + 1``), so its launches and shapes are the
+    same at every position.  S > 1 is a (chunked) prefill at the host
+    offset ``cache.pos`` (K7 flash at ``q_offset = cache.pos``).  The cache
+    tensors are written in place; the returned cache shares them, with
+    ``pos`` advanced by S and ``pos_dev`` a new scalar advanced by S.
     ``last_only`` computes the logits of the last position only (B, 1, V):
     what serving reads, without the LM head's product for every prompt
     token."""
@@ -172,13 +181,18 @@ def decode_step(params: dict, cfg: ArchConfig, token: torch.Tensor,
         raise ValueError(f"decode_step: {pos} cached + {s} new positions "
                          f"exceed the cache's {cache.kv_k.shape[3]}")
     x = params["embed"][token]
-    positions = torch.arange(pos, pos + s, device=x.device)
+    if s == 1:
+        positions = cache.pos_dev.reshape(1)
+        at = decode_position(cache.pos_dev, token.shape[0])
+    else:
+        positions, at = torch.arange(pos, pos + s, device=x.device), pos
     rope = rope_freqs(cfg.d_head, cfg.rope_theta, positions)
     for i, lp in enumerate(params["layers"]):
         x = _transformer_layer(lp, x, cfg, positions, rope,
                                cache=KVCache(cache.kv_k[i], cache.kv_v[i]),
-                               cache_pos=pos)
+                               cache_pos=at)
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(x.contiguous(), params["final_norm"], eps=cfg.norm_eps)
-    return torch.matmul(x, params["lm_head"]), cache._replace(pos=pos + s)
+    return torch.matmul(x, params["lm_head"]), cache._replace(
+        pos=pos + s, pos_dev=cache.pos_dev + s)

@@ -16,9 +16,16 @@ memory itself.  The projections stay ``torch.matmul`` in f32; the entry
 points keep TF32 off (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's
 default), so the card computes them in full f32 as XLA does on the CPU.
 
-The KV cache is written in place: a block's k/v go into the cache rows at
-``cache_pos`` with one copy, and attention reads the cache cut to its
-filled prefix without copying it.
+The KV cache is written in place.  A block of S > 1 tokens (a prefill or
+a chunk) goes into the cache rows at the host offset ``cache_pos`` with one
+copy, and attention reads the cache cut to its filled prefix without
+copying it.  One token (S == 1, the serve step) follows the reference's
+shape-static decode: ``cache_pos`` is then a :class:`DecodePosition` made
+once a step from the device position, the new k/v go in with an indexed
+copy at that position (the counterpart of ``dynamic_update_slice``), and
+K7 decode runs over the whole cache with ``kv_len = position + 1``, so a
+decode step has the same shapes at every position and can be captured
+once and replayed.
 """
 from __future__ import annotations
 
@@ -66,6 +73,21 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+class DecodePosition(NamedTuple):
+    """One decode step's position on the card, for every layer: ``at``
+    (1,) int64, the cache row the new k/v go to, and ``kv_len`` (B,) int32,
+    the keys each row attends to (``at + 1``)."""
+
+    at: torch.Tensor
+    kv_len: torch.Tensor
+
+
+def decode_position(pos: torch.Tensor, batch: int) -> DecodePosition:
+    """The :class:`DecodePosition` of the device int32 scalar ``pos``."""
+    return DecodePosition(pos.reshape(1).long(),
+                          (pos + 1).reshape(1).expand(batch).contiguous())
+
+
 def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool, q_offset: int | None = None
                      ) -> torch.Tensor:
@@ -87,15 +109,18 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_attention(params: dict, x: torch.Tensor, cfg,
                   positions: torch.Tensor,
                   cache: KVCache | None = None,
-                  cache_pos: int | None = None,
+                  cache_pos: int | DecodePosition | None = None,
                   causal: bool = True,
                   rope: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full attention block: qkv proj -> rope -> attention -> out proj.
 
     Returns (out, cache).  With a cache, the block's k/v are written in
-    place at ``cache_pos`` and attention runs over the cache cut to
-    ``cache_pos + S``.  ``rope`` passes the (cos, sin) of ``positions``
-    when the caller has them already (one per forward, not per layer)."""
+    place at ``cache_pos``: a host int, and attention runs over the cache
+    cut to ``cache_pos + S``; or, for one token, a
+    :class:`DecodePosition`, and attention runs over the whole cache
+    masked to its ``kv_len`` (module docstring).  ``rope`` passes the
+    (cos, sin) of ``positions`` when the caller has them already (one per
+    forward, not per layer)."""
     b, s, _ = x.shape
     q = torch.matmul(x, params["wq"])
     k = torch.matmul(x, params["wk"])
@@ -112,7 +137,15 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cache is not None:
+    if cache is not None and isinstance(cache_pos, DecodePosition):
+        if s != 1:
+            raise ValueError(f"gqa_attention: a device position takes one "
+                             f"token, got {s}")
+        cache.k.index_copy_(2, cache_pos.at, k)
+        cache.v.index_copy_(2, cache_pos.at, v)
+        out = decode_attention(q.contiguous(), cache.k, cache.v,
+                               cache_pos.kv_len)
+    elif cache is not None:
         if cache_pos is None:
             raise ValueError("gqa_attention: a cache needs cache_pos")
         end = cache_pos + s

@@ -99,8 +99,9 @@ class DualCoreEngine(EngineBase):
 
     def relocate(self, cores) -> None:
         """Move the engine onto a re-split pool (REBALANCE): rebind the
-        runner onto ``cores``.  In-flight envs keep their position and
-        their ready events, which the next group's stream waits on."""
+        runner onto ``cores``.  In-flight envs keep their position, their
+        ready events, which the next group's stream waits on, and their
+        lanes, whose graphs replay on the new streams."""
         self.runner.relocate(cores)
 
     def _dispatch(self, f: _Flight) -> None:
@@ -154,7 +155,11 @@ class DualCoreEngine(EngineBase):
 
     def retire(self, finished: list[_Flight]) -> list[Completion]:
         """Wait for the outputs of flights returned by :meth:`advance` and
-        file their completions, after the sheds of the dispatch phase."""
+        file their completions, after the sheds of the dispatch phase.
+        With compiled groups a finished flight's lane is already back in
+        the runner's pool: its last group cloned ``"out"`` out of it, and
+        the lane's next user waits on that group's ready event on the card,
+        so nothing here waits for it."""
         out = self._take_shed()
         out.extend(self._finish(f.rid, f.env["out"], f.env.get(READY))
                    for f in finished)

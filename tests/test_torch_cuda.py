@@ -1,4 +1,4 @@
-"""The CUDA kernels and the dual-core runtime on the card.
+"""The CUDA kernels, the dual-core runtime and its graphs on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA card (the
 ``card`` fixture decides, when the test runs).  On a machine with a card:
@@ -9,6 +9,7 @@ The file imports neither JAX nor the reference package.  TF32 is off, so the
 kernels and their plain versions are both full f32 and agree at rtol = atol
 = 1e-4 (only the summation order differs).
 """
+import dataclasses
 import json
 import sys
 from collections import Counter
@@ -21,7 +22,8 @@ import torch
 from repro_torch.core.arch import DUAL_BASELINE, BoardModel
 from repro_torch.core.scheduler import build_schedule
 from repro_torch.dualcore.program import build_program
-from repro_torch.dualcore.runtime import DualCoreRunner
+from repro_torch.dualcore.runtime import (DualCoreRunner, DualCores,
+                                          wait_ready)
 from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
                                                   matmul_bias_act)
 from repro_torch.kernels.depthwise.kernel import depthwise_conv2d
@@ -34,6 +36,7 @@ from repro_torch.fleet import Rebalance, build_cnn_fleet, make_policy
 from repro_torch.kernels.attention.kernel import (decode_attention,
                                                   flash_attention)
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+from repro_torch.kernels.util import resolve_device
 from repro_torch.lm.model import forward, init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
 from repro_torch.serving.api import Request
@@ -375,6 +378,8 @@ def test_fleet_two_models_equal_standalone_on_card(burst, card):
         alone[m] = iter(stream_images(
             runner, [x for x, t in zip(images, tags) if t == m]).outputs)
     want = [next(alone[t]) for t in tags]
+    for m in fleet.members:          # warm each member's graphs, as the CLI
+        m.engine.runner.run_sequential(images[:1])
     before = {fn: fn.launches for fn in WRAPPERS.values()}
     for x, t in zip(images, tags):
         fleet.submit(Request(x, model=t))
@@ -569,6 +574,8 @@ def test_lm_path_on_card(card):
         runner = DualMeshRunner(cfg, params,
                                 split_streams(card, one_stream=one_stream),
                                 max_len=24)
+        # warm the decode graph of the groups' width, as the CLI does
+        runner.serve(prompts[:2], gen_steps=2, group_size=2)
         before = [f.launches for f in (rmsnorm, flash_attention,
                                        decode_attention)]
         res = runner.serve(prompts, gen_steps=6, group_size=2)
@@ -583,3 +590,156 @@ def test_lm_path_on_card(card):
         runs.append([o.cpu() for o in res.outputs])
     for a, b in zip(*runs):
         assert a.shape == (2, 14) and torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# compiled groups: a CUDA graph per exec group and per decode step
+# --------------------------------------------------------------------------
+def _runners(model, card, cores=None, **kw):
+    """The same model and weights, compiled and eager."""
+    params, _, graph = build_model(model, seed=1, device=card)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
+    return (DualCoreRunner(model, params, sched, device=card, cores=cores,
+                           **kw),
+            DualCoreRunner(model, params, sched, device=card,
+                           jit_groups=False), graph)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_stream", [False, True])
+@pytest.mark.parametrize("model", ["mobilenet_v2", "mobilenet_v1",
+                                   "squeezenet"])
+def test_graphs_bit_equal_eager_on_card(model, one_stream, card):
+    """Each model at 64 px: the engine on graphs gives the eager engine's
+    bits, on two streams and on one, and the replays count the plan's
+    launches per image; a second run reuses the lanes."""
+    cores = DualCores(resolve_device(card), one_stream=one_stream)
+    fast, eager, graph = _runners(model, card, cores=cores)
+    assert fast.jit_groups and fast.donate and not eager.jit_groups
+    images = [t.to(card) for t in _arrays(3, *[(2, 64, 64, 3)] * 4)]
+    want = stream_images(eager, images).outputs
+    fast.run_sequential(images[:1])                   # warm-up and capture
+    per_image = Counter(_kernel_of(s, graph) for g in fast.groups
+                        for s in g.steps)
+    for _ in range(2):
+        before = {fn: fn.launches for fn in WRAPPERS.values()}
+        got = stream_images(fast, images).outputs
+        for fn in WRAPPERS.values():
+            assert fn.launches - before[fn] == 4 * per_image[fn]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    lanes = fast.lanes.count
+    assert 1 <= lanes <= min(4, len(fast.groups))
+    assert fast.lanes.count == lanes and fast.capture_s > 0
+
+
+@pytest.mark.cuda
+def test_graphs_queued_back_to_back_grow_lanes_on_card(card):
+    """8 requests placed at once, each holding its lane, then queued
+    through every group with no host wait: the pool grows to 8 lanes and
+    every output is the eager sequential forward's; a second pass reuses
+    the 8 lanes, each behind its last request's event.  Without donation
+    each group's env is the request's own, and the bits are the same."""
+    fast, eager, _ = _runners("mobilenet_v2", card)
+    images = [t.to(card) for t in _arrays(4, *[(2, 64, 64, 3)] * 8)]
+    want = eager.run_sequential(images)
+    for _ in range(2):
+        envs = [fast.place_input(x) for x in images]
+        for i, env in enumerate(envs):
+            for h in fast.handles:
+                env = h(env)
+            envs[i] = env
+        for env, b in zip(envs, want):
+            wait_ready(env)
+            assert torch.equal(env["out"], b)
+        assert fast.lanes.count == 8
+    kept, _, _ = _runners("mobilenet_v2", card, donate=False)
+    assert not kept.donate
+    for a, b in zip(stream_images(kept, images).outputs, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graphs_relocated_mid_flight_on_card(card):
+    """Requests in flight when the runner moves to another pool's streams
+    finish there on the same lanes' graphs, with the same bits."""
+    fast, eager, _ = _runners("mobilenet_v1", card)
+    images = [t.to(card) for t in _arrays(5, *[(2, 64, 64, 3)] * 3)]
+    want = eager.run_sequential(images)
+    fast.run_sequential(images[:1])
+    handles = fast.handles
+    envs = []
+    for x in images:
+        env = fast.place_input(x)
+        for h in handles[:2]:
+            env = h(env)
+        envs.append(env)
+    fast.relocate(DualCores(resolve_device(card)))
+    for i, env in enumerate(envs):
+        for h in handles[2:]:
+            env = h(env)
+        wait_ready(env)
+        assert torch.equal(env["out"], want[i])
+
+
+@pytest.mark.cuda
+def test_graph_capture_refuses_a_host_sync_on_card(card):
+    """A step that waits for the card on the host cannot be captured: the
+    capture raises naming the group and the step, and nothing falls back
+    to the eager path."""
+    fast, _, _ = _runners("squeezenet", card)
+    group = fast.groups[1]
+    step = group.steps[0]
+
+    def syncing(params, env, collect):
+        step.fn(params, env, collect)
+        torch.cuda.current_stream().synchronize()
+
+    group.steps[0] = dataclasses.replace(step, fn=syncing)
+    x = _arrays(6, (1, 64, 64, 3))[0].to(card)
+    with pytest.raises(RuntimeError, match=f"exec group 1 .*{step.name}"):
+        fast.run_sequential([x])
+    assert fast.lanes.count == 0
+    torch.cuda.synchronize()                 # the card is still usable
+
+
+@pytest.mark.cuda
+def test_decode_graph_bit_equal_eager_on_card(card):
+    """The smoke LM: a decode group on graphs and the same group eager,
+    step by step over 8 steps across a fuse of three streams and an
+    eviction of one: logits and tokens bit-equal; then the engines on
+    both give the same tokens."""
+    cfg = get_smoke("qwen2_0_5b")
+    params = params_from_numpy(init_params(cfg, seed=0), card)
+    prompts = random_prompts(cfg, 3, 1, 8, seed=4, device=card)
+    runs = []
+    for jit in (True, False):
+        r = DualMeshRunner(cfg, params, split_streams(card), max_len=24,
+                           jit_groups=jit)
+        streams = [r.run_prefill(r.new_stream(p, gen, rid=i))
+                   for i, (p, gen) in enumerate(zip(prompts, (3, 9, 9)))]
+        g = r._fuse(streams)
+        logits, outs = [], {}
+        for _ in range(8):
+            r._decode_group(g, 1)
+            torch.cuda.synchronize()
+            logits.append(g.lane.logits.clone())
+            if min(m.remaining for m in g.members) <= 0:
+                g = r._evict(g, outs)
+        assert (r.lanes.count > 0) and (g.lane.graph is not None) == jit
+        runs.append((logits, {k: v[0].clone() for k, v in outs.items()},
+                     g.lane.seq[:, :g.pos + 1].clone()))
+    (la, oa, sa), (lb, ob, sb) = runs
+    assert [x.shape[0] for x in la] == [3] * 3 + [2] * 5
+    for a, b in zip(la, lb):
+        assert torch.equal(a, b)
+    assert oa.keys() == ob.keys() == {0}
+    assert torch.equal(oa[0], ob[0]) and torch.equal(sa, sb)
+    served = []
+    for jit in (True, False):
+        r = DualMeshRunner(cfg, params, split_streams(card), max_len=24,
+                           jit_groups=jit)
+        res = r.serve(prompts, gen_steps=[4, 7, 7], group_size=3)
+        served.append([o.cpu() for o in res.outputs])
+    for a, b in zip(*served):
+        assert torch.equal(a, b)

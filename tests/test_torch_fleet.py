@@ -22,6 +22,7 @@ networks are the stub engines below, one class per package.
 """
 import dataclasses
 import importlib
+import inspect
 import json
 import time
 
@@ -589,6 +590,22 @@ def test_fleet_outputs_bit_equal_standalone_sequential(port_runs):
         runner = fleet._by_name[req.model].engine.runner
         (seq,) = runner.run_sequential([req.payload])
         assert torch.equal(out, seq)
+
+
+def test_fleet_jit_groups_changes_nothing_on_the_cpu(port_runs):
+    """``build_cnn_fleet`` takes ``jit_groups`` with the reference's
+    default and hands it to every member's runner; on the CPU it changes
+    nothing: the live run's outputs bit-equal with it off, and within 1e-3
+    of the reference fleet's with it on."""
+    assert (inspect.signature(build_cnn_fleet).parameters["jit_groups"]
+            .default is inspect.signature(ref_build_cnn_fleet)
+            .parameters["jit_groups"].default is True)
+    _, res, arr, _ = port_runs["plain"]
+    eager, _ = port_fleet(burst=4, jit_groups=False)
+    assert not any(m.engine.runner.jit_groups for m in eager.members)
+    _equal(replay(eager, port_requests(), arr).outputs, res.outputs)
+    ref, _ = ref_fleet(burst=4, jit_groups=True)
+    _close(res.outputs, ref_replay(ref, ref_requests(), arr).outputs)
 
 
 def test_chrome_trace_matches_reference_layout(ref_runs, port_runs):

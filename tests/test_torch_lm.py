@@ -355,6 +355,69 @@ def test_decode_step_matches_reference(smoke, chunk):
     assert last.shape == (2, 1, cfg.padded_vocab)
 
 
+STATIC_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def test_shape_static_decode_matches_reference(smoke):
+    """The reference's decode design: after a chunked prefill, each decode
+    step reads the position from the device scalar (RoPE, the k/v write,
+    K7 decode over the whole cache masked to pos + 1).  Logits at 1e-5
+    against the reference's ``decode_step`` (f32 through two layers, only
+    the summation order differs); each step's k/v land at the device
+    position as ``dynamic_update_slice`` writes them, and nothing past it;
+    the host and device positions agree."""
+    cfg, ref_params, params = smoke
+    tokens = np.random.default_rng(13).integers(0, cfg.vocab, (2, 10))
+    rc = ref_model.init_cache(cfg, 2, 20)
+    pc = model.init_cache(cfg, 2, 20, device="cpu")
+    for lo in range(0, 10, 4):
+        want, rc = ref_model.decode_step(ref_params, cfg,
+                                         jnp.asarray(tokens[:, lo:lo + 4]),
+                                         rc)
+        got, pc = model.decode_step(params, cfg, _t(tokens[:, lo:lo + 4]),
+                                    pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **STATIC_TOL)
+    for _ in range(5):
+        tok = np.asarray(jnp.argmax(want[:, -1, :cfg.vocab], -1))[:, None]
+        at = pc.pos
+        want, rc = ref_model.decode_step(ref_params, cfg, jnp.asarray(tok),
+                                         rc)
+        got, nxt = model.decode_step(params, cfg, _t(tok), pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **STATIC_TOL)
+        assert nxt.pos == int(nxt.pos_dev) == int(rc.pos) == at + 1
+        assert nxt.pos_dev.dtype == torch.int32 and nxt.pos_dev.dim() == 0
+        for mine, ref in ((nxt.kv_k, rc.kv_k), (nxt.kv_v, rc.kv_v)):
+            np.testing.assert_allclose(mine[:, :, :, at].numpy(),
+                                       np.asarray(ref)[:, :, :, at],
+                                       **STATIC_TOL)
+            assert not mine[:, :, :, at + 1:].any()
+        pc = nxt
+
+
+def test_decode_fills_the_cache_to_its_capacity(smoke):
+    """A cache of 8: a 7-token prefill, then a decode step at the last
+    position, at 1e-5 against the reference; one more step is refused on
+    the host (the reference's ``dynamic_update_slice`` would clamp it)."""
+    cfg, ref_params, params = smoke
+    tokens = np.random.default_rng(14).integers(0, cfg.vocab, (2, 7))
+    rc = ref_model.init_cache(cfg, 2, 8)
+    pc = model.init_cache(cfg, 2, 8, device="cpu")
+    want, rc = ref_model.decode_step(ref_params, cfg, jnp.asarray(tokens),
+                                     rc)
+    _, pc = model.decode_step(params, cfg, _t(tokens), pc)
+    tok = np.asarray(jnp.argmax(want[:, -1, :cfg.vocab], -1))[:, None]
+    want, rc = ref_model.decode_step(ref_params, cfg, jnp.asarray(tok), rc)
+    got, pc = model.decode_step(params, cfg, _t(tok), pc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **STATIC_TOL)
+    np.testing.assert_allclose(pc.kv_k.numpy(), np.asarray(rc.kv_k),
+                               **STATIC_TOL)
+    assert pc.pos == int(pc.pos_dev) == 8
+    with pytest.raises(ValueError, match="exceed the cache's 8"):
+        model.decode_step(params, cfg, _t(tok), pc)
+
+
 # --------------------------------------------------------------------------
 # planner, runtime and engine
 # --------------------------------------------------------------------------
@@ -444,6 +507,30 @@ def test_engine_matches_reference(smoke, chunk, group_size):
                 "total_tokens"):
         assert got.stats[key] == want.stats[key], key
     assert [t[:2] for t in got.trace] == [t[:2] for t in want.trace]
+
+
+def test_runner_jit_groups_pools_decode_lanes_on_the_cpu(smoke):
+    """``jit_groups`` (the card's decode graphs) changes nothing on the
+    CPU: the same tokens with it on and off.  Either way a decode group
+    runs on a lane keyed by (rows, capacity): a fuse of two requests takes
+    a lane of 4 rows, the eviction of one copies the other into a lane of
+    2 rows, and a later group of the same width reuses a lane."""
+    cfg, _, params = smoke
+    prompts = [_t(p) for p in _prompts(cfg)]
+    outs = []
+    for jit in (True, False):
+        r = DualMeshRunner(cfg, params, split_streams("cpu"), max_len=24,
+                           jit_groups=jit)
+        assert r.jit_groups is jit
+        res = r.serve(prompts, gen_steps=[6, 4, 6, 4], group_size=2)
+        assert res.stats["fused_sizes"] == [2, 2]
+        assert sorted(r.lanes.lanes) == [(2, 24), (4, 24)]
+        assert all(lane.graph is None for v in r.lanes.lanes.values()
+                   for lane in v)
+        assert r.lanes.count == 2            # reused by the second group
+        outs.append(res.outputs)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_run_two_streams_matches_reference(smoke):

@@ -11,6 +11,7 @@ kernels' 1e-4 (f32, only the summation order differs: XLA's convolutions
 against im2col GEMMs), and the differences compound through up to 53 layers.
 Within the port, pipelined and sequential runs are equal bit for bit.
 """
+import inspect
 import sys
 from collections import Counter
 from pathlib import Path
@@ -35,7 +36,8 @@ from repro.serving import replay as ref_replay
 from repro_torch.core.arch import DUAL_BASELINE, BoardModel
 from repro_torch.core.scheduler import build_schedule
 from repro_torch.dualcore.program import build_program
-from repro_torch.dualcore.runtime import DualCoreRunner, build_exec_plan
+from repro_torch.dualcore.runtime import (DualCoreRunner, Lane, LanePool,
+                                          build_exec_plan)
 from repro_torch.models.cnn import FORWARDS, init_params, params_from_numpy
 from repro_torch.models.zoo import get_graph
 from repro_torch.serving.api import (EngineBase, FixedRateAdmission,
@@ -258,6 +260,80 @@ def test_cpu_runner_mobilenet_v1_balanced(reference):
     runner = _check_cpu_runner("mobilenet_v1", reference)
     assert sum(len(s.layers) == 3 for g in runner.groups
                for s in g.steps) == 4
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_cpu_runner_jit_groups_and_donate_change_nothing(model, reference):
+    """``jit_groups`` and ``donate`` take the reference's names and
+    defaults (jit on; donation on a card only), and on the CPU they change
+    nothing: pipelined outputs bit-equal with both off and with donation
+    forced on, no lane is made, and the outputs match the reference's
+    runner with ``jit_groups=True`` at 1e-3."""
+    ref = reference[model]
+    ref_sched, sched = _schedules(model, "balanced")
+    params = params_from_numpy(ref["params"], "cpu")
+    for name in ("jit_groups", "donate"):
+        assert (inspect.signature(DualCoreRunner).parameters[name].default
+                == inspect.signature(RefRunner).parameters[name].default)
+    runner = DualCoreRunner(model, params, sched, device="cpu")
+    assert runner.jit_groups and not runner.donate
+    images = [torch.from_numpy(x) for x in _images(5, 2)]
+    got = runner.run_pipelined(images)
+    for jit, donate in ((False, None), (True, True)):
+        other = DualCoreRunner(model, params, sched, device="cpu",
+                               jit_groups=jit, donate=donate)
+        for a, b in zip(other.run_pipelined(images), got):
+            assert torch.equal(a, b)
+    assert runner.lanes.count == 0
+    ref_runner = RefRunner(model, _jnp(ref["params"]), ref_sched,
+                           use_pallas=False, jit_groups=True)
+    want = ref_runner.run_sequential([jnp.asarray(x.numpy())
+                                      for x in images])
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def _lane(key):
+    shape, dtype = key
+    return Lane(key=key, x=torch.zeros(shape, dtype=dtype), graphs=[],
+                envs=[])
+
+
+def test_lane_pool_grows_retires_and_reuses_in_order():
+    """One lane per shape and dtype until every lane of the key is held,
+    then the pool grows; a retired lane is handed out again, the one
+    retired longest ago first, carrying the event its next user waits on
+    on the card."""
+    pool = LanePool(_lane)
+    k1 = ((2, 8, 8, 3), torch.float32)
+    k2 = ((1, 8, 8, 3), torch.float32)
+    k3 = ((2, 8, 8, 3), torch.float64)
+    a = pool.acquire(k1)
+    b = pool.acquire(k1)                 # a is held: the pool grows
+    c, d = pool.acquire(k2), pool.acquire(k3)
+    assert b is not a and pool.count == 4
+    assert pool.lanes == {k1: [a, b], k2: [c], k3: [d]}
+    pool.retire(b, "event b")
+    pool.retire(a, None)
+    assert pool.acquire(k1) is b and b.free_after == "event b"
+    assert pool.acquire(k1) is a and pool.count == 4
+    e = pool.acquire(k1)                 # both held again: grows
+    assert pool.lanes[k1] == [a, b, e] and e is not a and e is not b
+    pool.retire(c, "event c")
+    assert pool.acquire(k2) is c and pool.count == 5
+
+
+def test_lane_load_never_writes_the_callers_input():
+    """Group 0's env is the lane's own input buffer, a copy of the
+    caller's tensor: what the graphs write lands in the lane."""
+    lane = _lane(((2, 4, 4, 3), torch.float32))
+    x = torch.from_numpy(_images(6, 1, size=4)[0])
+    keep = x.clone()
+    env = lane.load(x)
+    assert env["h"] is lane.x and env["h"].data_ptr() != x.data_ptr()
+    assert torch.equal(lane.x, x)
+    env["h"].zero_()
+    assert torch.equal(x, keep)
 
 
 def test_engine_dispatch_trace_matches_reference_squeezenet(reference):
