@@ -27,7 +27,11 @@ any failure raises and the script exits non-zero:
             the plain version, a PyTorch library call or chain computing the
             same function (timed here only, never used by the port:
             ``F.rms_norm``, ``scaled_dot_product_attention``) and the least
-            time the card could take, and K6 also "after its producer":
+            time the card could take; each path call again on its own
+            core's partition of the split at theta 0.5 (a CNN exec group's
+            core, the LM's prefill on c and decode on p), timed there with
+            its output bit-equal to the whole card's; K6 also "after its
+            producer":
             each call behind the residual add that writes its input on the
             path, the add's own time taken off (K6 may begin while the add
             drains); the plans of K1 and K3 (tile, k-step, cluster, blocks,
@@ -46,7 +50,8 @@ any failure raises and the script exits non-zero:
             sequential kernel forward (``jit_groups=False``) against the
             all-plain forward at 1e-3 (up to 53 f32 layers, each at 1e-4
             against its plain version, compound), then ``DualCoreEngine``
-            over the two streams, 8 requests x batch 2 at 224 px, on
+            over the two cores (green contexts on disjoint SMs of the
+            card, split at theta 0.5), 8 requests x batch 2 at 224 px, on
             compiled groups (a CUDA graph per exec group, after one
             untimed warm-up run that captures the lanes) and eagerly:
             outputs of both bit-equal to the eager sequential forward,
@@ -63,7 +68,7 @@ any failure raises and the script exits non-zero:
             sequential forward (16 inverted residuals on K5) against the
             plain fused program at 1e-3, its launches counted the same way;
 4. fleet    the three CNNs as one fleet (``build_cnn_fleet``, ``balanced``,
-            compiled groups) on one pool of the card's two streams: phase
+            compiled groups) on one pool of the card's two cores: phase
             3's 24 requests (8 a model, all at slot 0, policy
             ``weighted_fair``, burst 4; after one untimed pass that warms
             the new streams and captures the lanes), each output bit-equal
@@ -86,8 +91,9 @@ any failure raises and the script exits non-zero:
             prompt's chunked prefill and decode steps on the card against
             the same on the CPU (plain versions) at 1e-3; then
             ``DualMeshEngine`` serves 8 requests of batch 2, prompt 512, 64
-            generated tokens, all arriving at slot 0, prefill on the c
-            stream and fused decode groups on the p stream, each decode step
+            generated tokens, all arriving at slot 0, prefill on the c-core
+            and fused decode groups on the p-core (disjoint SMs), each
+            decode step
             one CUDA graph replay (after an untimed warm-up at the served
             group width): launch counts reset just before and read just
             after equal the plan (per prefill forward K6 49 and K7 flash 24,
@@ -109,7 +115,23 @@ any failure raises and the script exits non-zero:
             fit one card), random weights from seed 0: the same prefill,
             chunk and 3 decode steps (K7 decode at G = 48 on the tensor
             cores) on the card against the CPU's plain versions at 1e-3;
-6. report   one ``[report]`` line for each path and kernel (launches,
+6. split    the split of the card's SMs: the SM probe (``csrc/sm_probe.cu``,
+            each block writing the SM it ran on) on each core, eagerly and
+            in a graph captured on the core and replayed on a plain stream,
+            at the fleet planner's theta and at 0.5: the two cores' SM sets
+            disjoint and each of its core's size; then, launches counted
+            from 0 over the phase, split SMs against shared ones
+            (``sm_split=False``) in turns: each CNN engine of phase 3
+            (outputs bit-equal to phase 3's sequential forward, pipelined
+            and sequential walls, a lane's device ms), the fleet of phase 4
+            (outputs bit-equal, walls, then a REBALANCE to theta 0.7 with
+            work in flight on the split pool: the c-core's SMs grow and
+            every member captures new lanes in the new partitions, outputs
+            bit-equal) and Qwen2-0.5B of phase 5 (tokens equal, walls, a
+            decode step's graph replay on the p-core's SMs against the
+            whole card's); the phase's launches are printed and kept apart
+            from the kernels line's;
+7. report   one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line.
@@ -145,12 +167,14 @@ DEV = "cuda"
 POLICY = "weighted_fair"                # the fleet CLI's defaults
 BURST = 4
 TURNS = 5                               # fleet / one-at-a-time wall pairs
+SPLIT_TURNS = 2                         # split, shared, shared, split
 LM_ARCH = "qwen2_0_5b"
 LM_REQUESTS = 8
 LM_BATCH = 2
 LM_PROMPT = 512
 LM_GEN = 64
-LM_THETA = 0.5
+SPLIT_THETA = 0.5              # phases 3 and 5's split: each CNN runner's
+LM_THETA = SPLIT_THETA         # (DualCoreRunner's default) and the LM's
 LM_MAX_LEN = LM_PROMPT + LM_GEN + 8    # the CLI's cache length
 LM_CHECK_PROMPT = 16                    # card against CPU, full width
 # the other registered dense configs, whose decode geometry phase 2 checks
@@ -590,8 +614,12 @@ def _lib_act(t: torch.Tensor, act: str | None) -> torch.Tensor:
     return t
 
 
-def check_and_time(call: dict, gen, timing: bool) -> dict:
-    """Hold one call against its plain version; time it if asked."""
+def check_and_time(call: dict, gen, timing: bool,
+                   parts: dict | None = None) -> dict:
+    """Hold one call against its plain version; time it if asked.  On
+    each of ``parts`` (core: ``green.Partition``) the call is run and
+    timed again on the partition's stream (``c_ms``, ``p_ms``), its output
+    bit-equal to the whole card's."""
     from repro_torch.kernels.util import cuda_time_ms
     case = make_case(call, gen)
     got = case["kernel"]()
@@ -619,6 +647,16 @@ def check_and_time(call: dict, gen, timing: bool) -> dict:
         if "after" in case:
             row["after_ms"] = (cuda_time_ms(case["after"])
                                - cuda_time_ms(case["producer"]))
+    for core, part in (parts or {}).items():
+        with torch.cuda.stream(part.stream):
+            again = case["kernel"]()
+            if timing:
+                row[f"{core}_ms"] = cuda_time_ms(case["kernel"])
+        part.stream.synchronize()
+        if not torch.equal(again, got):
+            raise AssertionError(f"{call}: on the {core}-core's {part.sms} "
+                                 f"SMs the kernel's output differs from "
+                                 f"the whole card's")
     return row
 
 
@@ -717,19 +755,12 @@ def check_counts(what: str, got: dict[str, int], want: dict[str, int],
 SUMMED = ("ms", "plain_ms", "library_ms", "bytes", "flops", "tc_flops")
 
 
-def kernel_sums(rows: dict, calls: list[dict]) -> dict[str, dict]:
-    """Per kernel, the phase-2 numbers summed over one request's calls."""
-    out: dict[str, dict] = {}
-    for c in calls:
-        r = rows[json.dumps(c, sort_keys=True)]
-        acc = out.setdefault(c["kernel"], dict(
-            calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
-            flops=0, tc_flops=0, max_abs_err=0.0))
-        acc["calls"] += 1
-        for k in SUMMED:
-            acc[k] += r[k]
-        acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
-    return out
+def kernel_sums(rows: dict, calls: list[dict],
+                cores: list[str] | None = None) -> dict[str, dict]:
+    """Per kernel, the phase-2 numbers summed over one request's calls;
+    ``partition_ms`` sums each call's time on its core's partition
+    (``cores``, one a call), or on the whole card without ``cores``."""
+    return weighted_sums(rows, [(c, 1) for c in calls], cores)
 
 
 # CUDA symbol of each kernel, as a graph's kernel nodes name it, and its
@@ -797,8 +828,8 @@ def group_nodes(runner, graph, tag: str) -> dict:
 def chain_device_ms(runner, eager) -> dict[str, float]:
     """Device ms of one request's whole exec-group chain on the current
     stream, the host's launch cost held out (``cuda_time_ms``): the
-    lane's graphs replayed one after another, and the same groups
-    launched eagerly."""
+    lane's graphs replayed one after another (each group's kernels on its
+    core's SMs), and the same groups launched eagerly (on every SM)."""
     from repro_torch.kernels.util import cuda_time_ms
     lane = next(iter(runner.lanes.lanes.values()))[0]
 
@@ -829,9 +860,10 @@ def serve_path(model: str, gen, rows: dict) -> dict:
 
     params, _, graph = build_model(model, seed=0, device="cuda")
     sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
-    runners = {"graphs": DualCoreRunner(model, params, sched, device="cuda"),
+    runners = {"graphs": DualCoreRunner(model, params, sched, device="cuda",
+                                        theta=SPLIT_THETA),
                "eager": DualCoreRunner(model, params, sched, device="cuda",
-                                       jit_groups=False)}
+                                       theta=SPLIT_THETA, jit_groups=False)}
     runner, eager = runners["graphs"], runners["eager"]
     calls = plan_calls(runner.plan, graph, BATCH)
     per_request = dict(Counter(c["kernel"] for c in calls))
@@ -903,13 +935,14 @@ def serve_path(model: str, gen, rows: dict) -> dict:
     host = {name: [] for name in runners}
     for name in (*runners, *reversed(runners)):        # in turns
         host[name].append(host_enqueue_ms(runners[name], images))
-    sums = kernel_sums(rows, calls)
+    sums = kernel_sums(rows, calls, plan_cores(runner.plan))
     device_ms = sum(v["ms"] for v in sums.values())
     chain_ms = chain_device_ms(runner, eager)
     print(f"{tag} device ms a request, the whole chain on one stream with "
-          f"the host held out: graphs {chain_ms['graphs']:.4f}, eager "
-          f"{chain_ms['eager']:.4f} (K1's launches are programmatic "
-          f"dependents, K2-K5's are not)")
+          f"the host held out: graphs {chain_ms['graphs']:.4f} (each "
+          f"group's kernels on its core's SMs), eager "
+          f"{chain_ms['eager']:.4f} (on every SM; K1's launches are "
+          f"programmatic dependents, K2-K5's are not)")
     for name in runners:
         print(f"{tag} {name}: pipelined "
               + ", ".join(f"{w * 1e3:.2f}" for w in walls[name, "pipelined"])
@@ -943,7 +976,7 @@ def serve_path(model: str, gen, rows: dict) -> dict:
                             chain_device_ms=chain_ms,
                             lane_bytes=[ln.nbytes for ln in lanes],
                             group_nodes=nodes),
-                io=(images, seq))
+                io=(images, seq), runner=runner)
 
 
 def fused_forward_path(gen, rows: dict) -> dict:
@@ -986,14 +1019,15 @@ def fused_forward_path(gen, rows: dict) -> dict:
 # --------------------------------------------------------------------------
 def lm_group_sizes() -> list[int]:
     """The fused decode groups the LM path forms: the card cost model's
-    group size for its queue (``DualMeshRunner.planned_group_size``)."""
+    group size for its queue (``DualMeshRunner.planned_group_size``; the
+    plan reads the cores' chips, not their SMs, so no split is made)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.dualmesh.cost import CardModel
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.dualmesh.schedule import plan_admission
-    gs = plan_admission(get_arch(LM_ARCH), split_streams(DEV, LM_THETA),
-                        CardModel(), LM_BATCH, LM_PROMPT, LM_GEN,
-                        LM_REQUESTS).group_size
+    dual = split_streams(DEV, LM_THETA, sm_split=False)
+    gs = plan_admission(get_arch(LM_ARCH), dual, CardModel(), LM_BATCH,
+                        LM_PROMPT, LM_GEN, LM_REQUESTS).group_size
     return [min(gs, LM_REQUESTS - i) for i in range(0, LM_REQUESTS, gs)]
 
 
@@ -1020,15 +1054,31 @@ def lm_request_calls(size: int) -> list[tuple[dict, float]]:
     63 decode steps of a group of ``size`` requests (49 norms over the
     group's rows and 24 decode calls over the whole cache of 584, masked
     to 513..575 keys)."""
+    return lm_prefill_calls() + lm_decode_step_calls(size)
+
+
+def lm_request_cores(size: int) -> list[str]:
+    """The core each of ``lm_request_calls(size)`` runs on: the prefill's
+    on the c-core, the decode steps' on the p-core."""
+    return (["c"] * len(lm_prefill_calls())
+            + ["p"] * len(lm_decode_step_calls(size)))
+
+
+def lm_prefill_calls() -> list[tuple[dict, float]]:
+    """An LM request's prefill calls with their weights."""
     from repro_torch.configs.registry import get_arch
-    cfg = get_arch(LM_ARCH)
-    L, rows = cfg.n_layers, LM_BATCH * size
-    calls = [(_k6(LM_BATCH * LM_PROMPT), 2 * L), (_k6(LM_BATCH), 1),
-             (_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN), L)]
+    L = get_arch(LM_ARCH).n_layers
+    return [(_k6(LM_BATCH * LM_PROMPT), 2 * L), (_k6(LM_BATCH), 1),
+            (_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN), L)]
+
+
+def lm_decode_step_calls(size: int) -> list[tuple[dict, float]]:
+    """An LM request's share of its decode group's step calls."""
+    from repro_torch.configs.registry import get_arch
+    L, rows = get_arch(LM_ARCH).n_layers, LM_BATCH * size
     steps = LM_GEN - 1
-    calls.append((_k6(rows), (2 * L + 1) * steps / size))
-    calls += [(c, L / size) for c in lm_decode_calls(rows)]
-    return calls
+    return ([(_k6(rows), (2 * L + 1) * steps / size)]
+            + [(c, L / size) for c in lm_decode_calls(rows)])
 
 
 def lm_decode_calls(rows: int, whole: bool = True) -> list[dict]:
@@ -1086,17 +1136,21 @@ def lm_geometry_edge_calls() -> list[dict]:
             for c in lm_geometry_calls() if c["kernel"] == "decode_attention"]
 
 
-def weighted_sums(rows: dict, calls: list[tuple[dict, float]]) -> dict:
-    """Per kernel, the phase-2 numbers summed over weighted calls."""
+def weighted_sums(rows: dict, calls: list[tuple[dict, float]],
+                  cores: list[str] | None = None) -> dict:
+    """Per kernel, the phase-2 numbers summed over weighted calls, as
+    :func:`kernel_sums`."""
     out: dict[str, dict] = {}
-    for c, wgt in calls:
+    for i, (c, wgt) in enumerate(calls):
         r = rows[json.dumps(c, sort_keys=True)]
         acc = out.setdefault(c["kernel"], dict(
-            calls=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
-            flops=0.0, tc_flops=0.0, max_abs_err=0.0))
+            calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
+            flops=0, tc_flops=0, max_abs_err=0.0, partition_ms=0.0))
         acc["calls"] += wgt
         for k in SUMMED:
             acc[k] += wgt * r[k]
+        acc["partition_ms"] += wgt * (r["ms"] if cores is None
+                                      else r[f"{cores[i]}_ms"])
         acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
     return out
 
@@ -1361,8 +1415,9 @@ def lm_path(rows: dict, former: dict) -> dict:
           f"({rates['copy_tb_per_s'] / (PEAK_BYTES_PER_S / 1e12):.3f} of "
           f"3.35)")
     return dict(model=LM_ARCH, launches=launches,
-                kernels=weighted_sums(rows, lm_request_calls(
-                    s["fused_sizes"][0])),
+                kernels=weighted_sums(
+                    rows, lm_request_calls(s["fused_sizes"][0]),
+                    lm_request_cores(s["fused_sizes"][0])),
                 group_size=gs, group_size_former_floor=gs_former,
                 fused_sizes=s["fused_sizes"],
                 wall_s=s["wall_s"], tokens_per_s=s["tokens_per_s"],
@@ -1382,7 +1437,9 @@ def lm_path(rows: dict, former: dict) -> dict:
                             for ln in v],
                 k6_after_producer_ms=k6_after,
                 card_vs_cpu_max_abs_err=err, rates=rates,
-                step_model=model)
+                step_model=model,
+                keep=dict(cfg=cfg, params=params, prompts=prompts,
+                          runner=runner, outputs=res.outputs))
 
 
 def launch_host_ms(fn, n: int = 20) -> float:
@@ -1669,6 +1726,269 @@ def fleet_path(served: dict) -> dict:
                 plan=dict(plan.summary(), rows=[list(r) for r in rows]))
 
 
+# --------------------------------------------------------------------------
+# phase 6: the c/p split of the card's SMs against shared SMs
+# --------------------------------------------------------------------------
+def probe_split(theta: float) -> dict:
+    """The SM probe on each core of a split at ``theta``: eagerly on the
+    core's stream, and in a graph captured on the core's capture stream and
+    replayed on a plain stream.  Raises unless each core's two sets are
+    equal and of its size and the two cores' sets are disjoint."""
+    from repro_torch.dualcore.runtime import DualCores
+    from repro_torch.kernels.green import probe_set
+    from repro_torch.kernels.util import resolve_device
+    dev = resolve_device(DEV)
+    cores = DualCores(dev, theta)
+    total = cores.split.total
+    plain = torch.cuda.Stream(dev)
+    sets = {}
+    for core in "cp":
+        eager = probe_set(dev, cores.streams[core], 2 * total)
+        replayed = probe_set(dev, plain, 2 * total,
+                             capture=cores.capture_stream(core))
+        n = cores.sms(core)
+        if len(eager) != n or replayed != eager:
+            raise AssertionError(f"split at theta {theta}: the {core}-core "
+                                 f"has {n} SMs; the probe ran on "
+                                 f"{len(eager)} eagerly and {len(replayed)} "
+                                 f"in a replay (equal sets: "
+                                 f"{replayed == eager})")
+        sets[core] = dict(sms=n, eager=eager, replay=replayed)
+    if set(sets["c"]["eager"]) & set(sets["p"]["eager"]):
+        raise AssertionError(f"split at theta {theta}: the cores share SMs")
+    return dict(theta=theta, asked=cores.split.asked, realised=cores.theta,
+                total=total, cores=sets)
+
+
+def lane_device_ms(runner) -> float:
+    """Device ms of one request's lane: its graphs replayed one after
+    another on a plain stream, the host held out (each group's kernels on
+    its core's SMs when split)."""
+    from repro_torch.kernels.util import cuda_time_ms
+    lane = next(iter(runner.lanes.lanes.values()))[0]
+
+    def graphs():
+        for g in lane.graphs:
+            g.replay()
+
+    with torch.cuda.stream(torch.cuda.Stream()):
+        return cuda_time_ms(graphs, reps=10)
+
+
+def split_cnn(model: str, p: dict) -> dict:
+    """Phase 3's engine on split cores (its graphs runner) against the same
+    model on shared ones: outputs bit-equal to phase 3's sequential kernel
+    forward, pipelined and sequential walls in turns, a lane's device
+    ms."""
+    from repro_torch.dualcore.runtime import DualCoreRunner, DualCores
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+    split = p["runner"]
+    images, seq = p["io"]
+    shared = DualCoreRunner(model, split._params, split.schedule,
+                            device=split.device,
+                            cores=DualCores(split.device, sm_split=False))
+    shared.run_pipelined(images)                # warm: lanes grown
+    runners = {"split": split, "shared": shared}
+    for name, r in runners.items():
+        res = replay(DualCoreEngine(r), [Request(x) for x in images])
+        for i, (a, b) in enumerate(zip(res.outputs, seq)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"split: {model} request {i} on "
+                                     f"{name} SMs differs from phase 3's "
+                                     f"sequential kernel forward")
+    walls = {(n, mode): [] for n in runners
+             for mode in ("pipelined", "sequential")}
+    lane_ms = {n: [] for n in runners}
+    for _ in range(SPLIT_TURNS):
+        for name in ("split", "shared", "shared", "split"):   # in turns
+            for mode in ("pipelined", "sequential"):
+                walls[name, mode].append(runners[name].timed(images,
+                                                             mode)[1])
+    for name in ("split", "shared", "shared", "split"):
+        lane_ms[name].append(lane_device_ms(runners[name]))
+    print(f"[split] {model}: outputs on split and shared SMs bit-equal to "
+          f"phase 3's sequential kernel forward; "
+          + "; ".join(f"{n} pipelined "
+                      + ", ".join(f"{w * 1e3:.2f}"
+                                  for w in walls[n, "pipelined"])
+                      + " ms, sequential "
+                      + ", ".join(f"{w * 1e3:.2f}"
+                                  for w in walls[n, "sequential"])
+                      + " ms, a lane's device ms "
+                      + ", ".join(f"{t:.4f}" for t in lane_ms[n])
+                      for n in runners))
+    return dict(walls={f"{n} {mode}": v for (n, mode), v in walls.items()},
+                lane_device_ms=lane_ms,
+                sms={c: split.cores.sms(c) for c in "cp"})
+
+
+def split_fleet(served: dict) -> dict:
+    """Phase 4's fleet on a split pool and on a shared one: outputs
+    bit-equal, walls in turns; then a REBALANCE to 0.7 on the split pool
+    with work in flight, after which every member captures new lanes in
+    the new partitions."""
+    from repro_torch.fleet import (DevicePool, FleetEngine, Rebalance,
+                                   build_cnn_fleet, make_policy)
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+    models = list(served)
+    mix = {m: 1.0 / len(models) for m in models}
+    order = [(m, i) for i in range(REQUESTS) for m in models]
+    want = [served[m]["io"][1][i] for m, i in order]
+
+    def requests():
+        return [Request(served[m]["io"][0][i], model=m) for m, i in order]
+
+    def over(fl):
+        return FleetEngine({mm.name: DualCoreEngine(mm.engine.runner)
+                            for mm in fl.members},
+                           policy=make_policy(POLICY), weights=mix,
+                           burst=BURST, pool=fl.pool)
+
+    def check(what, outs):
+        if len(outs) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(outs, want)):
+            raise AssertionError(f"split: the fleet on {what} differs from "
+                                 f"phase 3's sequential kernel forward")
+
+    fleets = {}
+    for name, sm_split in (("split", True), ("shared", False)):
+        fl, _ = build_cnn_fleet(models, seed=0, scheme=SCHEME,
+                                policy=make_policy(POLICY), weights=mix,
+                                burst=BURST,
+                                pool=DevicePool(DEV, sm_split=sm_split))
+        for mm in fl.members:
+            mm.engine.runner.run_sequential(served[mm.name]["io"][0][:1])
+        check(f"{name} SMs", replay(over(fl), requests()).outputs)
+        fleets[name] = fl
+    walls = {n: [] for n in fleets}
+    for _ in range(SPLIT_TURNS):
+        for name in ("split", "shared", "shared", "split"):   # in turns
+            fl = over(fleets[name])
+            t0 = time.perf_counter()
+            out = replay(fl, requests())
+            walls[name].append(time.perf_counter() - t0)
+            check(f"{name} SMs (timed)", out.outputs)
+    # a REBALANCE to 0.7 with work in flight on the split pool
+    pool = fleets["split"].pool
+    before = {c: pool.cores.sms(c) for c in "cp"}
+    runners = [mm.engine.runner for mm in fleets["split"].members]
+    old_lanes = [r.lanes for r in runners]
+    fl = over(fleets["split"])
+    for r in requests():
+        fl.submit(r)
+    fl.step()
+    fl.executor.inject(Rebalance(theta=0.7))
+    res = fl.drain()
+    check("the split pool across a REBALANCE", res.outputs)
+    after = {c: pool.cores.sms(c) for c in "cp"}
+    recaptured = [r.lanes.count for r in runners]
+    if (after["c"] <= before["c"]
+            or any(r.lanes is o for r, o in zip(runners, old_lanes))
+            or not all(recaptured)
+            or any(r.cores is not pool.cores for r in runners)):
+        raise AssertionError(f"split: the REBALANCE left SMs {before} -> "
+                             f"{after}, lanes recaptured {recaptured}")
+    n_img = len(order) * BATCH
+    print(f"[split] fleet ({len(order)} requests): outputs on split and "
+          f"shared SMs bit-equal; "
+          + "; ".join(f"{n} " + ", ".join(f"{w * 1e3:.2f}" for w in v)
+                      + f" ms (best {n_img / min(v):.1f} img/s)"
+                      for n, v in walls.items())
+          + f"; a REBALANCE to 0.7 mid-run moved the c/p SMs {before} -> "
+          f"{after} (theta {pool.cores.theta:.4f} realised), outputs "
+          f"bit-equal, {sum(recaptured)} lanes recaptured in the new "
+          f"partitions ({dict(zip(models, recaptured))})")
+    return dict(walls=walls, rebalance=dict(before=before, after=after,
+                                            recaptured=recaptured))
+
+
+def split_lm(keep: dict) -> dict:
+    """Phase 5's Qwen2-0.5B runner (split cores) against one on shared
+    SMs: tokens equal, walls in turns, a decode step's graph replay on the
+    p-core's SMs against the whole card's."""
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.runtime import DualMeshRunner
+    from repro_torch.kernels.util import cuda_time_ms
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.lm import DualMeshEngine
+    cfg, prompts = keep["cfg"], keep["prompts"]
+    split = keep["runner"]
+    gs = split.planned_group_size(prompts, [LM_GEN] * len(prompts))
+    shared = DualMeshRunner(cfg, keep["params"],
+                            split_streams(DEV, LM_THETA, sm_split=False),
+                            max_len=LM_MAX_LEN)
+    shared.serve(prompts[:gs], gen_steps=2, group_size=gs)     # warm
+    runners = {"split": split, "shared": shared}
+    walls = {n: [] for n in runners}
+    for name in ("split", "shared", "shared", "split"):        # in turns
+        res = replay(DualMeshEngine(runners[name], group_size=gs),
+                     [Request(p, gen_steps=LM_GEN) for p in prompts])
+        walls[name].append(res.stats["wall_s"])
+        for i, (a, b) in enumerate(zip(res.outputs, keep["outputs"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"split: lm request {i} on {name} SMs "
+                                     f"differs from phase 5's tokens")
+    rows_dec = LM_BATCH * gs
+    mid = LM_PROMPT + LM_GEN // 2
+    step_ms = {n: [] for n in runners}
+    for name in ("split", "shared", "shared", "split"):
+        lane = runners[name].lanes.lanes[rows_dec, LM_MAX_LEN][0]
+
+        def replay_step():
+            lane.pos.fill_(mid)
+            lane.graph.replay()
+
+        with torch.cuda.stream(torch.cuda.Stream()):
+            step_ms[name].append(cuda_time_ms(replay_step, reps=4))
+    sms = {c: split.dual.cores.sms(c) for c in "cp"}
+    print(f"[split] {cfg.name}: tokens on split SMs (c {sms['c']}, p "
+          f"{sms['p']}) equal those on shared SMs; walls "
+          + "; ".join(f"{n} " + ", ".join(f"{w * 1e3:.2f}" for w in v)
+                      + " ms" for n, v in walls.items())
+          + f"; a decode step of {rows_dec} rows (one graph replay, cache "
+          f"{mid}, host held out): "
+          + "; ".join(f"{n} " + ", ".join(f"{t:.3f}" for t in v) + " ms"
+                      for n, v in step_ms.items()))
+    return dict(walls=walls, step_ms=step_ms, sms=sms)
+
+
+def split_path(served: dict, lm_keep: dict) -> dict:
+    """Phase 6: the SM probe at the fleet planner's theta and at 0.5, then
+    the CNN engines, the fleet and Qwen2-0.5B on split SMs against shared
+    ones, launches counted from 0 over the phase."""
+    from repro_torch.core.arch import DUAL_MULTI
+    from repro_torch.fleet import plan_fleet
+    t0 = time.perf_counter()
+    mix = {m: 1.0 / len(served) for m in served}
+    planned = plan_fleet(mix, config=DUAL_MULTI).theta
+    probes = [probe_split(t) for t in (planned, 0.5)]
+    for pr in probes:
+        asked = {"c": pr["asked"], "p": pr["total"] - pr["asked"]}
+        for core, r in pr["cores"].items():
+            print(f"[split] theta {pr['theta']:.4f}: {core}-core {r['sms']} "
+                  f"SMs of {pr['total']} ({asked[core]} asked), realised "
+                  f"theta {pr['realised']:.4f}; the probe "
+                  f"ran on the same {len(r['eager'])} SMs eagerly and in a "
+                  f"graph replay: {r['eager']}")
+        print(f"[split] theta {pr['theta']:.4f}: the c- and p-cores' SM "
+              f"sets are disjoint, eagerly and in a replay")
+    reset_counts()
+    cnn = {m: split_cnn(m, p) for m, p in served.items()}
+    fleet = split_fleet(served)
+    lm = split_lm(lm_keep)
+    launches = launch_counts()
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"split: {idle} never launched in the phase")
+    print(f"[split] launches over the phase {launches} (not in the "
+          f"kernels line, whose launches are phases 3-5's counted runs); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(split_launches=launches, probes=probes, cnn=cnn,
+                fleet=fleet, lm=lm)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1687,7 +2007,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    from repro_torch.kernels.util import ptxas_report, timed_build
+    from repro_torch.kernels.green import split_sms
+    from repro_torch.kernels.util import (ptxas_report, resolve_device,
+                                          timed_build)
 
     # 1. setup ------------------------------------------------------------
     card = card_line()
@@ -1705,15 +2027,24 @@ def main() -> int:
     distinct: dict[str, dict] = {}
     for c in path_call_list():
         distinct.setdefault(json.dumps(c, sort_keys=True), c)
+    split = split_sms(resolve_device(DEV), SPLIT_THETA)
+    cores_of = path_cores()
+    print(f"[kernels] each path call also on its core's partition of the "
+          f"split at theta {SPLIT_THETA} (c {split.sms('c')} SMs, p "
+          f"{split.sms('p')}), its output bit-equal to the whole card's")
     rows = {}
     for key, c in distinct.items():
-        rows[key] = check_and_time(c, gen, timing=True)
+        parts = {core: split.parts[core] for core in
+                 sorted(cores_of.get(key, ()))}
+        rows[key] = check_and_time(c, gen, timing=True, parts=parts)
         r = rows[key]
         plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
         after = ("" if "after_ms" not in r
                  else f"  after its producer {r['after_ms']:.4f}")
+        own = "".join(f"  {core}-core {r[core + '_ms']:.4f}"
+                      for core in parts)
         print(f"[kernels] {r['kernel']:<21} "
-              f"{_shape_str(c):<40} ms {r['ms']:.4f}{after}  plain "
+              f"{_shape_str(c):<40} ms {r['ms']:.4f}{own}{after}  plain "
               f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})  err "
               f"{r['max_abs_err']:.1e}{plan}")
@@ -1749,14 +2080,18 @@ def main() -> int:
 
     # 4. fleet ------------------------------------------------------------
     paths.append(fleet_path(served))
-    for p in served.values():
-        del p["io"]
 
     # 5. lm ---------------------------------------------------------------
-    paths.append(lm_path(rows, former))
+    lm = lm_path(rows, former)
+    paths.append(lm)
     granite = granite_path()
 
-    # 6. report -----------------------------------------------------------
+    # 6. split ------------------------------------------------------------
+    split = split_path(served, lm.pop("keep"))
+    for p in served.values():
+        del p["io"], p["runner"]
+
+    # 7. report -----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -1768,6 +2103,7 @@ def main() -> int:
             launches=sum(p["launches"][name] for p in paths),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine),
+            partition_ms=sum(r["partition_ms"] for r in mine),
             plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=sum(r["library_ms"] for r in mine)))
@@ -1777,20 +2113,25 @@ def main() -> int:
         card=card, device=kind, torch=torch.__version__,
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
         former_decode_rows=list(former.values()),
-        paths=paths, granite=granite, kernels=kernels), indent=1))
+        paths=paths, granite=granite, split=split, kernels=kernels),
+        indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")
         for kname, v in p["kernels"].items():
             b_ms, b_by = bound_ms(v["bytes"], v["flops"], v["tc_flops"])
             print(f"[report] {name}: {kname} launches {p['launches'][kname]}"
-                  f", calls a request {v['calls']:g}, ms {v['ms']:.4f}, "
+                  f", calls a request {v['calls']:g}, ms {v['ms']:.4f} "
+                  f"(on its cores' partitions {v['partition_ms']:.4f}), "
                   f"bound {b_ms:.5f} ({b_by}), plain {v['plain_ms']:.4f}, "
                   f"library {v['library_ms']:.4f}, err "
                   f"{v['max_abs_err']:.1e}")
     print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
           f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
           f"the kernel (an LM request: its prefill and its share of its "
-          f"decode group's steps); launches are the paths' counted runs; "
+          f"decode group's steps), ms on all of the card's SMs, "
+          f"partition_ms each call on its core's partition of the split at "
+          f"theta {SPLIT_THETA} (the fuse=True forward's on the whole "
+          f"card); launches are phases 3-5's counted runs; "
           f"{time.perf_counter() - t_start:.1f} s total")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1815,20 +2156,50 @@ def cnn_path_calls() -> list[dict]:
     return [c for calls in cnn_paths().values() for c in calls]
 
 
-def cnn_paths() -> dict[str, list[dict]]:
-    """Each CNN path's kernel calls for one request: the three CNNs under
-    ``balanced``, then MobileNet v2's ``fuse=True`` forward."""
+def path_cores() -> dict[str, set[str]]:
+    """The cores each distinct path call runs on in phases 3 and 5, by the
+    call's key: a CNN exec group's core, the LM's prefill on the c-core
+    and its decode steps on the p-core.  The ``fuse=True`` forward's calls
+    run on the whole card and are not in it."""
+    out: dict[str, set[str]] = {}
+    pairs = []
+    for model in SERVED:
+        plan, graph = served_plan(model)
+        pairs += zip(plan_calls(plan, graph, BATCH), plan_cores(plan))
+    for size in sorted(set(lm_group_sizes())):
+        pairs += zip((c for c, _ in lm_request_calls(size)),
+                     lm_request_cores(size))
+    for c, core in pairs:
+        out.setdefault(json.dumps(c, sort_keys=True), set()).add(core)
+    return out
+
+
+def plan_cores(plan) -> list[str]:
+    """The core of each of ``plan_calls(plan, ...)``: its exec group's."""
+    return [g.core for g in plan.groups for _ in g.steps]
+
+
+def served_plan(model: str):
+    """The exec plan and layer graph of ``model`` under ``SCHEME``."""
     from repro_torch.core.arch import DUAL_BASELINE, BoardModel
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.dualcore.program import build_program
     from repro_torch.dualcore.runtime import build_exec_plan
     from repro_torch.models.zoo import get_graph
+    graph = get_graph(model)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+    return (build_exec_plan(build_program(model), sched, group_fusion=True),
+            graph)
+
+
+def cnn_paths() -> dict[str, list[dict]]:
+    """Each CNN path's kernel calls for one request: the three CNNs under
+    ``balanced``, then MobileNet v2's ``fuse=True`` forward."""
+    from repro_torch.dualcore.program import build_program
+    from repro_torch.models.zoo import get_graph
     paths = {}
     for model in SERVED:
-        graph = get_graph(model)
-        sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
-        plan = build_exec_plan(build_program(model), sched,
-                               group_fusion=True)
+        plan, graph = served_plan(model)
         paths[f"{model} {SCHEME}"] = plan_calls(plan, graph, BATCH)
     paths[f"{FUSED} fuse=True"] = step_calls(
         build_program(FUSED, fuse=True).steps,

@@ -9,38 +9,42 @@ runs); :class:`DualCoreRunner` runs the groups with the paper's one-slot
 offset through ``repro_torch.serving.cnn.DualCoreEngine``.
 
 The two cores on one card (:class:`DualCores`): the c-core and the p-core
-are two CUDA streams of the same device.  Both streams share all of the
-card's SMs: ``theta`` (the Eq.10 split) is recorded but does not split SMs
-yet.  A group waits on the ready event of the env it receives, runs on its
-core's stream, and records a new ready event; tensors handed across
-streams are marked with ``record_stream`` so the caching allocator never
-reuses their memory while the other stream may still read them.  On the
+are two disjoint sets of the card's SMs, each a green context with its own
+streams, split at ``theta`` (the Eq.10 split, the reference's ``split_mesh``
+with SMs for chips); ``sm_split=False`` keeps two plain streams on every SM
+as the baseline.  A group waits on the ready event of the env it receives,
+runs on its core's stream, and records a new ready event; tensors handed
+across streams are marked with ``record_stream`` so the caching allocator
+never reuses their memory while the other stream may still read them.  On the
 CPU both cores alias one queue, like the reference's degenerate
-single-device split.  Parameters live once on the device, read by both
-cores: the reference's per-core ``device_put`` has no counterpart.
+single-device split.  Parameters live once on the device, read by both cores:
+the reference's per-core ``device_put`` has no counterpart.
 
-Compiled groups (``jit_groups``, the reference's per-group ``jax.jit``):
-on the card each exec group runs as one CUDA graph, replayed between the
-ready-event wait and the new event's record.  A graph reads and writes
-fixed addresses, so a request runs on a :class:`Lane`: one graph per exec
-group, captured in chain order from one private memory pool, group g+1's
-graph reading in place what group g's graph wrote (the counterpart of
-``donate_argnums=(1,)``).  ``place_input`` copies the image into the lane
-(group 0 never writes the caller's tensor), the last group clones
-``"out"`` out of it and hands the lane back to its :class:`LanePool`,
-behind that group's ready event.  Lanes are pooled per input shape and
-dtype; a lane is reused only behind a device-side wait on its previous
-request's last ready event, and when every lane is held the pool grows by
-a new capture.  A capture can wait until the card is idle
+Compiled groups (``jit_groups``, the reference's per-group ``jax.jit``): on
+the card each exec group runs as one CUDA graph, replayed between the
+ready-event wait and the new event's record.  A graph reads and writes fixed
+addresses, so a request runs on a :class:`Lane`: one graph per exec group,
+captured in chain order from one private memory pool on its own core's
+capture stream (so a c-group's kernels run on the c-core's SMs wherever the
+graph is replayed), group g+1's graph reading in place what group g's graph
+wrote (the counterpart of ``donate_argnums=(1,)``).  ``place_input`` copies
+the image into the lane (group 0 never writes the caller's tensor), the last
+group clones ``"out"`` out of it and hands the lane back to its
+:class:`LanePool`, behind that group's ready event.  Lanes are pooled per
+input shape and dtype; a lane is reused only behind a device-side wait on
+its previous request's last ready event, and when every lane is held the
+pool grows by a new capture.  A capture can wait until the card is idle
 (``tools/capture_wait.py``), so the lanes a traffic pattern holds at once
 are made by a warm-up run of that traffic (``serve``, ``chip_smoke.py``);
-after it the host never waits.  The first lane of a shape is
-preceded by one eager run of the chain on the cores' streams (the library
-build, the kernels' attributes, the host planners, the allocator).  A
-failed capture raises with the group and the step; nothing falls back to
-the eager path, which runs only with ``jit_groups=False``.  On the CPU
-``jit_groups`` and ``donate`` are accepted and change nothing, as donation
-changes nothing on the reference's CPU backend.
+after it the host never waits.  The first lane of a shape is preceded by one
+eager run of the chain on the cores' streams (the library build, the
+kernels' attributes, the host planners, the allocator).  A runner moved onto
+a re-split pool drops its lanes and captures new ones in the new partitions
+at the next request, as the reference re-jits on the new mesh.  A failed
+capture raises with the group and the step; nothing falls back to the eager
+path, which runs only with ``jit_groups=False``.  On the CPU ``jit_groups``
+and ``donate`` are accepted and change nothing, as donation changes nothing
+on the reference's CPU backend.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from repro_torch.core.latency import layer_latency
 from repro_torch.core.scheduler import Group, Schedule
 from repro_torch.dualcore.program import (Env, Params, Program, Step,
                                           build_program, regroup_fused)
+from repro_torch.kernels.green import SmSplit, split_sms
 from repro_torch.kernels.util import (CountedGraph, capture_graph,
                                      resolve_device)
 
@@ -166,28 +171,76 @@ def build_exec_plan(program: Program, schedule: Schedule,
 class DualCores:
     """The c-core and the p-core of one device.
 
-    On CUDA: two streams of the same card (one stream for both with
-    ``one_stream``, the no-overlap baseline).  They share every SM:
-    ``theta`` is recorded for the printout and does not split SMs yet.  On
-    the CPU: both cores alias the one eager queue (no overlap)."""
+    On CUDA, by default (``sm_split``): two disjoint sets of the card's
+    SMs, each a green context with its own streams
+    (:func:`~repro_torch.kernels.green.split_sms`), the c-core
+    ``round(theta * SMs)`` of them rounded to CUDA's granularity of
+    8 and the p-core the rest; ``theta`` is then the realised c-share, as
+    the reference's ``split_mesh`` records ``n_c / len(devs)``, and
+    ``asked`` the theta asked for.  A CUDA driver without green contexts, or a
+    split it refuses, raises.  ``sm_split=False`` gives two plain streams
+    that share every SM (theta recorded only), the baseline the split is
+    measured against; ``one_stream`` one plain stream for both cores, the
+    no-overlap baseline (its cores share every SM too).  On the CPU: both
+    cores alias the one eager queue (no overlap), and nothing is split."""
 
     def __init__(self, device: torch.device, theta: float = 0.5,
-                 one_stream: bool = False):
+                 one_stream: bool = False, sm_split: bool = True):
         self.device = device
+        self.asked = theta
         self.theta = theta
+        self.split: SmSplit | None = None
+        self._capture: torch.cuda.Stream | None = None
         if device.type == "cuda":
-            c = torch.cuda.Stream(device)
-            p = c if one_stream else torch.cuda.Stream(device)
-            self.streams = {"c": c, "p": p}
+            if sm_split and not one_stream:
+                self.split = split_sms(device, theta)
+                self.theta = self.split.theta
+                self.streams = {core: part.stream
+                                for core, part in self.split.parts.items()}
+            else:
+                c = torch.cuda.Stream(device)
+                p = c if one_stream else torch.cuda.Stream(device)
+                self.streams = {"c": c, "p": p}
         else:
             self.streams = {"c": None, "p": None}
 
     def resplit(self, theta: float) -> "DualCores":
-        """The same two streams under a new recorded ``theta`` (SMs are not
-        split, so only the record changes)."""
+        """The cores re-split at ``theta``: on a split card, the split of
+        the new count (made at its first split, then kept: a count split
+        before gives the same partitions and streams); otherwise the same
+        streams under a new recorded ``theta``."""
+        if self.split is not None:
+            return DualCores(self.device, theta)
         out = copy.copy(self)
-        out.theta = theta
+        out.asked = out.theta = theta
         return out
+
+    @property
+    def sm_split(self) -> bool:
+        """True when the two cores run on disjoint SMs."""
+        return self.split is not None
+
+    def sms(self, core: str) -> int | None:
+        """SMs of core ``"c"`` or ``"p"`` on a split card, else None."""
+        return None if self.split is None else self.split.sms(core)
+
+    def capture_stream(self, core: str) -> torch.cuda.Stream | None:
+        """The stream graphs of ``core`` are captured on: a second stream
+        of the core's green context on a split card (the graph's kernels
+        then run on the core's SMs wherever it is replayed), else one side
+        stream for both cores; None on the CPU."""
+        if self.split is not None:
+            return self.split.parts[core].capture
+        if self._capture is None and self.on_card:
+            self._capture = torch.cuda.Stream(self.device)
+        return self._capture
+
+    def synchronize(self) -> None:
+        """Block the host until both cores' streams are idle (on a split
+        card ``torch.cuda.synchronize()`` does not wait for them)."""
+        for s in {id(s): s for s in self.streams.values()
+                  if s is not None}.values():
+            s.synchronize()
 
     @property
     def on_card(self) -> bool:
@@ -208,11 +261,16 @@ class DualCores:
         if not self.distinct:
             return (f"c/p cores share one CUDA stream on one {name} "
                     f"(no overlap)")
+        if self.split is not None:
+            return (f"c/p cores are two green contexts on disjoint SMs of "
+                    f"one {name}: c {self.sms('c')} SMs, p {self.sms('p')} "
+                    f"of {self.split.total} (theta {self.asked:.2f} asked, "
+                    f"{self.theta:.4f} realised)")
         sms = torch.cuda.get_device_properties(self.device) \
             .multi_processor_count
         return (f"c/p cores are two CUDA streams on one {name}; both "
-                f"streams share all {sms} SMs (theta={self.theta:.2f} is "
-                f"recorded, SMs are not split)")
+                f"streams share all {sms} SMs (sm_split=False; "
+                f"theta={self.theta:.2f} is recorded, SMs are not split)")
 
 
 def wait_ready(env: Env) -> None:
@@ -360,9 +418,8 @@ class DualCoreRunner:
         self.jit_groups = jit_groups
         self.donate = on_card if donate is None else donate
         self._compiled = jit_groups and on_card
-        self._capture_stream = (torch.cuda.Stream(self.device)
-                                if self._compiled else None)
         self.lanes = LanePool(self._new_lane)
+        self._warmed: set[tuple] = set()     # input keys run eagerly once
         self.capture_s = 0.0
 
     def _check_cores(self, cores: DualCores) -> None:
@@ -373,11 +430,16 @@ class DualCoreRunner:
     def relocate(self, cores: DualCores) -> None:
         """Rebind the runner onto a re-split pool's cores (the runner's
         half of a REBALANCE).  The parameters stay where they are: one
-        copy on the device serves both cores, and the lanes' graphs are
-        kept (a replay runs on whichever stream is current).  Envs in
-        flight keep their ready events; the next group's stream waits on
-        them."""
+        copy on the device serves both cores.  When the new cores' split
+        is another than the old (another count) the lanes are dropped:
+        their graphs' kernels belong to the old partitions, so the next
+        request captures new lanes in the new ones (the same split, or none,
+        keeps them: their graphs run there).
+        Envs in flight keep their ready events and their lanes, which
+        finish on the old partitions and are not pooled again."""
         self._check_cores(cores)
+        if cores.split is not self.cores.split:
+            self.lanes = LanePool(self._new_lane)
         self.cores = cores
 
     def _eager(self, gi: int, env: Env, at: list | None = None) -> Env:
@@ -419,10 +481,10 @@ class DualCoreRunner:
             done = torch.cuda.Event()
             done.record(stream)
         if lane is not None:
-            if last:
-                self.lanes.retire(lane, done)
-            else:
+            if not last:
                 out[LANE] = lane
+            elif lane in self.lanes.lanes.get(lane.key, ()):
+                self.lanes.retire(lane, done)   # not a relocated one
         out[READY] = done
         return out
 
@@ -435,8 +497,9 @@ class DualCoreRunner:
         lane of a key first runs the chain eagerly on the cores' streams."""
         shape, dtype = key
         x = torch.zeros(shape, dtype=dtype, device=self.device)
-        if not self.lanes.lanes.get(key):
+        if key not in self._warmed:
             self._warm(x)
+            self._warmed.add(key)
         t0 = time.perf_counter()
         reserved = torch.cuda.memory_reserved(self.device)
         pool = torch.cuda.graph_pool_handle()
@@ -462,7 +525,7 @@ class DualCoreRunner:
     def _capture(self, gi: int, env: Env, pool,
                  debug: bool = False) -> tuple[CountedGraph, Env]:
         """Capture exec group ``gi`` reading ``env`` (static tensors) on
-        the runner's capture stream; raises naming the group and the step
+        its core's capture stream; raises naming the group and the step
         that broke the capture."""
         at: list[str | None] = [None]
 
@@ -472,7 +535,8 @@ class DualCoreRunner:
             return out
 
         try:
-            return capture_graph(body, stream=self._capture_stream,
+            core = self.groups[gi].core
+            return capture_graph(body, stream=self.cores.capture_stream(core),
                                  pool=pool, debug=debug)
         except Exception as err:
             where = (f"in step {at[0]!r}" if at[0] is not None

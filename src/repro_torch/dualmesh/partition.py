@@ -3,11 +3,14 @@
 Port of ``repro/dualmesh/partition.py``.  The reference splits a pod's
 chips into a compute-shaped c-submesh (prefill) and a bandwidth-shaped
 p-submesh (decode) with the Eq.10 ratio ``theta``.  One card has no chips
-to split: :func:`split_streams` gives the c-core and the p-core as two CUDA
-streams of the card (the port's :class:`~repro_torch.dualcore.runtime.
-DualCores`), one "chip" each with no tensor parallelism, ``theta``
-recorded but not yet splitting SMs.  On the CPU both cores alias one
-queue, like the reference's degenerate single-device split.
+to split, but it has SMs: :func:`split_streams` gives the c-core and the
+p-core as two disjoint sets of the card's SMs at ``theta``, each a green
+context with its own streams (the port's :class:`~repro_torch.dualcore.
+runtime.DualCores`), one "chip" each with no tensor parallelism; the
+realised c-share is recorded, as the reference records ``n_c / n``.
+``sm_split=False`` gives two plain streams on every SM, the baseline.  On
+the CPU both cores alias one queue, like the reference's degenerate
+single-device split.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ class DualStreams:
     (chips and TP width per side)."""
 
     cores: DualCores
-    theta: float
+    theta: float                 # realised c-share (the SMs' on a split)
     c_chips: int = 1
     p_chips: int = 1
     tp_c: int = 1
@@ -42,12 +45,15 @@ class DualStreams:
 
 
 def split_streams(device: str | torch.device = "cuda", theta: float = 0.5,
-                  one_stream: bool = False) -> DualStreams:
-    """The c-core and the p-core of ``device``: two CUDA streams (one with
-    ``one_stream``, the no-overlap baseline), or one aliased queue on the
-    CPU.  ``device`` defaults to the card and raises without one."""
+                  one_stream: bool = False,
+                  sm_split: bool = True) -> DualStreams:
+    """The c-core and the p-core of ``device``: two green contexts on
+    disjoint SMs (two plain streams on every SM with ``sm_split=False``,
+    one with ``one_stream``, the no-overlap baseline), or one aliased queue
+    on the CPU.  ``device`` defaults to the card and raises without one;
+    a split CUDA cannot make raises."""
     if not 0.0 < theta < 1.0:
         raise ValueError(f"theta must lie in (0, 1), got {theta}")
     dev = resolve_device(device)
-    return DualStreams(cores=DualCores(dev, theta, one_stream=one_stream),
-                       theta=theta)
+    cores = DualCores(dev, theta, one_stream=one_stream, sm_split=sm_split)
+    return DualStreams(cores=cores, theta=cores.theta)

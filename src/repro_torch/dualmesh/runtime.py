@@ -2,9 +2,10 @@
 
 Port of ``repro/dualmesh/runtime.py``.  Chunked prefills run on the c-core
 and fused decode groups on the p-core; on a card the two cores are two
-CUDA streams (:func:`~repro_torch.dualmesh.partition.split_streams`), so a
-prefill and a decode group queued in the same scheduler slot run at once,
-the host only enqueueing.  On the CPU both cores alias one queue.  The
+green contexts on disjoint SMs, a stream each
+(:func:`~repro_torch.dualmesh.partition.split_streams`), so a prefill and
+a decode group queued in the same scheduler slot run at once on their own
+SMs, the host only enqueueing.  On the CPU both cores alias one queue.  The
 scheduler loop lives in :class:`repro_torch.serving.lm.DualMeshEngine`;
 ``DualMeshRunner.serve`` submits everything to one and drains it.
 
@@ -29,7 +30,8 @@ fused step (embed, every layer, the final norm, the LM head, the argmax
 written into the token buffer, the position advanced) reads and writes
 only those, at the same shapes at every position (``lm/model.py``'s
 shape-static decode), so on the card it is captured once per lane into a
-CUDA graph and replayed once a step.  Lanes are pooled per key: the fuse
+CUDA graph, on the p-core's capture stream so that its kernels run on
+the p-core's SMs, and replayed once a step.  Lanes are pooled per key: the fuse
 and the eviction copy into a free lane of their width (a new capture when
 every lane of the key is held) and hand the old one back behind the
 p-core's event, so two live groups never share buffers.  The first lane of
@@ -155,8 +157,6 @@ class DualMeshRunner:
         self._trace_events: list[tuple | None] = []
         self.jit_groups = jit_groups
         self._compiled = jit_groups and self.device.type == "cuda"
-        self._capture_stream = (torch.cuda.Stream(self.device)
-                                if self._compiled else None)
         self.lanes = LanePool(self._new_lane)
         self.capture_s = 0.0
 
@@ -264,7 +264,8 @@ class DualMeshRunner:
         reserved = torch.cuda.memory_reserved(dev)
         try:
             lane.graph, lane.logits = capture_graph(
-                lambda: self._step(lane), stream=self._capture_stream)
+                lambda: self._step(lane),
+                stream=self.dual.cores.capture_stream("p"))
         except Exception as err:
             raise RuntimeError(f"{cfg.name}: capturing the decode step of "
                                f"{rows} rows at capacity {cap} failed: "

@@ -1,12 +1,13 @@
 """repro_torch.fleet — several CNNs served over one device pool.
 
 Port of ``repro/fleet`` for CNN members, in one process.  A
-:class:`DevicePool` leases its c/p split (the card's two CUDA streams) to
-every member engine; a :class:`Router` routes model-tagged requests and
-a :class:`SchedulingPolicy` picks which member's exec groups dispatch each
+:class:`DevicePool` leases its c/p split (two green contexts on disjoint
+SMs of the card, a stream each) to every member engine; a
+:class:`Router` routes model-tagged requests and a
+:class:`SchedulingPolicy` picks which member's exec groups dispatch each
 step; :class:`FleetEngine` serves the members through the serving
 protocol, interleaving core-complementary groups of *different* networks
-on the two streams; :func:`plan_fleet` co-schedules a ``{model: qps
+on the two cores; :func:`plan_fleet` co-schedules a ``{model: qps
 share}`` mix through the §V-B design-space search (the Table VII flow).
 
 Execution is instruction-based: every ``FleetEngine.step`` lowers its

@@ -339,7 +339,9 @@ def build_cnn_fleet(models: Sequence[str], *,
     model is scheduled under ``DUAL_BASELINE`` with ``scheme``
     (``"best"`` runs the full §V-A flow per model).  ``jit_groups`` goes
     to every member's runner (compiled exec groups on the card; see
-    ``DualCoreRunner``).
+    ``DualCoreRunner``).  The pool made here splits the card's SMs; pass
+    ``pool=DevicePool(device, sm_split=False)`` for two streams on every SM,
+    the baseline.
     """
     board = BoardModel()
     if pool is None:

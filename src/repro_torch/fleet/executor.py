@@ -28,9 +28,9 @@ router owns only cross-pool concerns:
     mix its split was planned for), the router re-plans theta via
     ``planner.plan_fleet`` and issues a REBALANCE, which revokes the
     pool's leases, re-splits c/p at the new theta (Eq.10), and relocates
-    the members onto the new split (on one card: the same two streams
-    under the new recorded theta; in-flight envs keep their ready
-    events).
+    the members onto the new split (on one card: new green contexts on
+    the new SM counts, where the members capture new graphs; in-flight
+    envs keep their ready events and finish on the old ones).
 
 Per-request metrics are re-accounted at each boundary exactly as the
 fleet does to its members: latency runs from router submit to member
@@ -339,7 +339,8 @@ class PoolExecutor:
     # ------------------------------------------------------------------
     def _rebalance(self, theta: float) -> None:
         """Revoke every lease, re-split the pool at ``theta``, re-lease,
-        and relocate the members onto the new split."""
+        and relocate the members onto the new split (each drops its
+        lanes and captures new ones in the new partitions)."""
         pool = self.fleet.pool
         if pool is None:
             raise RuntimeError(f"pool {self.name!r} executed REBALANCE "

@@ -16,7 +16,7 @@ overlay ISA makes in ``core/isa.py``):
   RECV       accept requests a peer SENT and enqueue them on the member
   REBALANCE  re-split this pool's c/p cores at a new theta (dynamic
              re-leasing when the observed traffic mix drifts; on one card
-             only the recorded theta changes until the SMs are split)
+             the SMs are split anew)
   SET_PARAM  set one tunable of a member mid-run (fleet weight share, or
              a keyword of the member engine's ``retune``) (schema v2)
 

@@ -3,17 +3,21 @@
 Port of ``repro/fleet/pool.py``.  One pool backs every member of a fleet:
 it makes the c/p split of its device once (a
 :class:`~repro_torch.dualcore.runtime.DualCores`: on a card the c-core and
-the p-core are two CUDA streams, on the CPU one aliased queue) and
-*leases* that split to each member engine.  Every member's c-groups then
-go to the same c stream and its p-groups to the same p stream, which lets
-a conv-heavy exec group of one network overlap a dw-heavy group of
-another: the multi-network generalization of the Fig.4b two-image offset.
+the p-core are two green contexts on disjoint SMs, each with its own
+stream; on the CPU one aliased queue) and *leases* that split to each
+member engine.  Every member's c-groups then go to the same c stream and
+its p-groups to the same p stream, which lets a conv-heavy exec group of
+one network overlap a dw-heavy group of another on the other core's SMs:
+the multi-network generalization of the Fig.4b two-image offset.  Each of
+N in-process pools splits the whole card, as each reference pool splits
+all of ``jax.devices()``.
 
 Leases are named and exclusive per name (two engines accounting the same
-traffic is a wiring bug); releasing frees the name.  ``resplit`` keeps the
-same two streams and changes only the recorded ``theta``: both streams
-share all of the card's SMs until the SMs are split (ROADMAP queue 1
-item 3), and :meth:`DevicePool.stats` and the cores' ``describe`` say so.
+traffic is a wiring bug); releasing frees the name.  ``resplit`` makes a
+new split at the new ``theta`` and replaces the pool's cores; the work in
+flight drains on the old green contexts, which are kept, and a count
+split before gives back its split (``kernels/green.py``).  ``sm_split=False`` keeps two plain streams on every SM,
+whose ``resplit`` only records the new theta.
 """
 from __future__ import annotations
 
@@ -38,14 +42,15 @@ class DevicePool:
 
     ``device`` defaults to the card and raises without one
     (``device="cpu"`` runs the plain versions).  ``theta`` is the c-share
-    of the pool (Eq.10), recorded on the split.
+    the pool asks for (Eq.10), kept as asked, as the reference pool keeps
+    it; the cores record the share the split realised.
     """
 
     def __init__(self, device: str | torch.device = "cuda", *,
-                 theta: float = 0.5):
+                 theta: float = 0.5, sm_split: bool = True):
         self.device = resolve_device(device)
         self.theta = theta
-        self.cores = DualCores(self.device, theta)
+        self.cores = DualCores(self.device, theta, sm_split=sm_split)
         self._leases: dict[str, Lease] = {}
 
     @property
@@ -82,9 +87,10 @@ class DevicePool:
         return revoked
 
     def resplit(self, theta: float) -> DualCores:
-        """Re-split the pool at a new ``theta`` (Eq.10): the same two
-        streams under the new recorded theta.  Refuses while leases are
-        held (``revoke_all`` first: holders must relocate)."""
+        """Re-split the pool at a new ``theta`` (Eq.10): new green
+        contexts on a split card (the same two streams under the new
+        recorded theta without a split).  Refuses while leases are held
+        (``revoke_all`` first: holders must relocate)."""
         if self._leases:
             raise RuntimeError(f"resplit with leases held "
                                f"({sorted(self._leases)}); revoke_all() "
@@ -94,11 +100,15 @@ class DevicePool:
         return self.cores
 
     def stats(self) -> dict:
-        """Pool summary: device, theta, whether the two cores are distinct
-        streams, whether the SMs are split, and the lease holders."""
-        return {"device": str(self.device),
-                "theta": self.cores.theta,
-                "streams": 2 if self.cores.distinct else 1,
-                "degenerate": self.degenerate,
-                "sm_split": False,
-                "leases": sorted(self._leases)}
+        """Pool summary: device, theta (the realised share on a split
+        card), whether the two cores are distinct streams, whether the SMs
+        are split and, if so, each core's SMs, and the lease holders."""
+        out = {"device": str(self.device),
+               "theta": self.cores.theta,
+               "streams": 2 if self.cores.distinct else 1,
+               "degenerate": self.degenerate,
+               "sm_split": self.cores.sm_split,
+               "leases": sorted(self._leases)}
+        if self.cores.sm_split:
+            out["sms"] = {core: self.cores.sms(core) for core in "cp"}
+        return out

@@ -201,8 +201,8 @@ def build_library() -> Path:
     return lib                         # or nothing
 
 
-# C signatures: 'p' a device pointer (or NULL), 'i' an int, 'f' a float,
-# 's' the stream.
+# C signatures: 'p' a pointer (or NULL), 'i' an int, 'l' a long long, 'f' a
+# float, 's' the stream.
 SIGNATURES = {
     "repro_matmul_bias_act": "p" * 4 + "i" * 12 + "s",
     "repro_conv2d_implicit_gemm": "p" * 4 + "i" * 20 + "s",
@@ -212,9 +212,11 @@ SIGNATURES = {
     "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",
     "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "i" * 5 + "s",
     "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
+    "repro_sm_probe": "p" + "i" * 2 + "l" + "s",
+    "repro_sm_probe_clusters": "i" + "p" + "s",
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
-           "s": ctypes.c_void_p}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float, "s": ctypes.c_void_p}
 
 
 def ptxas_report(stem: str) -> list[str]:

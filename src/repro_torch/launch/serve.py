@@ -9,9 +9,10 @@ Port of the ``lm`` and ``cnn`` subcommands of ``repro/launch/serve.py``.
 
 serves the published configuration with seeded random weights through a
 ``DualMeshEngine``: chunked prefills on the c-core, fused decode groups on
-the p-core, the two cores two CUDA streams of the card; every RMSNorm
-launches K6 and every attention K7.  Prints the admission plan (the card
-cost model's group size and its projected tokens/s), tokens per second,
+the p-core, the two cores two green contexts on disjoint SMs of the card
+split at ``--theta``; every RMSNorm launches K6 and every attention K7.
+Prints the admission plan (the card cost model's group size and its
+projected tokens/s), tokens per second,
 p50/p95 request latency, the fused decode batch sizes, and the per-stage
 c/p trace with each stage's host enqueue time and its time on the
 core's stream (idle gaps included).  The reference's
@@ -28,14 +29,14 @@ schedule and the exec plan, places the seeded weights on the card, and
 streams the requests through a ``DualCoreEngine``: each scheduler slot
 advances every in-flight image one exec group (the Fig.4b one-slot offset)
 and refills the drained group-0 slot from the queue.  The c-core and the
-p-core are two CUDA streams sharing all SMs of the card.  Prints the
-plan's modelled two-batch latency T_b2 beside the instruction-level
+p-core are two green contexts on disjoint halves of the card's SMs.
+Prints the plan's modelled two-batch latency T_b2 beside the instruction-level
 simulator's cycles for two images (``core/simulator.py``, on the modelled
 FPGA), images per second, p50/p95 request latency, and the strictly
 sequential run's wall time beside the pipelined one.
 
 The ``fleet`` subcommand serves several CNNs at once through one pool of
-the card's two streams:
+the card's two cores:
 
   PYTHONPATH=src python -m repro_torch.launch.serve fleet \\
       --models mobilenet_v1,mobilenet_v2,squeezenet --image-size 224 \\
@@ -284,7 +285,7 @@ def _parse_fleet_mix(args) -> dict[str, float]:
 
 def serve_fleet(args) -> int:
     """``fleet`` subcommand: several CNNs over one pool of the card's
-    two streams, or ``--pools N`` in-process pools behind a router."""
+    two cores, or ``--pools N`` in-process pools behind a router."""
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             _fail(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
@@ -464,7 +465,7 @@ def main(argv=None):
                           "'cpu' (the plain versions)")
     cnn.set_defaults(func=serve_cnn)
     fleet = sub.add_parser("fleet", help="several CNNs over one pool of "
-                                         "the card's two streams")
+                                         "the card's two cores")
     fleet.add_argument("--models", default="mbv1,mbv2,squeezenet",
                        help="comma-separated member models "
                             "(aliases: mbv1, mbv2, sqz)")

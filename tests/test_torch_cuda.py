@@ -9,6 +9,7 @@ The file imports neither JAX nor the reference package.  TF32 is off, so the
 kernels and their plain versions are both full f32 and agree at rtol = atol
 = 1e-4 (only the summation order differs).
 """
+import ctypes
 import dataclasses
 import json
 import sys
@@ -32,9 +33,11 @@ from repro_torch.kernels.fused_block.kernel import (fused_dw_pw_conv,
 from repro_torch.configs.registry import get_smoke
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
-from repro_torch.fleet import Rebalance, build_cnn_fleet, make_policy
+from repro_torch.fleet import (DevicePool, Rebalance, build_cnn_fleet,
+                               make_policy)
 from repro_torch.kernels.attention.kernel import (decode_attention,
                                                   flash_attention)
+from repro_torch.kernels import green
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.util import resolve_device
 from repro_torch.lm.model import forward, init_params, params_from_numpy
@@ -357,14 +360,17 @@ def test_two_streams_mobilenet_v1_on_card(card):
 @pytest.mark.parametrize("burst", [1, 4])
 def test_fleet_two_models_equal_standalone_on_card(burst, card):
     """mobilenet_v1 + squeezenet as one fleet on one pool of the card's two
-    streams at 64 px (their groups interleave on the shared streams, four
-    slots a member a step with ``burst=4``), a REBALANCE with work in
-    flight: every output bit-equal to its model's standalone engine, and
-    the launches the plans' per-image counts."""
+    cores (disjoint SMs) at 64 px (their groups interleave on the shared
+    cores, four slots a member a step with ``burst=4``), a REBALANCE to
+    0.7 with work in flight, which gives the c-core more SMs: every output
+    bit-equal to its model's standalone engine, and the launches the
+    plans' per-image counts."""
     models = ["mobilenet_v1", "squeezenet"]
     fleet, pool = build_cnn_fleet(models, device=card, seed=1, burst=burst,
                                   policy=make_policy("weighted_fair"))
-    assert pool.cores.distinct and pool.stats()["sm_split"] is False
+    stats = pool.stats()
+    assert pool.cores.distinct and stats["sm_split"] is True
+    sms = stats["sms"]
     images = [t.to(card) for t in _arrays(9, *[(1, 64, 64, 3)] * 6)]
     tags = [models[i % 2] for i in range(6)]
     alone, per_image = {}, {}
@@ -389,7 +395,11 @@ def test_fleet_two_models_equal_standalone_on_card(burst, card):
     for fn in WRAPPERS.values():
         assert fn.launches - before[fn] == 3 * sum(
             per_image[m][fn] for m in models)
-    assert pool.cores.theta == 0.7
+    # the pool keeps the theta asked; the cores the share realised
+    assert pool.theta == pool.cores.asked == 0.7
+    c, p = pool.cores.sms("c"), pool.cores.sms("p")
+    assert pool.cores.theta == c / (c + p) and c > sms["c"]
+    assert pool.stats()["sms"] == {"c": c, "p": p}
     assert [c.status for c in res.completions] == ["ok"] * 6
     for a, b in zip(res.outputs, want):
         assert torch.equal(a, b)
@@ -661,8 +671,9 @@ def test_graphs_queued_back_to_back_grow_lanes_on_card(card):
 
 @pytest.mark.cuda
 def test_graphs_relocated_mid_flight_on_card(card):
-    """Requests in flight when the runner moves to another pool's streams
-    finish there on the same lanes' graphs, with the same bits."""
+    """Requests in flight when the runner moves to another pool's cores
+    finish there on the lanes they hold (their graphs captured in the old
+    partitions, which outlive them), with the same bits."""
     fast, eager, _ = _runners("mobilenet_v1", card)
     images = [t.to(card) for t in _arrays(5, *[(2, 64, 64, 3)] * 3)]
     want = eager.run_sequential(images)
@@ -674,7 +685,7 @@ def test_graphs_relocated_mid_flight_on_card(card):
         for h in handles[:2]:
             env = h(env)
         envs.append(env)
-    fast.relocate(DualCores(resolve_device(card)))
+    fast.relocate(DualCores(resolve_device(card), 0.25))
     for i, env in enumerate(envs):
         for h in handles[2:]:
             env = h(env)
@@ -722,11 +733,12 @@ def test_decode_graph_bit_equal_eager_on_card(card):
         logits, outs = [], {}
         for _ in range(8):
             r._decode_group(g, 1)
-            torch.cuda.synchronize()
+            r.dual.cores.synchronize()      # the p-core's replay is done
             logits.append(g.lane.logits.clone())
             if min(m.remaining for m in g.members) <= 0:
                 g = r._evict(g, outs)
         assert (r.lanes.count > 0) and (g.lane.graph is not None) == jit
+        r.dual.cores.synchronize()
         runs.append((logits, {k: v[0].clone() for k, v in outs.items()},
                      g.lane.seq[:, :g.pos + 1].clone()))
     (la, oa, sa), (lb, ob, sb) = runs
@@ -743,3 +755,173 @@ def test_decode_graph_bit_equal_eager_on_card(card):
         served.append([o.cpu() for o in res.outputs])
     for a, b in zip(*served):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the c/p split of the card's SMs (green contexts)
+# --------------------------------------------------------------------------
+def _probe(card, stream, capture=None) -> set[int]:
+    """The SMs a probe launch on ``stream`` ran on (captured on
+    ``capture`` and replayed on ``stream``, given ``capture``)."""
+    total = torch.cuda.get_device_properties(card).multi_processor_count
+    return set(green.probe_set(card, stream, 2 * total, capture=capture))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", [0.25, 0.5, 0.75])
+def test_split_probe_sets_disjoint_on_card(theta, card):
+    """At each theta the two cores' SMs are disjoint and of the split's
+    sizes, eagerly and in a graph captured on the core's capture stream
+    and replayed on a plain stream; together they are the whole card."""
+    dev = resolve_device(card)
+    cores = DualCores(dev, theta)
+    total = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cores.sm_split and cores.sms("c") + cores.sms("p") == total
+    assert cores.sms("c") == green.split_count(theta, total)
+    assert cores.theta == cores.sms("c") / total and cores.asked == theta
+    plain = torch.cuda.Stream(dev)
+    eager, replayed = {}, {}
+    for core in "cp":
+        eager[core] = _probe(dev, cores.streams[core])
+        replayed[core] = _probe(dev, plain, cores.capture_stream(core))
+        assert len(eager[core]) == len(replayed[core]) == cores.sms(core)
+    assert not eager["c"] & eager["p"]
+    assert not replayed["c"] & replayed["p"]
+    assert len(eager["c"] | eager["p"]) == total
+
+
+@pytest.mark.cuda
+def test_resplit_recaptures_in_the_new_partition_on_card(card):
+    """A runner relocated onto re-split cores drops its lanes and captures
+    new ones whose graphs run on the new c-core's SMs (a probe launched
+    inside the first c-group's graph says where), with the same bits; a
+    resplit to the same count keeps the split and the lanes."""
+    dev = resolve_device(card)
+    fast, eager, _ = _runners("squeezenet", card, cores=DualCores(dev, 0.5))
+    first = fast.cores.split
+    gi = next(i for i, g in enumerate(fast.groups) if g.core == "c")
+    step = fast.groups[gi].steps[0]
+    probes = []
+
+    def probing(params, env, collect):
+        step.fn(params, env, collect)
+        probes.append(green.probe_sms(dev, 264))
+
+    fast.groups[gi].steps[0] = dataclasses.replace(step, fn=probing)
+    images = [t.to(card) for t in _arrays(12, *[(1, 64, 64, 3)] * 2)]
+    want = eager.run_sequential(images)
+    for theta in (0.5, 0.25):
+        if theta != 0.5:
+            lanes = fast.lanes
+            fast.relocate(fast.cores.resplit(theta))
+            assert fast.lanes is not lanes and fast.lanes.count == 0
+        c_sms = _probe(dev, fast.cores.streams["c"])
+        assert len(c_sms) == fast.cores.sms("c")
+        got = fast.run_sequential(images)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        captured = probes[-1]                # the lane's graph's output
+        fast.cores.synchronize()
+        ids = captured.cpu().tolist()
+        assert min(ids) >= 0 and set(ids) <= c_sms
+    # a count split before gives back its split, streams and all; a
+    # relocation onto the split the lanes were captured in keeps them
+    assert DualCores(dev, 0.5).split is first
+    again = fast.cores.resplit(0.25)
+    assert again.split is fast.cores.split
+    assert again.streams == fast.cores.streams
+    lanes = fast.lanes
+    fast.relocate(again)
+    assert fast.lanes is lanes and lanes.count > 0
+    for a, b in zip(fast.run_sequential(images), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mobilenet_v2", "mobilenet_v1",
+                                   "squeezenet"])
+def test_split_bit_equal_shared_on_card(model, card):
+    """Each model at 64 px on graphs: split cores at 0.25 and 0.5 and
+    shared ones (``sm_split=False``) give the same bits."""
+    dev = resolve_device(card)
+    shared, _, _ = _runners(model, card,
+                            cores=DualCores(dev, sm_split=False))
+    assert not shared.cores.sm_split and "share all" in \
+        shared.cores.describe()
+    images = [t.to(card) for t in _arrays(13, *[(2, 64, 64, 3)] * 3)]
+    want = stream_images(shared, images).outputs
+    for theta in (0.25, 0.5):
+        split, _, _ = _runners(model, card, cores=DualCores(dev, theta))
+        assert "green contexts" in split.cores.describe()
+        for a, b in zip(stream_images(split, images).outputs, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fleet_split_bit_equal_shared_on_card(card):
+    """Two CNNs as one fleet on a split pool and on a shared one: the same
+    bits; the shared pool's stats say it is not split."""
+    models = ["mobilenet_v1", "squeezenet"]
+    images = [t.to(card) for t in _arrays(14, *[(1, 64, 64, 3)] * 4)]
+    outs = {}
+    for sm_split in (True, False):
+        fleet, pool = build_cnn_fleet(
+            models, seed=1, pool=DevicePool(card, sm_split=sm_split))
+        assert pool.stats()["sm_split"] is sm_split
+        assert ("sms" in pool.stats()) is sm_split
+        for i, x in enumerate(images):
+            fleet.submit(Request(x, model=models[i % 2]))
+        outs[sm_split] = fleet.drain().outputs
+    for a, b in zip(outs[True], outs[False]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decode_split_tokens_equal_shared_on_card(card):
+    """The smoke LM on split cores (each decode step's graph captured on
+    the p-core) and on shared ones: the same tokens."""
+    cfg = get_smoke("qwen2_0_5b")
+    params = params_from_numpy(init_params(cfg, seed=0), card)
+    prompts = random_prompts(cfg, 3, 1, 8, seed=4, device=card)
+    served = []
+    for sm_split in (True, False):
+        dual = split_streams(card, 0.5, sm_split=sm_split)
+        assert dual.cores.sm_split is sm_split
+        r = DualMeshRunner(cfg, params, dual, max_len=24)
+        res = r.serve(prompts, gen_steps=[4, 7, 7], group_size=3)
+        assert r.lanes.count > 0 and (r.dual.cores.split is None) != sm_split
+        served.append([o.cpu() for o in res.outputs])
+    for a, b in zip(*served):
+        assert torch.equal(a, b)
+
+
+class _Without:
+    """``libcuda`` as loaded, without the symbol ``missing``."""
+
+    def __init__(self, lib, missing: str):
+        self._lib, self._missing = lib, missing
+
+    def __getattr__(self, name):
+        if name == self._missing:
+            raise AttributeError(name)
+        return getattr(self._lib, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", ["cuDevSmResourceSplitByCount",
+                                     "cuGreenCtxStreamCreate"])
+def test_a_split_libcuda_cannot_make_raises_on_card(missing, card,
+                                                       monkeypatch):
+    """Without green contexts in ``libcuda`` every path that splits raises
+    naming the symbol; nothing runs on shared streams unless asked."""
+    real = ctypes.CDLL
+    monkeypatch.setattr(green, "_DRIVER", [])
+    monkeypatch.setattr(green.ctypes, "CDLL",
+                        lambda path: _Without(real(path), missing))
+    dev = resolve_device(card)
+    for make in (lambda: DualCores(dev), lambda: DevicePool(card),
+                 lambda: split_streams(card),
+                 lambda: build_cnn_fleet(["squeezenet"], device=card)):
+        with pytest.raises(green.GreenContextError, match=missing):
+            make()
+    assert not DualCores(dev, sm_split=False).sm_split
