@@ -131,7 +131,27 @@ any failure raises and the script exits non-zero:
             decode step's graph replay on the p-core's SMs against the
             whole card's); the phase's launches are printed and kept apart
             from the kernels line's;
-7. report   one ``[report]`` line for each path and kernel (launches,
+7. workers  the fleet across processes: the card's compute mode and any
+            MPS processes (none is started); two worker processes
+            (``start_workers``: ``python -m repro_torch.fleet.worker``, a
+            fresh interpreter each, its own CUDA context and its own
+            split of the card at theta 0.5, the three CNNs on compiled
+            groups, lanes captured before its READY line) behind a
+            ``MultiPoolRouter`` over the socket transport: phase 4's 24
+            requests cross the wire from the host with a forced migration,
+            every output bit-equal to phase 3's and retired once; each
+            worker's launches after its warm-up, read from its stderr line
+            at shutdown, equal the plans' counts for the requests it
+            served (printed apart from the kernels line's); the walls of
+            the two workers, two in-process pools and one pool in turns
+            (3 each), the coordinator's CPU time a router step, each
+            worker's spawn-to-READY time and the bytes on the wire; then a
+            fresh pair with ``pool1`` SIGKILLed at router step 2: pool1
+            dead, requests recovered, none failed or retired twice,
+            outputs bit-equal, the survivor's launches as the plans say,
+            and the collected streams replayed on fresh in-process fleets
+            on the card with the same signatures and outputs;
+8. report   one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line.
@@ -141,6 +161,7 @@ The same file holds each path's launch counts, walls and kernel sums.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -168,6 +189,11 @@ POLICY = "weighted_fair"                # the fleet CLI's defaults
 BURST = 4
 TURNS = 5                               # fleet / one-at-a-time wall pairs
 SPLIT_TURNS = 2                         # split, shared, shared, split
+WORKERS = 2                             # phase 7's worker processes
+WORKER_TURNS = 3                        # workers / 2 pools / 1 pool walls
+WORKER_KILL = ("pool1", 2)              # SIGKILLed at this router step
+CNN_KERNELS = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
+               "fused_dw_pw_conv", "fused_pw_dw_pw_conv")      # K1-K5
 LM_ARCH = "qwen2_0_5b"
 LM_REQUESTS = 8
 LM_BATCH = 2
@@ -1019,13 +1045,14 @@ def fused_forward_path(gen, rows: dict) -> dict:
 # --------------------------------------------------------------------------
 def lm_group_sizes() -> list[int]:
     """The fused decode groups the LM path forms: the card cost model's
-    group size for its queue (``DualMeshRunner.planned_group_size``; the
-    plan reads the cores' chips, not their SMs, so no split is made)."""
+    group size for its queue (``DualMeshRunner.planned_group_size``),
+    each core priced at its share of the SMs of the split at
+    ``LM_THETA`` (made once and kept, so phase 5's runner gets the same)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.dualmesh.cost import CardModel
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.dualmesh.schedule import plan_admission
-    dual = split_streams(DEV, LM_THETA, sm_split=False)
+    dual = split_streams(DEV, LM_THETA)
     gs = plan_admission(get_arch(LM_ARCH), dual, CardModel(), LM_BATCH,
                         LM_PROMPT, LM_GEN, LM_REQUESTS).group_size
     return [min(gs, LM_REQUESTS - i) for i in range(0, LM_REQUESTS, gs)]
@@ -1227,6 +1254,7 @@ def lm_path(rows: dict, former: dict) -> dict:
     from repro_torch.dualmesh.cost import CardModel
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+    from repro_torch.dualmesh.schedule import plan_admission
     from repro_torch.kernels.util import cuda_time_ms
     from repro_torch.lm.model import init_params, params_from_numpy
     from repro_torch.serving.api import Request, replay
@@ -1395,12 +1423,25 @@ def lm_path(rows: dict, former: dict) -> dict:
           f"alone {implied['launch']:.4e} s, under which the planner picks "
           f"group size {gs_launch}")
     model = step_model(cfg, runner.dual, rows_dec)
-    print(f"[lm] cost model, one decode step of {rows_dec} rows at cache "
-          f"{mid}: {model['latency_ms']:.3f} ms "
-          f"({model['bound']}: the step floor {model['floor_ms']:.3f} ms of "
-          f"host dispatch; f32 bytes {model['bytes_ms']:.3f} ms, compute "
+    prefills = [d for (kind, _, _), d in zip(res.trace, stream_ms)
+                if kind == "prefill"]
+    model["prefill_measured_ms"] = sum(prefills) / len(prefills)
+    model["makespan_ms"] = plan_admission(
+        cfg, runner.dual, CardModel(), LM_BATCH, LM_PROMPT, LM_GEN,
+        LM_REQUESTS).est_makespan * 1e3
+    print(f"[lm] cost model on the split (c-core {model['c_share']:.4f} of "
+          f"the card, p-core {model['p_share']:.4f}), one decode step of "
+          f"{rows_dec} rows at cache {mid}: {model['latency_ms']:.3f} ms "
+          f"({model['bound']}: the step floor {model['floor_ms']:.3f} ms; "
+          f"f32 bytes {model['bytes_ms']:.3f} ms, compute "
           f"{model['compute_ms']:.3f} ms) against {host_step:.3f} ms of "
-          f"host enqueue and {graph_step:.3f} ms on the device, measured")
+          f"host enqueue and {graph_step:.3f} ms on the device (a graph "
+          f"replay on the p-core), measured; one prefill (2 x {LM_PROMPT}) "
+          f"{model['prefill_ms']:.3f} ms ({model['prefill_bound']}) against "
+          f"{model['prefill_measured_ms']:.3f} ms on the c-core's stream "
+          f"(the served run's mean); the plan's makespan "
+          f"{model['makespan_ms']:.1f} ms against the served wall "
+          f"{s['wall_s'] * 1e3:.1f} ms")
     k6_after = sum(wgt * rows[json.dumps(c, sort_keys=True)]["after_ms"]
                    for c, wgt in lm_request_calls(s["fused_sizes"][0])
                    if c["kernel"] == "rmsnorm")
@@ -1458,19 +1499,25 @@ def launch_host_ms(fn, n: int = 20) -> float:
 
 def step_model(cfg, dual, rows: int) -> dict:
     """The card cost model's decode step of ``rows`` rows at the path's
-    mid cache: its latency and bound, and the terms under it (the bytes
-    term apart from the step floor)."""
-    from repro_torch.dualmesh.cost import CardModel, decode_cost
+    mid cache, on the p-core's share of the card: its latency and bound,
+    and the terms under it (the bytes term apart from the step floor);
+    and its prefill of one request on the c-core's share."""
+    from repro_torch.dualmesh.cost import CardModel, decode_cost, prefill_cost
     kv = LM_PROMPT + LM_GEN // 2
-    hw = CardModel()
+    hw = CardModel().share(dual.p_share)
     cost = decode_cost(cfg, rows, kv, dual.p_chips, 1, hw, dual.tp_p)
     bare = decode_cost(cfg, rows, kv, dual.p_chips, 1,
-                       CardModel(step_floor_base=0.0), dual.tp_p)
+                       dataclasses.replace(hw, step_floor_base=0.0),
+                       dual.tp_p)
+    pf = prefill_cost(cfg, LM_BATCH, LM_PROMPT, dual.c_chips,
+                      CardModel().share(dual.c_share), dual.tp_c)
     return dict(latency_ms=cost.latency * 1e3, bound=cost.bound,
                 floor_ms=cfg.n_layers * hw.step_floor(dual.p_chips,
                                                       dual.tp_p) / 4 * 1e3,
                 bytes_ms=bare.t_memory * 1e3,
-                compute_ms=cost.t_compute * 1e3)
+                compute_ms=cost.t_compute * 1e3,
+                prefill_ms=pf.latency * 1e3, prefill_bound=pf.bound,
+                c_share=dual.c_share, p_share=dual.p_share)
 
 
 def granite_path() -> dict:
@@ -1989,6 +2036,293 @@ def split_path(served: dict, lm_keep: dict) -> dict:
                 fleet=fleet, lm=lm)
 
 
+# --------------------------------------------------------------------------
+# phase 7: the fleet across processes
+# --------------------------------------------------------------------------
+def card_sharing() -> dict:
+    """The card's compute mode (``nvidia-smi``) and the MPS processes
+    running, by name (``/proc/*/comm``): without an MPS server the kernels
+    of two processes are time-sliced on the card, not concurrent."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    mps = []
+    for comm in Path("/proc").glob("[0-9]*/comm"):
+        try:
+            name = comm.read_text().strip()
+        except OSError:                  # the process ended meanwhile
+            continue
+        if name.startswith("nvidia-cuda-mps"):
+            mps.append(name)
+    return dict(compute_mode=mode, mps=sorted(set(mps)))
+
+
+def worker_launches(path: Path) -> dict[str, dict[str, int]]:
+    """Each worker's launch counts from its shutdown line on stderr."""
+    from repro_torch.fleet.net.worker import LAUNCHES_PREFIX
+    out = {}
+    for line in path.read_text().splitlines():
+        if line.startswith(LAUNCHES_PREFIX):
+            doc = json.loads(line[len(LAUNCHES_PREFIX):])
+            out[doc["pool"]] = doc["launches"]
+    return out
+
+
+def workers_path(served: dict) -> dict:
+    """Phase 7: phase 4's 24 requests over ``WORKERS`` worker processes
+    (each the three CNNs on compiled groups, split at theta 0.5 in its
+    own CUDA context) behind a ``MultiPoolRouter`` over the socket
+    transport: a clean run with a forced migration and a run that SIGKILLs
+    ``pool1`` at router step 2, every output bit-equal to phase 3's and
+    every request retired once, each worker's launches after its warm-up
+    as the plans say for the requests it served, the killed run's streams
+    replayed bitwise on fresh in-process fleets; then the walls of two
+    workers, two in-process pools and one pool in turns."""
+    from repro_torch.fleet import (FleetEngine, MultiPoolRouter,
+                                   RecoveryConfig, build_cnn_fleet, connect,
+                                   make_policy, start_workers, stop_workers,
+                                   stream_signature)
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+
+    tag = "[workers]"
+    models = list(served)
+    mix = {m: 1.0 / len(models) for m in models}
+    order = [(m, i) for i in range(REQUESTS) for m in models]
+    host_in = {m: [x.cpu() for x in served[m]["io"][0]] for m in models}
+    want = [served[m]["io"][1][i] for m, i in order]
+    want_host = [w.cpu() for w in want]
+    pools = [f"pool{i}" for i in range(WORKERS)]
+    wargs = ["--models", ",".join(models), "--image-size", str(IMAGE),
+             "--batch", str(BATCH), "--device", DEV, "--scheme", SCHEME,
+             "--policy", POLICY, "--burst", str(BURST)]
+    heartbeat = RecoveryConfig().heartbeat_s
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    sharing = card_sharing()
+    print(f"{tag} compute mode {sharing['compute_mode']}; MPS processes "
+          f"{sharing['mps'] or 'none'} (without an MPS server two "
+          f"processes' kernels are time-sliced on the card)")
+
+    def build():
+        return build_cnn_fleet(models, device=DEV, seed=0, scheme=SCHEME,
+                               policy=make_policy(POLICY), weights=mix,
+                               burst=BURST)[0]
+
+    def over(fl):
+        """A fresh fleet over ``fl``'s runners (warm streams, no state)."""
+        return FleetEngine({mm.name: DualCoreEngine(mm.engine.runner)
+                            for mm in fl.members},
+                           policy=make_policy(POLICY), weights=mix,
+                           burst=BURST, pool=fl.pool)
+
+    def requests(on_host: bool):
+        return [Request(host_in[m][i] if on_host else served[m]["io"][0][i],
+                        model=m) for m, i in order]
+
+    def check(what: str, res, host: bool) -> None:
+        outs = res.outputs
+        if (any(c.status not in ("ok", "recovered")
+                for c in res.completions)
+                or len({c.ticket.rid for c in res.completions})
+                != len(order)):
+            raise AssertionError(f"{what}: not every request retired once")
+        for j, (a, b) in enumerate(zip(outs, want_host if host else want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: request {j} ({order[j][0]}) "
+                                     f"differs from phase 3's sequential "
+                                     f"kernel forward")
+
+    def want_launches(served_by: dict) -> dict[str, int]:
+        out = Counter()
+        for m, n in served_by.items():
+            for k, v in served[m]["per_request"].items():
+                out[k] += n * v
+        return dict(out)
+
+    def check_launches(what: str, got: dict, served_by: dict) -> None:
+        mine = {k: got.get(k, 0) for k in CNN_KERNELS}
+        exp = {k: want_launches(served_by).get(k, 0) for k in CNN_KERNELS}
+        if mine != exp:
+            raise AssertionError(f"{what}: launches {mine} != {exp} for "
+                                 f"the requests served {served_by}")
+
+    def drive(router, kill=None, procs=None) -> tuple[object, int, float,
+                                                      float]:
+        """Submit every request at step 0 and step the router until
+        drained (SIGKILLing ``kill = (pool, step)``); return the result,
+        the router steps, the coordinator's CPU seconds and the wall
+        seconds of the submissions (each one RPC carrying a request)."""
+        cpu0 = time.process_time()
+        t0 = time.perf_counter()
+        for r in requests(True):
+            router.submit(r)
+        submit_s = time.perf_counter() - t0
+        steps = 0
+        while router.has_work:
+            if kill is not None and steps >= kill[1]:
+                procs[kill[0]].kill()
+                kill = None
+            router.step()
+            steps += 1
+        return (router.result(), steps, time.process_time() - cpu0,
+                submit_s)
+
+    # the clean run, then the walls in turns, on one pair of workers
+    ready: dict[str, list[float]] = {p: [] for p in pools}
+    err_clean = out_dir / "workers_clean.err"
+    served_by = {p: Counter() for p in pools}
+    with open(err_clean, "w") as err:
+        procs = start_workers({p: list(wargs) for p in pools}, stderr=err,
+                              ready_timeout_s=300.0)
+        for p in pools:
+            ready[p].append(procs[p].ready_s)
+        fleets = {}
+        try:
+            fleets = connect(procs, heartbeat_s=heartbeat)
+            router = MultiPoolRouter(fleets)
+            cpu0 = time.process_time()
+            t0 = time.perf_counter()
+            for r in requests(True):
+                router.submit(r)
+            moved = router.migrate("pool1", "pool0", count=2)
+            steps = 0
+            while router.has_work:
+                router.step()
+                steps += 1
+            clean = router.result()
+            wall = time.perf_counter() - t0
+            cpu_step = (time.process_time() - cpu0) / steps
+            check("workers", clean, host=True)
+            if moved != 2:
+                raise AssertionError(f"workers: moved {moved}, not 2")
+            for p in pools:
+                served_by[p].update(clean.stats["pools"][p]["served"])
+            wire_bytes = {"coordinator": router.obs.snapshot(
+                domain="wall", sources=False)["counters"]["net_bytes_total"]
+                ["series"]}
+            for p, ex in router.executors.items():
+                snap = ex._handle.collect(ex)
+                wire_bytes[p] = snap["counters"]["net_bytes_total"]["series"]
+            print(f"{tag} {WORKERS} workers ({', '.join(pools)}: "
+                  f"{'+'.join(models)} each, spawn to READY "
+                  + ", ".join(f"{ready[p][0]:.2f}" for p in pools)
+                  + f" s): {len(order)} requests, {moved} migrated pool1 -> "
+                  f"pool0 before the first step, in {steps} router steps, "
+                  f"{wall * 1e3:.2f} ms; every output bit-equal to phase "
+                  f"3's and every request retired once; served "
+                  + "; ".join(f"{p} {dict(served_by[p])}" for p in pools)
+                  + f"; coordinator CPU {cpu_step * 1e3:.3f} ms a router "
+                  f"step; bytes on the wire {wire_bytes}")
+
+            # walls in turns: two workers, two in-process pools, one pool
+            local = {"pools2": [build(), build()], "one": [build()]}
+            for fls in local.values():          # warm: lanes, streams
+                for fl in fls:
+                    replay(over(fl), requests(False))
+            walls = {n: [] for n in ("workers", "pools2", "one")}
+            cpu_steps, submits = [], []
+            for _ in range(WORKER_TURNS):
+                t0 = time.perf_counter()
+                res, n_steps, cpu, sub = drive(MultiPoolRouter(fleets))
+                walls["workers"].append(time.perf_counter() - t0)
+                cpu_steps.append(cpu / n_steps)
+                submits.append(sub)
+                check("workers (timed)", res, host=True)
+                for p in pools:
+                    served_by[p].update(res.stats["pools"][p]["served"])
+                t0 = time.perf_counter()
+                res = MultiPoolRouter({p: over(fl) for p, fl in zip(
+                    pools, local["pools2"])})
+                for r in requests(False):
+                    res.submit(r)
+                res = res.drain()
+                walls["pools2"].append(time.perf_counter() - t0)
+                check("two in-process pools (timed)", res, host=False)
+                t0 = time.perf_counter()
+                res = replay(over(local["one"][0]), requests(False))
+                walls["one"].append(time.perf_counter() - t0)
+                check("one pool (timed)", res, host=False)
+        finally:
+            stop_workers(fleets, procs)
+    launches = worker_launches(err_clean)
+    for p in pools:
+        check_launches(f"worker {p}", launches.get(p, {}), served_by[p])
+    n_img = len(order) * BATCH
+    print(f"{tag} walls in turns, {WORKER_TURNS} each: "
+          + "; ".join(f"{n} " + ", ".join(f"{w * 1e3:.2f}" for w in v)
+                      + f" ms (best {n_img / min(v):.1f} img/s)"
+                      for n, v in walls.items())
+          + f"; of the workers' walls the {len(order)} submit RPCs "
+          + ", ".join(f"{t * 1e3:.2f}" for t in submits)
+          + " ms; coordinator CPU a router step (submissions included) "
+          + ", ".join(f"{c * 1e3:.3f}" for c in cpu_steps) + " ms")
+    print(f"{tag} launches after each worker's warm-up (its stderr line at "
+          f"shutdown), as the plans say for the requests it served: "
+          + "; ".join(f"{p} {[launches[p].get(k, 0) for k in CNN_KERNELS]}"
+                      for p in pools) + " (K1-K5)")
+
+    # the SIGKILL run on a fresh pair, and its streams replayed here
+    err_kill = out_dir / "workers_kill.err"
+    with open(err_kill, "w") as err:
+        procs = start_workers({p: list(wargs) for p in pools}, stderr=err,
+                              ready_timeout_s=300.0)
+        for p in pools:
+            ready[p].append(procs[p].ready_s)
+        fleets = {}
+        try:
+            fleets = connect(procs, heartbeat_s=heartbeat)
+            router = MultiPoolRouter(fleets)
+            killed, k_steps, _, _ = drive(router, kill=WORKER_KILL,
+                                          procs=procs)
+            streams = router.streams()
+            placements = list(router.placements)
+            events = list(router.events)
+        finally:
+            stop_workers(fleets, procs)
+    st = killed.stats
+    if (st["dead"] != [WORKER_KILL[0]] or st["recovered"] < 1
+            or st["failed"] or st["duplicates_dropped"]):
+        raise AssertionError(f"workers: the SIGKILL run left dead "
+                             f"{st['dead']}, recovered {st['recovered']}, "
+                             f"failed {st['failed']}, duplicates "
+                             f"{st['duplicates_dropped']}")
+    check("workers after a SIGKILL", killed, host=True)
+    survivor = [p for p in pools if p != WORKER_KILL[0]]
+    k_launches = worker_launches(err_kill)
+    for p in survivor:
+        check_launches(f"worker {p} after the SIGKILL", k_launches.get(p, {}),
+                       Counter(st["pools"][p]["served"]))
+    fresh = MultiPoolRouter({p: build() for p in pools})
+    rep = fresh.replay(streams, placements, requests(False), events)
+    for p, recs in streams.items():
+        if stream_signature(recs) != stream_signature(
+                fresh.executors[p].records):
+            raise AssertionError(f"workers: the replay of {p}'s stream "
+                                 f"diverged")
+    check("the SIGKILL run's replay", rep, host=False)
+    print(f"{tag} SIGKILL {WORKER_KILL[0]} at router step {WORKER_KILL[1]} "
+          f"(spawn to READY "
+          + ", ".join(f"{ready[p][1]:.2f}" for p in pools)
+          + f" s): dead {st['dead']}, {st['recovered']} recovered, "
+          f"{st['failed']} failed, {st['duplicates_dropped']} duplicates, "
+          f"{len(killed.completions)}/{len(order)} retired in {k_steps} "
+          f"router steps, outputs bit-equal; {sum(map(len, streams.values()))}"
+          f" records replay with the same signature on fresh in-process "
+          f"fleets on the card, outputs bit-equal; survivor launches as the "
+          f"plans say")
+    return dict(ready_s=ready, moved=moved, steps=steps, wall_s=wall,
+                cpu_ms_per_step=[cpu_step * 1e3] + [c * 1e3
+                                                    for c in cpu_steps],
+                submit_s=submits,
+                wire_bytes=wire_bytes, walls=walls,
+                launches=launches, served={p: dict(v)
+                                           for p, v in served_by.items()},
+                kill=dict(dead=st["dead"], recovered=st["recovered"],
+                          steps=k_steps, launches=k_launches),
+                sharing=sharing)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2088,10 +2422,13 @@ def main() -> int:
 
     # 6. split ------------------------------------------------------------
     split = split_path(served, lm.pop("keep"))
+
+    # 7. workers ----------------------------------------------------------
+    workers = workers_path(served)
     for p in served.values():
         del p["io"], p["runner"]
 
-    # 7. report -----------------------------------------------------------
+    # 8. report -----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -2113,7 +2450,8 @@ def main() -> int:
         card=card, device=kind, torch=torch.__version__,
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
         former_decode_rows=list(former.values()),
-        paths=paths, granite=granite, split=split, kernels=kernels),
+        paths=paths, granite=granite, split=split, workers=workers,
+        kernels=kernels),
         indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")

@@ -60,6 +60,34 @@ class CardModel:
     # bytes of one served element (weights, activations, KV cache): the
     # port's parameters and cache are float32
     elem_bytes: int = 4
+    # How a core holding a share s of the card's SMs sees the card (see
+    # ``share``): peak_flops * s ** flops_share_exp and mem_bw * s **
+    # bw_share_exp.  Both fitted to chip_smoke.py on an NVIDIA H100 80GB
+    # HBM3 at 700 W, split at theta 0.5 (PERF.md, sections 5 and 6).
+    # Compute: a Qwen2-0.5B prefill (2 x 512) took 41.3-41.6 ms on the
+    # c-core's 64 SMs against 23.7 on all 132, 1.75x where a linear law
+    # gives 2.06x: ln(41.45 / 23.7) / ln(132 / 64).  Memory: a decode step
+    # of 16 rows, its HBM-bound f32 projections most of it, took 7.53 ms on
+    # the p-core's 68 SMs against 6.22, 1.21x: ln(7.53 / 6.22) / ln(132 /
+    # 68).  The step floor stands for that step's time and scales with it.
+    flops_share_exp: float = 0.772
+    bw_share_exp: float = 0.288
+
+    def share(self, fraction: float) -> "CardModel":
+        """The card as a core holding ``fraction`` of its SMs sees it: the
+        compute peak, the memory rate and the decode step floor scaled by
+        the fitted laws above.  ``fraction`` 1.0 (the whole card: no split,
+        or the CPU) returns this model unchanged."""
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(f"an SM share lies in (0, 1], got {fraction}")
+        if fraction == 1.0:
+            return self
+        bw = fraction ** self.bw_share_exp
+        return dataclasses.replace(
+            self, peak_flops=self.peak_flops * fraction
+            ** self.flops_share_exp,
+            mem_bw=self.mem_bw * bw,
+            step_floor_base=self.step_floor_base / bw)
 
     def step_floor(self, chips: int, tp: int) -> float:
         """Latency floor of one decode step on ``chips`` with TP ``tp``."""

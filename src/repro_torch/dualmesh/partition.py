@@ -7,7 +7,9 @@ to split, but it has SMs: :func:`split_streams` gives the c-core and the
 p-core as two disjoint sets of the card's SMs at ``theta``, each a green
 context with its own streams (the port's :class:`~repro_torch.dualcore.
 runtime.DualCores`), one "chip" each with no tensor parallelism; the
-realised c-share is recorded, as the reference records ``n_c / n``.
+realised c-share is recorded, as the reference records ``n_c / n``, and
+each core's share of the SMs is what the planner prices it at, as the
+reference prices each submesh by its chips.
 ``sm_split=False`` gives two plain streams on every SM, the baseline.  On
 the CPU both cores alias one queue, like the reference's degenerate
 single-device split.
@@ -25,10 +27,13 @@ from repro_torch.kernels.util import resolve_device
 @dataclasses.dataclass(frozen=True)
 class DualStreams:
     """The c/p split of one device, in the shape the planner reads
-    (chips and TP width per side)."""
+    (chips and TP width per side, and each core's share of the card's
+    SMs: its SM count over the card's on a split, else 1.0)."""
 
     cores: DualCores
     theta: float                 # realised c-share (the SMs' on a split)
+    c_share: float = 1.0
+    p_share: float = 1.0
     c_chips: int = 1
     p_chips: int = 1
     tp_c: int = 1
@@ -56,4 +61,9 @@ def split_streams(device: str | torch.device = "cuda", theta: float = 0.5,
         raise ValueError(f"theta must lie in (0, 1), got {theta}")
     dev = resolve_device(device)
     cores = DualCores(dev, theta, one_stream=one_stream, sm_split=sm_split)
-    return DualStreams(cores=cores, theta=cores.theta)
+    if cores.split is None:
+        return DualStreams(cores=cores, theta=cores.theta)
+    total = cores.split.total
+    return DualStreams(cores=cores, theta=cores.theta,
+                       c_share=cores.sms("c") / total,
+                       p_share=cores.sms("p") / total)

@@ -34,8 +34,11 @@ def wave_makespan(cfg: ArchConfig, dual: DualStreams, hw: CardModel,
     """Projected makespan of the wave-fused execution: prefills serialize
     on the c-core (one stream per wave slot); each decode group of
     ``group_size`` streams runs batched (batch*size) on the p-core and can
-    only launch once its last member has prefilled."""
-    t_pf = prefill_cost(cfg, batch, prompt_len, dual.c_chips, hw,
+    only launch once its last member has prefilled.  Each core is priced
+    at its share of the card (``CardModel.share``), as the reference
+    prices each submesh at its chips."""
+    hw_c, hw_p = hw.share(dual.c_share), hw.share(dual.p_share)
+    t_pf = prefill_cost(cfg, batch, prompt_len, dual.c_chips, hw_c,
                         dual.tp_c).latency
     p_free = 0.0
     admitted = 0
@@ -44,7 +47,8 @@ def wave_makespan(cfg: ArchConfig, dual: DualStreams, hw: CardModel,
         admitted += size
         prefill_done = admitted * t_pf          # c-core serialized
         t_dec = decode_cost(cfg, batch * size, prompt_len + gen_steps,
-                            dual.p_chips, gen_steps, hw, dual.tp_p).latency
+                            dual.p_chips, gen_steps, hw_p,
+                            dual.tp_p).latency
         p_free = max(p_free, prefill_done) + t_dec
     return p_free
 

@@ -20,8 +20,14 @@ SEND/RECV migration, REBALANCE re-leasing, and recovery from a seeded
 byte-compatible with the reference package's, so a stream recorded by
 either replays on the other.
 
+The fleet across processes: :func:`start_workers` spawns one worker
+process per pool (``python -m repro_torch.fleet.worker``), and
+:func:`connect` gives a :class:`RemoteFleet` per worker, which a
+:class:`MultiPoolRouter` drives over the socket transport as it drives
+in-process pools (:mod:`~repro_torch.fleet.net`).
+
 Not ported yet (ROADMAP): the closed-loop controller
-(``fleet/control.py``), LM members, and the fleet across processes.
+(``fleet/control.py``) and LM members.
 """
 from repro_torch.fleet.compiler import (SlotCompiler, compile_fleet,
                                         stream_signature, validate_stream)
@@ -36,7 +42,11 @@ from repro_torch.fleet.instructions import (COMPAT_VERSIONS, SCHEMA_VERSION,
                                             SetParam, dump_stream,
                                             load_stream, stream_from_json,
                                             stream_to_json)
-from repro_torch.fleet.net import FileTransport, LocalTransport
+from repro_torch.fleet.net import (FileTransport, LocalTransport,
+                                   SocketTransport)
+from repro_torch.fleet.net.coordinator import (RemoteFleet, WorkerProc,
+                                               connect, start_workers,
+                                               stop_workers)
 from repro_torch.fleet.planner import (FleetPlan, mix_schedule,
                                        normalize_mix, plan_fleet, plan_rows)
 from repro_torch.fleet.pool import DevicePool, Lease
@@ -70,6 +80,7 @@ __all__ = [
     "Rebalance",
     "RecoveryConfig",
     "Recv",
+    "RemoteFleet",
     "RoundRobin",
     "Router",
     "Run",
@@ -79,9 +90,12 @@ __all__ = [
     "SetParam",
     "ShortestQueue",
     "SlotCompiler",
+    "SocketTransport",
     "WeightedFair",
+    "WorkerProc",
     "build_cnn_fleet",
     "compile_fleet",
+    "connect",
     "dump_stream",
     "load_stream",
     "make_policy",
@@ -91,6 +105,8 @@ __all__ = [
     "plan_rows",
     "stream_from_json",
     "stream_signature",
+    "start_workers",
+    "stop_workers",
     "stream_to_json",
     "validate_stream",
 ]

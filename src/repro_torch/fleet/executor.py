@@ -21,7 +21,7 @@ router owns only cross-pool concerns:
     (unadmitted) requests between pools as a SEND on the source and a
     RECV on the destination, with request identity re-mapped at the
     router boundary (payloads ride the transport's mailbox —
-    ``net.transport``: in memory or in spool files — never the
+    ``net.transport``: in memory, spool files, or sockets — never the
     serialized stream);
   * dynamic theta re-leasing — when a pool's observed traffic mix
     drifts past ``rebalance_drift`` (total-variation distance from the
@@ -36,8 +36,7 @@ Per-request metrics are re-accounted at each boundary exactly as the
 fleet does to its members: latency runs from router submit to member
 completion, whichever pool finally served it.
 
-Copy of ``repro/fleet/executor.py`` without its process-transport hooks
-(the pools live in one process).
+Copy of ``repro/fleet/executor.py``.
 """
 from __future__ import annotations
 
@@ -80,8 +79,9 @@ class PoolExecutor:
     name       this pool's name in a multi-pool topology (SEND/RECV peers
                address each other by it)
     transport  mailbox binding for SEND/RECV (a ``net.transport`` class:
-               the router installs its own, LocalTransport by default);
-               None = single-pool, migration instructions are an error
+               the router installs its own, LocalTransport by default,
+               SocketTransport inside a worker process); None =
+               single-pool, migration instructions are an error
     record     keep the executed stream in :attr:`records` (ExecRecord
                per instruction, with observed advances + wall-clock) —
                what serializes, replays, and exports to Chrome tracing
@@ -570,7 +570,12 @@ class MultiPoolRouter(EngineBase):
             raise KeyError(f"no pool serves model {req.model!r} among "
                            f"live pools (pools serve: {served})")
         name = min(cands, key=self._outstanding)
-        return self._submit_to(name, req)
+        try:
+            return self._submit_to(name, req)
+        except PoolCrash as e:      # a remote pool can die at the submit
+            #                         boundary; recover and re-place
+            self._recovery_done.extend(self._fail_pool(name, str(e)))
+            return self.submit(req)
 
     def _submit_to(self, pool: str, req: Request) -> Ticket:
         """Submit into a specific pool, with router-level accounting and
@@ -734,6 +739,10 @@ class MultiPoolRouter(EngineBase):
                             model=req.model, deadline=req.deadline,
                             priority=req.priority))
             except QueueFull:
+                continue
+            except PoolCrash as e:  # the candidate died mid-recovery:
+                #                     fail it too, keep trying the rest
+                self._recovery_done.extend(self._fail_pool(name, str(e)))
                 continue
             self._sources[(name, ticket.rid)] = rid
             self._metrics[rid].status = "recovered"
@@ -949,6 +958,12 @@ class MultiPoolRouter(EngineBase):
         for m in ex.fleet.members:
             if m.name in mix:
                 m.weight = mix[m.name]
+                if getattr(ex, "remote", False):
+                    # a proxy member's weight is a mirror; the worker's
+                    # copy is what schedules: lower the reset through
+                    # the stream so replay re-applies it in position
+                    ex.inject(SetParam(member=m.name, param="weight",
+                                       value=float(mix[m.name])))
         self._served[pool] = {}
         self.rebalances.append((pool, theta))
         return theta

@@ -219,6 +219,9 @@ class RecoveryConfig:
     rebalance_on_crash re-plan theta on the surviving pool after a crash
                        (skipped automatically for fleets with no
                        DevicePool)
+    heartbeat_s        fleets across processes only: the read deadline
+                       on every coordinator->worker RPC; a worker silent
+                       past it is declared crashed (None = wait forever)
     """
 
     max_retries: int = 2
@@ -226,6 +229,7 @@ class RecoveryConfig:
     run_timeout_s: float | None = None
     timeout_strikes: int = 3
     rebalance_on_crash: bool = True
+    heartbeat_s: float | None = 30.0
 
     def __post_init__(self):
         if self.max_retries < 0:
@@ -240,6 +244,9 @@ class RecoveryConfig:
         if self.timeout_strikes < 1:
             raise ValueError(f"timeout_strikes must be >= 1 "
                              f"(got {self.timeout_strikes})")
+        if self.heartbeat_s is not None and not self.heartbeat_s > 0:
+            raise ValueError(f"heartbeat_s must be > 0 or None "
+                             f"(got {self.heartbeat_s})")
 
 
 class FaultInjector:

@@ -1,11 +1,11 @@
 """SEND/RECV transports behind ``PoolExecutor``'s mailbox surface.
 
-Port of ``repro/fleet/net/transport.py`` (the in-process bindings).  A
-transport carries migrated request payloads between pools; the
-*accounting* (rid translation, recovery events, live re-routes) stays on
-the :class:`~repro_torch.fleet.executor.MultiPoolRouter`, reached through
-three hooks — ``on_send`` / ``on_drop`` / ``on_recv`` — so every transport
-keeps identical books.  The executor-facing surface is what SEND/RECV
+Port of ``repro/fleet/net/transport.py``.  A transport carries migrated
+request payloads between pools; the *accounting* (rid translation,
+recovery events, live re-routes) stays on the
+:class:`~repro_torch.fleet.executor.MultiPoolRouter`, reached through three
+hooks — ``on_send`` / ``on_drop`` / ``on_recv`` — so every transport keeps
+identical books.  The executor-facing surface is what SEND/RECV
 instructions call:
 
     send(src, dst, pairs)                   deliver withdrawn requests
@@ -18,14 +18,17 @@ and crash recovery call:
     bind(router)        attach the owning router (its hooks)
     in_transit          total payloads riding the mailbox
     pending(src, dst)   payloads on one edge
-    take(src, dst, n)   pop payloads without submitting them
+    take(src, dst, n)   pop payloads without submitting them (the
+                        coordinator delivers them to a remote RECV)
     drain_for(dst)      pop every payload addressed to a dead pool,
                         returning the stranded router rids
 
 :class:`LocalTransport` is an in-memory deque.  :class:`FileTransport`
 spools each SEND as a framed ``frame`` envelope file (one file per SEND,
 consumed head-first by RECV), in the wire format the reference writes.
-The socket binding and its worker processes are ROADMAP queue 1 item 4.
+:class:`SocketTransport` is the *worker-side* binding: it forwards the
+three executor calls to the coordinator as ``migrate_*`` upcalls on the
+worker's control channel (``net.coordinator`` is the other side).
 """
 from __future__ import annotations
 
@@ -222,3 +225,60 @@ class FileTransport:
             lost.extend(rid for rid, _doc in self._read(name)["items"])
             os.remove(os.path.join(self.spool_dir, name))
         return lost
+
+
+class SocketTransport:
+    """Worker-side SEND/RECV binding: each executor call becomes a
+    ``migrate_*`` upcall on the worker's control channel, answered
+    inline by the coordinator (which owns the real mailbox and the
+    router hooks).  Only the executor-facing surface exists here: a
+    worker never sees the fleet-wide mailbox."""
+
+    def __init__(self, channel: wire.Channel):
+        self.chan = channel
+
+    def _ack(self, expect: str) -> dict:
+        env = self.chan.recv()
+        if env["kind"] == "error":
+            raise _raise_remote(env)
+        if env["kind"] != expect:
+            raise wire.WireError(f"expected {expect!r} from the "
+                                 f"coordinator, got {env['kind']!r}")
+        return env
+
+    def send(self, src: str, dst: str, pairs) -> int:
+        """Ship withdrawn requests up to the coordinator's mailbox."""
+        self.chan.send({"kind": "migrate_out", "src": src, "dst": dst,
+                        "pairs": [[frid, wire.encode_request(req)]
+                                  for frid, req in pairs]})
+        return self._ack("migrate_ack")["n"]
+
+    def drop_send(self, src: str, dst: str, pairs, *, seq: int,
+                  live: bool) -> int:
+        """Report a dropped SEND so the coordinator logs and re-routes."""
+        self.chan.send({"kind": "migrate_drop", "src": src, "dst": dst,
+                        "pairs": [[frid, wire.encode_request(req)]
+                                  for frid, req in pairs],
+                        "seq": seq, "live": live})
+        return self._ack("migrate_ack")["n"]
+
+    def recv(self, dst: str, src: str, count: int | None, submit) -> int:
+        """Pull payloads for a RECV from the coordinator's mailbox, then
+        report the member-rid mapping so the coordinator re-accounts."""
+        self.chan.send({"kind": "migrate_req", "src": src, "dst": dst,
+                        "count": count})
+        items = self._ack("migrate_deliver")["items"]
+        mapped = [[rid, submit(wire.decode_request(doc)).rid]
+                  for rid, doc in items]
+        self.chan.send({"kind": "migrate_map", "dst": dst,
+                        "mapped": mapped})
+        self._ack("migrate_map_ack")
+        return len(mapped)
+
+
+def _raise_remote(env: dict) -> Exception:
+    """Re-raise a coordinator ``error`` envelope worker-side."""
+    etype, msg = env.get("etype"), env.get("msg", "")
+    if etype == "KeyError":
+        raise KeyError(msg)
+    raise RuntimeError(f"{etype}: {msg}")

@@ -6,11 +6,16 @@ followed by that many bytes of UTF-8 JSON.  Every envelope carries ``v``
 (the wire schema version) and ``kind``; the remaining fields are
 kind-specific and validated against a per-kind whitelist on *read* — an
 unknown kind, an unknown field, or a version mismatch is schema drift and
-raises :class:`WireError`, like the instruction-stream schema.  The port
-uses envelopes for :class:`~repro_torch.fleet.net.transport.FileTransport`
-spool frames; the socket RPC kinds are validated so that a peer's
-envelopes parse, but the port has no socket transport yet (ROADMAP queue
-1 item 4).
+raises :class:`WireError`, like the instruction-stream schema.  Envelopes
+are the :class:`~repro_torch.fleet.net.transport.FileTransport` spool
+frames and the coordinator/worker RPCs of a fleet across processes, over
+a :class:`Channel`.
+
+The RPC surface is strict request-reply, with one carve-out: while
+serving a ``step``/``inject`` RPC a worker may issue ``migrate_*``
+**upcalls** (its SEND/RECV instructions need the coordinator's mailbox);
+the coordinator answers each inline and keeps waiting for the original
+reply, so frames never interleave.
 
 Payload values (request payloads, completion outputs) are JSON with two
 tagged escape hatches: arrays ride as ``{"__nd__": [dtype, shape,
@@ -157,6 +162,55 @@ def read_env(f) -> dict:
             raise WireClosed(f"truncated frame ({len(body)}/{n} bytes)")
         body += chunk
     return unpack_env(body)
+
+
+class Channel:
+    """One framed-envelope connection over a socket.
+
+    ``timeout_s`` is the read deadline, the coordinator's heartbeat: a
+    worker that stays silent past it raises ``TimeoutError``, which the
+    coordinator escalates to a pool crash."""
+
+    obs = None      # optional repro_torch.obs.Registry for net_* metrics
+
+    def __init__(self, sock, *, timeout_s: float | None = None):
+        sock.settimeout(timeout_s)
+        self._sock = sock
+        self._f = sock.makefile("rwb")
+
+    def _count(self, direction: str, kind, nbytes: int = 0) -> None:
+        obs = self.obs
+        if obs is None or not obs.enabled:
+            return
+        # wall domain: what crossed this wire depends on transport and
+        # timing, never on the instruction stream
+        obs.counter("net_envelopes_total", "envelopes on the wire",
+                    "wall").inc(labels={"dir": direction,
+                                        "kind": str(kind)})
+        if nbytes:
+            obs.counter("net_bytes_total", "framed bytes sent",
+                        "wall").inc(nbytes, labels={"dir": direction})
+
+    def send(self, env: dict) -> None:
+        """Write one envelope and flush."""
+        buf = pack_env(env)
+        self._f.write(buf)
+        self._f.flush()
+        self._count("out", env.get("kind"), len(buf))
+
+    def recv(self) -> dict:
+        """Read one envelope (blocking, up to the channel timeout)."""
+        env = read_env(self._f)
+        self._count("in", env.get("kind"))
+        return env
+
+    def close(self) -> None:
+        """Close the file wrapper and the underlying socket."""
+        for obj in (self._f, self._sock):
+            try:
+                obj.close()
+            except OSError:
+                pass
 
 
 # --------------------------------------------------------------------------

@@ -12,11 +12,12 @@ serves the published configuration with seeded random weights through a
 the p-core, the two cores two green contexts on disjoint SMs of the card
 split at ``--theta``; every RMSNorm launches K6 and every attention K7.
 Prints the admission plan (the card cost model's group size and its
-projected tokens/s), tokens per second,
-p50/p95 request latency, the fused decode batch sizes, and the per-stage
-c/p trace with each stage's host enqueue time and its time on the
-core's stream (idle gaps included).  The reference's
-``--search``, ``--plan-chips`` and ``--smoke`` are not ported.
+projected makespan and tokens/s, each core priced at its share of the
+card's SMs), tokens per second, p50/p95 request latency, the fused
+decode batch sizes, and the per-stage c/p trace with each stage's host
+enqueue time and its time on the core's stream (idle gaps included).
+The reference's ``--search``, ``--plan-chips`` and ``--smoke`` are not
+ported.
 
 The ``cnn`` subcommand serves all three of the paper's models:
 
@@ -43,6 +44,8 @@ the card's two cores:
       --batch 2 --requests 24 [--mix 2,1,1] [--policy weighted_fair] \\
       [--burst 4] [--co-dispatch N | --no-interleave] [--plan] \\
       [--pools N [--transport local|file [--spool DIR]]] \\
+      [--workers N --transport socket [--kill-worker POOL@STEP] \\
+       [--verify-replay]] \\
       [--faults PLAN.json] [--slo-ms X] [--trace PATH] \\
       [--metrics PATH [--metrics-every K]] [--device cuda]
 
@@ -52,9 +55,15 @@ a ``FleetEngine`` (or, with ``--pools N``, N such fleets behind a
 streams model-tagged requests in the ``--mix`` proportions, and prints the
 aggregate rate, per-model p50/p95, the host's enqueue time per fleet slot
 and, with ``--plan``, the Table VII planner's predicted rows beside the
-measured ones.  The reference's ``--workers``, ``--transport socket``,
-``--kill-worker``, ``--verify-replay`` and ``--adapt`` are refused with
-the ROADMAP item that will port them.
+measured ones.  With ``--workers N --transport socket`` each pool is a
+worker process of its own (``python -m repro_torch.fleet.worker``, one
+CUDA context and one split of the card's SMs each, at the pool's default
+theta 0.5) behind the same router, over framed sockets; ``--kill-worker
+POOL@STEP`` SIGKILLs one mid-run, the ``exactly-once:`` line counts the
+retired requests, and ``--verify-replay`` replays the collected streams
+on fresh in-process fleets (exit 1 if either check fails).  The
+reference's ``--adapt`` is refused with the ROADMAP item that will port
+it.
 """
 from __future__ import annotations
 
@@ -77,16 +86,18 @@ from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
 from repro_torch.dualmesh.schedule import plan_admission
 from repro_torch.fleet import (POLICY_NAMES, FaultInjector, FaultPlan,
                                FileTransport, FleetEngine, MultiPoolRouter,
-                               build_cnn_fleet, make_policy, mix_schedule,
-                               normalize_mix, plan_fleet, plan_rows)
+                               RecoveryConfig, build_cnn_fleet, connect,
+                               make_policy, mix_schedule, normalize_mix,
+                               plan_fleet, plan_rows, start_workers,
+                               stop_workers, stream_signature)
 from repro_torch.fleet.trace import (host_enqueue_ms, roofline_model,
                                      write_chrome_trace)
 from repro_torch.kernels.util import resolve_device, timed_build
 from repro_torch.lm.model import init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
 from repro_torch.obs import write_metrics
-from repro_torch.serving.api import (Request, ShedPolicy, poisson_arrivals,
-                                     replay)
+from repro_torch.serving.api import (QueueFull, Request, ShedPolicy,
+                                     poisson_arrivals, replay)
 from repro_torch.serving.cnn import DualCoreEngine
 from repro_torch.serving.lm import DualMeshEngine
 
@@ -96,9 +107,6 @@ MODEL_ALIASES = {"mbv1": "mobilenet_v1", "mbv2": "mobilenet_v2",
                  "sqz": "squeezenet", **{m: m for m in CNN_MODELS}}
 #: reference flags the port refuses, and the ROADMAP item porting each
 NOT_PORTED = {
-    "workers": "queue 1 item 4 (the fleet across processes)",
-    "kill_worker": "queue 1 item 4 (the fleet across processes)",
-    "verify_replay": "queue 1 item 4 (the fleet across processes)",
     "adapt": "queue 1 item 6.3 (the controller, with the LM engine's "
              "fleet surface)",
 }
@@ -132,8 +140,11 @@ def serve_lm(args) -> int:
                           args.prompt_len, args.gen, n_streams,
                           max_group=args.group_size)
     group_size = args.group_size or plan.group_size
-    print(f"[serve] admission plan: group_size={group_size} (est "
-          f"{plan.est_tokens_per_s:.0f} tok/s on the card cost model)")
+    print(f"[serve] admission plan: group_size={group_size} (est makespan "
+          f"{plan.est_makespan * 1e3:.1f} ms, {plan.est_tokens_per_s:.0f} "
+          f"tok/s on the card cost model, the c-core priced at "
+          f"{dual.c_share:.4f} of the card and the p-core at "
+          f"{dual.p_share:.4f})")
     params = params_from_numpy(init_params(cfg, seed=0), dev)
     runner = DualMeshRunner(cfg, params, dual,
                             max_len=args.prompt_len + args.gen + 8)
@@ -283,24 +294,184 @@ def _parse_fleet_mix(args) -> dict[str, float]:
         _fail(str(e))
 
 
+def _parse_kill(args) -> tuple[str, int] | None:
+    """``--kill-worker POOL@STEP`` -> (pool, router step), checked against
+    the ``--workers`` pools' names."""
+    if args.kill_worker is None:
+        return None
+    pool, sep, at = args.kill_worker.partition("@")
+    if not sep or not at.isdigit():
+        _fail(f"--kill-worker wants POOL@STEP (e.g. pool1@3), got "
+              f"{args.kill_worker!r}")
+    pools = [f"pool{p}" for p in range(args.workers)]
+    if pool not in pools:
+        _fail(f"--kill-worker pool {pool!r} is not one of {pools}")
+    return pool, int(at)
+
+
+def _serve_fleet_workers(args, mix, kill, build, requests, arrivals) -> int:
+    """``fleet --workers N --transport socket``: each pool is a worker
+    process (``python -m repro_torch.fleet.worker``) hosting the same CNN
+    fleet; this process drives them over the socket transport through the
+    standard ``MultiPoolRouter`` placement, migration and crash recovery.
+    Each worker loads the kernel library this process built."""
+    pools = [f"pool{p}" for p in range(args.workers)]
+    wargs = ["--models", ",".join(mix),
+             "--image-size", str(args.image_size),
+             "--batch", str(args.batch), "--device", args.device,
+             "--scheme", args.scheme, "--policy", args.policy,
+             "--burst", str(args.burst)]
+    co = 0 if args.no_interleave else args.co_dispatch
+    if co is not None:
+        wargs += ["--co-dispatch", str(co)]
+    if args.max_queue is not None:
+        wargs += ["--max-queue", str(args.max_queue)]
+
+    recovery = RecoveryConfig()
+    print(f"[serve] spawning {args.workers} worker process(es): python -m "
+          f"repro_torch.fleet.worker --pool <name> {' '.join(wargs)}")
+    procs = start_workers({p: list(wargs) for p in pools})
+    print("[serve] workers ready (spawn to READY): "
+          + ", ".join(f"{p} {procs[p].ready_s:.1f} s" for p in pools))
+    sink = _MetricsSink(args.metrics, args.metrics_every)
+    fleets = {}
+    try:
+        fleets = connect(procs, heartbeat_s=recovery.heartbeat_s)
+        router = MultiPoolRouter(fleets, recovery=recovery)
+        sink.registry = router.obs
+
+        def collect_telemetry():
+            for ex in router.executors.values():
+                if ex._handle.lost is None:
+                    ex._handle.collect(ex)
+
+        addrs = ", ".join(f"{p}={procs[p].address}" for p in pools)
+        print(f"[serve] fleet {'+'.join(mix)} x {args.workers} workers "
+              f"over SocketTransport ({addrs})")
+        # replay()'s open loop, plus the mid-run SIGKILL
+        order = sorted(range(len(requests)), key=lambda i: arrivals[i])
+        refused, nxt, step = [], 0, 0
+        while nxt < len(order) or refused or router.has_work:
+            if kill is not None and step >= kill[1]:
+                print(f"[serve] SIGKILL worker {kill[0]} at router "
+                      f"step {step}")
+                procs[kill[0]].kill()
+                kill = None
+            due, refused = refused, []
+            while nxt < len(order) and arrivals[order[nxt]] <= step:
+                due.append(order[nxt])
+                nxt += 1
+            for i in due:
+                try:
+                    router.submit(requests[i])
+                except QueueFull:
+                    refused.append(i)
+            router.step()
+            if args.metrics:
+                # pull each worker's cumulative snapshot every step so a
+                # SIGKILL loses at most the last unshipped window
+                collect_telemetry()
+                sink.on_step(step)
+            step += 1
+        if args.metrics:
+            collect_telemetry()
+        res = router.result()
+        st = res.stats
+        streams = router.streams()
+        placements = list(router.placements)
+        events = list(router.events)
+    finally:
+        stop_workers(fleets, procs)
+
+    n = len(requests)
+    sink.finish(st["steps"])
+    print(f"[serve] streamed {n} request(s) x batch {args.batch} @ "
+          f"{args.image_size}px over {args.workers} workers in "
+          f"{st['steps']} router steps: {st['wall_s'] * 1e3:.1f} ms, "
+          f"{n * args.batch / st['wall_s']:.2f} img/s")
+    for pname, pp in st["pools"].items():
+        served = ", ".join(f"{m}:{c}" for m, c in pp["served"].items())
+        print(f"  {pname:<8} {pp['slots']} slots {pp['dispatches']} "
+              f"dispatches  served {served or '-'}")
+    for name, pm in st["per_model"].items():
+        print(f"  {name:<14} {pm['completed']} done  p50 "
+              f"{pm['p50_ms']:.2f} ms  p95 {pm['p95_ms']:.2f} ms  "
+              f"{pm['requests_per_s'] * args.batch:.2f} img/s")
+    done = len(res.completions)
+    print(f"[serve] exactly-once: {done}/{n} retired, "
+          f"{st['duplicates_dropped']} duplicates dropped, "
+          f"{st['failed']} failed, {st['recovered']} recovered, "
+          f"dead workers {st['dead'] or '-'}")
+    if done != n or st["duplicates_dropped"] or st["failed"]:
+        print("repro_torch.launch.serve: error: exactly-once retirement "
+              "violated", file=sys.stderr)
+        return 1
+    if args.verify_replay:
+        fresh = MultiPoolRouter({p: build()[0] for p in pools})
+        fresh.replay(streams, placements, requests, events)
+        for p, recs in streams.items():
+            if stream_signature(recs) != stream_signature(
+                    fresh.executors[p].records):
+                print(f"repro_torch.launch.serve: error: replay diverged "
+                      f"on {p}", file=sys.stderr)
+                return 1
+        print(f"[serve] replay verified: "
+              f"{sum(len(r) for r in streams.values())} records across "
+              f"{len(streams)} pool(s) replay bitwise on fresh in-process "
+              f"fleets")
+    if args.trace:
+        events_n, _ = write_chrome_trace(streams, args.trace)
+        print(f"[serve] wrote {events_n} trace events to {args.trace} "
+              f"(host windows; open in chrome://tracing)")
+    return 0
+
+
 def serve_fleet(args) -> int:
     """``fleet`` subcommand: several CNNs over one pool of the card's
-    two cores, or ``--pools N`` in-process pools behind a router."""
+    two cores, ``--pools N`` in-process pools behind a router, or
+    ``--workers N`` worker processes behind ``--transport socket``."""
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             _fail(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
                   f"{item}")
-    if args.transport == "socket":
-        _fail(f"--transport socket is not ported yet: ROADMAP "
-              f"{NOT_PORTED['workers']}")
     mix = _parse_fleet_mix(args)
     if args.pools < 1:
         _fail(f"--pools must be >= 1, got {args.pools}")
-    if args.transport == "file" and args.pools < 2:
+    if args.workers < 0:
+        _fail(f"--workers must be >= 0, got {args.workers}")
+    if args.workers:
+        if args.transport != "socket":
+            _fail(f"--workers {args.workers} puts each pool in its own "
+                  f"process; only --transport socket crosses process "
+                  f"boundaries ({args.transport!r} is an in-process "
+                  f"mailbox binding: use --pools for it)")
+        if args.pools != 1:
+            _fail("--workers and --pools are mutually exclusive: "
+                  "workers are processes, pools are in this process")
+        if args.faults is not None:
+            _fail("--faults is in-process fault injection; with "
+                  "--workers, kill a process instead "
+                  "(--kill-worker POOL@STEP)")
+        if args.slo_ms is not None:
+            _fail("--slo-ms attaches in-process shed policies; it is "
+                  "not supported over --workers")
+        if args.plan:
+            _fail("--plan is not supported over --workers (each worker "
+                  "builds its own fleet from the model list)")
+    elif args.transport == "socket":
+        _fail("--transport socket needs --workers N (worker processes "
+              "to talk to)")
+    elif args.transport == "file" and args.pools < 2:
         _fail("--transport file is the multi-pool spool mailbox; it "
               "needs --pools >= 2")
     if args.spool is not None and args.transport != "file":
         _fail("--spool only applies to --transport file")
+    if args.kill_worker is not None and not args.workers:
+        _fail("--kill-worker needs --workers")
+    if args.verify_replay and not args.workers:
+        _fail("--verify-replay needs --workers (the in-process paths "
+              "have replay tests of their own)")
+    kill = _parse_kill(args)
     if args.slo_ms is not None and not args.slo_ms > 0:
         _fail(f"--slo-ms must be > 0, got {args.slo_ms}")
     if args.metrics_every is not None and not args.metrics:
@@ -338,12 +509,17 @@ def serve_fleet(args) -> int:
 
     n = args.requests
     rng = np.random.default_rng(0)
+    # requests to worker processes cross the wire from the host
+    at = torch.device("cpu") if args.workers else dev
     images = [torch.from_numpy(rng.standard_normal(
         (args.batch, args.image_size, args.image_size, 3),
-        dtype=np.float32)).to(dev) for _ in range(n)]
+        dtype=np.float32)).to(at) for _ in range(n)]
     requests = [Request(x, model=t)
                 for x, t in zip(images, mix_schedule(mix, n))]
     arrivals = _arrivals(n, args.arrival_rate)
+    if args.workers:
+        return _serve_fleet_workers(args, mix, kill, build, requests,
+                                    arrivals)
     sink = _MetricsSink(args.metrics, args.metrics_every)
     injector = FaultInjector(fault_plan) if fault_plan is not None else None
     if args.pools == 1:
@@ -506,9 +682,10 @@ def main(argv=None):
                             "MultiPoolRouter")
     fleet.add_argument("--transport", default="local",
                        choices=("local", "file", "socket"),
-                       help="inter-pool mailbox: 'local' (in memory) or "
-                            "'file' (spool directory, see --spool); "
-                            "'socket' is not ported")
+                       help="inter-pool mailbox: 'local' (in memory), "
+                            "'file' (spool directory, see --spool) or "
+                            "'socket' (framed envelopes to --workers "
+                            "processes)")
     fleet.add_argument("--spool", default=None, metavar="DIR",
                        help="spool directory for --transport file "
                             "(default: a fresh temporary directory)")
@@ -528,12 +705,18 @@ def main(argv=None):
                        metavar="K",
                        help="with --metrics: one JSON snapshot line every "
                             "K steps")
-    fleet.add_argument("--workers", type=int, default=0,
-                       help="not ported (ROADMAP queue 1 item 4)")
-    fleet.add_argument("--kill-worker", default=None,
-                       help="not ported (ROADMAP queue 1 item 4)")
+    fleet.add_argument("--workers", type=int, default=0, metavar="N",
+                       help="serve over N worker processes (python -m "
+                            "repro_torch.fleet.worker), one pool each, "
+                            "behind --transport socket; exclusive with "
+                            "--pools > 1")
+    fleet.add_argument("--kill-worker", default=None, metavar="POOL@STEP",
+                       help="SIGKILL the named worker process at the "
+                            "given router step (needs --workers)")
     fleet.add_argument("--verify-replay", action="store_true",
-                       help="not ported (ROADMAP queue 1 item 4)")
+                       help="after a --workers run, replay the collected "
+                            "streams and placement log on fresh "
+                            "in-process fleets and check them bitwise")
     fleet.add_argument("--adapt", action="store_true",
                        help="not ported (ROADMAP queue 1 item 6.3)")
     fleet.add_argument("--device", default="cuda",

@@ -16,17 +16,18 @@ replay honest (DESIGN.md §11-§12 extended to telemetry):
     slot).  ``registry.snapshot(domain="slot")`` of a replay is
     dict-equal to the live run's (tested, including crash recovery).
   * ``"wall"`` — observational: wall-clock durations, injector retries,
-    spooled bytes.  Never
+    spooled bytes, envelope bytes, RTTs, heartbeat misses.  Never
     compared across replay; confined to its own channel so it cannot
     contaminate the deterministic one.
 
 Labels are frozen ``(key, value)`` tuples internally and canonical
 ``"k=v,k2=v2"`` strings in snapshots (keys sorted); label values must
-not contain ``','`` or ``'='``.  Snapshots are plain JSON-able dicts,
+not contain ``','`` or ``'='``.  Snapshots are plain JSON-able dicts:
+what ships over the wire (``telemetry_snap`` envelopes of the fleet's
+worker processes), merges across processes (:meth:`Registry.absorb`), and
 what :mod:`repro_torch.obs.export` renders.
 
-Copy of ``repro/obs/registry.py`` without the merging of other
-processes' snapshots (the port's pools live in one process).
+Copy of ``repro/obs/registry.py``.
 """
 from __future__ import annotations
 
@@ -154,6 +155,7 @@ class Registry:
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self._metrics: dict[str, Counter | Gauge | Histogram] = {}
+        self._absorbed: dict[str, dict] = {}     # source -> last snapshot
 
     # ------------------------------------------------------------------
     def _get(self, cls, name: str, help: str, domain: str, **kw):
@@ -187,10 +189,13 @@ class Registry:
         return self._get(Histogram, name, help, domain, bounds=bounds)
 
     # ------------------------------------------------------------------
-    def snapshot(self, domain: str | None = None) -> dict:
+    def snapshot(self, domain: str | None = None, *,
+                 sources: bool = True) -> dict:
         """Plain-dict view of every metric (optionally one ``domain``),
-        deterministically ordered: dict-equality of two snapshots is the
-        replay-determinism acceptance check."""
+        merged with the latest absorbed per-source snapshots (cumulative,
+        so counters add and histograms sum; ``sources=False`` restricts
+        to this process).  Deterministically ordered: dict-equality of
+        two snapshots is the replay-determinism acceptance check."""
         out = {"counters": {}, "gauges": {}, "histograms": {}}
         for name in sorted(self._metrics):
             m = self._metrics[name]
@@ -209,4 +214,63 @@ class Registry:
                 out["gauges"][name] = entry
             else:
                 out["counters"][name] = entry
+        if sources:
+            for source in sorted(self._absorbed):
+                _merge_into(out, self._absorbed[source], domain)
         return out
+
+    def absorb(self, snapshot: dict, *, source: str) -> None:
+        """Adopt a remote registry's cumulative ``snapshot`` (a
+        ``telemetry_snap`` payload).  The latest snapshot per ``source``
+        *replaces* its predecessor: each ships cumulative totals, so a
+        killed worker loses at most the window since its last ship, and
+        nothing is counted twice."""
+        self._absorbed[source] = snapshot
+
+    @property
+    def sources(self) -> list[str]:
+        """Names of remote registries absorbed so far."""
+        return sorted(self._absorbed)
+
+
+def _merge_into(out: dict, snap: dict, domain: str | None) -> None:
+    """Merge one absorbed snapshot into ``out`` (counters/histograms add,
+    gauges last-write-wins, absent metrics adopted whole)."""
+    for name, entry in snap.get("counters", {}).items():
+        if domain is not None and entry.get("domain") != domain:
+            continue
+        dst = out["counters"].setdefault(
+            name, {"help": entry.get("help", ""),
+                   "domain": entry.get("domain", "wall"), "series": {}})
+        for k, v in entry.get("series", {}).items():
+            dst["series"][k] = dst["series"].get(k, 0) + v
+        dst["series"] = {k: dst["series"][k]
+                         for k in sorted(dst["series"])}
+    for name, entry in snap.get("gauges", {}).items():
+        if domain is not None and entry.get("domain") != domain:
+            continue
+        dst = out["gauges"].setdefault(
+            name, {"help": entry.get("help", ""),
+                   "domain": entry.get("domain", "wall"), "series": {}})
+        dst["series"].update(entry.get("series", {}))
+        dst["series"] = {k: dst["series"][k]
+                         for k in sorted(dst["series"])}
+    for name, entry in snap.get("histograms", {}).items():
+        if domain is not None and entry.get("domain") != domain:
+            continue
+        dst = out["histograms"].setdefault(
+            name, {"help": entry.get("help", ""),
+                   "domain": entry.get("domain", "wall"),
+                   "bounds": list(entry.get("bounds", [])), "series": {}})
+        for k, s in entry.get("series", {}).items():
+            d = dst["series"].get(k)
+            if d is None:
+                dst["series"][k] = {"counts": list(s["counts"]),
+                                    "sum": s["sum"], "n": s["n"]}
+            else:
+                d["counts"] = [a + b
+                               for a, b in zip(d["counts"], s["counts"])]
+                d["sum"] += s["sum"]
+                d["n"] += s["n"]
+        dst["series"] = {k: dst["series"][k]
+                         for k in sorted(dst["series"])}

@@ -925,3 +925,81 @@ def test_a_split_libcuda_cannot_make_raises_on_card(missing, card,
         with pytest.raises(green.GreenContextError, match=missing):
             make()
     assert not DualCores(dev, sm_split=False).sm_split
+
+
+@pytest.mark.cuda
+def test_lm_plan_prices_each_core_on_card(card):
+    """On a split card each core's share is its SMs over the card's, and
+    the plan at theta 0.25 differs from the plan at 0.75; without a split
+    both shares are 1."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.cost import CardModel
+    from repro_torch.dualmesh.schedule import plan_admission
+
+    cfg = get_arch("qwen2_0_5b")
+    plans = {}
+    for theta in (0.25, 0.75):
+        dual = split_streams(card, theta)
+        total = dual.cores.split.total
+        assert dual.c_share == dual.cores.sms("c") / total
+        assert dual.p_share == dual.cores.sms("p") / total
+        p = plan_admission(cfg, dual, CardModel(), 2, 512, 64, 8)
+        plans[theta] = (p.group_size, p.est_makespan)
+    assert plans[0.25] != plans[0.75]
+    whole = split_streams(card, 0.5, sm_split=False)
+    assert (whole.c_share, whole.p_share) == (1.0, 1.0)
+
+
+@pytest.mark.cuda
+def test_cnn_workers_bit_equal_in_process_fleet_on_card(card, tmp_path):
+    """Two CNN worker processes on the card (each its own context and its
+    own split) serve 6 requests with a migration: each output bit-equal to
+    an in-process fleet's on the card, every request retired once, and
+    each worker's launches after its warm-up as the plans say for the
+    requests it served."""
+    from repro_torch.fleet import (MultiPoolRouter, connect, start_workers,
+                                   stop_workers)
+    from repro_torch.fleet.net.worker import LAUNCHES_PREFIX
+    from repro_torch.kernels.util import timed_build
+
+    timed_build()                   # the parent builds; workers only load
+    models = ["mobilenet_v1", "squeezenet"]
+    xs = _arrays(15, *[(1, 64, 64, 3)] * 6)
+    fleet, _ = build_cnn_fleet(models, device=card, burst=4)
+    for x, i in zip(xs, range(6)):
+        fleet.submit(Request(x.to(card), model=models[i % 2]))
+    want = [o.cpu() for o in fleet.drain().outputs]
+    per_request = {m: Counter(c["kernel"] for c in chip_smoke.plan_calls(
+        *chip_smoke.served_plan(m), 1)) for m in models}
+    log = tmp_path / "workers.err"
+    wargs = ["--models", ",".join(models), "--image-size", "64",
+             "--batch", "1", "--burst", "4"]
+    with open(log, "w") as err:
+        procs = start_workers({p: wargs for p in ("pool0", "pool1")},
+                              stderr=err, ready_timeout_s=600.0)
+        fleets = {}
+        try:
+            fleets = connect(procs)
+            router = MultiPoolRouter(fleets)
+            for x, i in zip(xs, range(6)):
+                router.submit(Request(x, model=models[i % 2]))
+            assert router.migrate("pool1", "pool0", count=1) == 1
+            res = router.drain()
+        finally:
+            stop_workers(fleets, procs)
+    assert [c.status for c in res.completions] == ["ok"] * 6
+    assert router.duplicates_dropped == 0
+    for a, b in zip(res.outputs, want):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    docs = [json.loads(ln[len(LAUNCHES_PREFIX):])
+            for ln in log.read_text().splitlines()
+            if ln.startswith(LAUNCHES_PREFIX)]
+    assert sorted(d["pool"] for d in docs) == ["pool0", "pool1"]
+    for d in docs:
+        served = res.stats["pools"][d["pool"]]["served"]
+        want_n = Counter()
+        for m, n in served.items():
+            for k, v in per_request[m].items():
+                want_n[k] += n * v
+        assert {k: v for k, v in d["launches"].items() if v} == \
+            dict(want_n)

@@ -118,7 +118,8 @@ FLEET_MODULES = ("core/area", "core/search", "obs/__init__", "obs/registry",
                  "fleet/router", "fleet/planner", "fleet/instructions",
                  "fleet/compiler", "fleet/faults", "fleet/net/__init__",
                  "fleet/net/wire", "fleet/net/transport", "fleet/executor",
-                 "fleet/engine", "fleet/trace")
+                 "fleet/engine", "fleet/trace", "fleet/net/worker",
+                 "fleet/net/coordinator", "fleet/worker")
 
 
 @pytest.mark.parametrize("name", FLEET_MODULES)
@@ -145,13 +146,10 @@ def test_fleet_entry_points_raise_without_a_card(monkeypatch):
     assert DevicePool("cpu").cores.streams == {"c": None, "p": None}
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--workers", "2"], "item 4"), (["--transport", "socket"], "item 4"),
-    (["--kill-worker", "pool1@2"], "item 4"), (["--verify-replay"], "item 4"),
-    (["--adapt"], "item 6.3")])
+@pytest.mark.parametrize("flags,item", [(["--adapt"], "item 6.3")])
 def test_serve_fleet_refuses_unported_flags(flags, item, capsys):
-    """The reference's process-fleet and controller flags exit with an
-    error naming the ROADMAP item that ports them; nothing falls back."""
+    """The reference's controller flag exits with an error naming the
+    ROADMAP item that ports it; nothing falls back."""
     from repro_torch.launch.serve import main
 
     with pytest.raises(SystemExit) as e:

@@ -13,6 +13,11 @@ tokens equal.  The port runs on ``device="cpu"``, where every kernel
 wrapper takes its plain version and counts no launch.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +46,7 @@ from repro_torch.configs.registry import ARCH_IDS, get_arch, get_smoke
 from repro_torch.dualmesh.cost import CardModel, decode_cost, prefill_cost
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner
-from repro_torch.dualmesh.schedule import plan_admission
+from repro_torch.dualmesh.schedule import plan_admission, wave_makespan
 from repro_torch.kernels.attention.kernel import (decode_attention,
                                                   flash_attention)
 from repro_torch.kernels.attention.ref import attention_ref
@@ -477,6 +482,92 @@ def test_split_streams_on_the_cpu_aliases_one_queue():
     assert (dual.c_chips, dual.p_chips, dual.tp_c, dual.tp_p) == (1, 1, 1, 1)
     assert dual.theta == 0.4 and dual.stream("c") is None
     assert not dual.cores.distinct
+
+
+def _shares(c: float, p: float):
+    """A CPU split priced as if the c-core held ``c`` of the card's SMs and
+    the p-core ``p`` (what ``split_streams`` records on a split card)."""
+    return dataclasses.replace(split_streams("cpu", 0.5), c_share=c,
+                               p_share=p)
+
+
+def test_plan_sees_theta():
+    """On a split card each core is priced at its share: with the c-core
+    on a quarter of the SMs the prefill is slower and the decode faster
+    than with the c-core on three quarters, and the plan changes."""
+    cfg, hw = get_arch(ARCH), CardModel()
+    args = (2, 512, 64, 8)
+    small_c, big_c = _shares(0.25, 0.75), _shares(0.75, 0.25)
+    pf = {d.c_share: prefill_cost(cfg, 2, 512, 1, hw.share(d.c_share), 1)
+          for d in (small_c, big_c)}
+    dec = {d.p_share: decode_cost(cfg, 16, 576, 1, 64,
+                                  hw.share(d.p_share), 1)
+           for d in (small_c, big_c)}
+    assert pf[0.25].latency > pf[0.75].latency
+    assert dec[0.75].latency < dec[0.25].latency
+    a = plan_admission(cfg, small_c, hw, *args)
+    b = plan_admission(cfg, big_c, hw, *args)
+    assert (a.group_size, a.est_makespan) != (b.group_size, b.est_makespan)
+    # the fitted laws at the measured points (theta 0.5, PERF.md): a decode
+    # step 1.21x on 68 of 132 SMs, a prefill 1.75x on 64
+    assert hw.share(68 / 132).step_floor_base / hw.step_floor_base == \
+        pytest.approx(7.53 / 6.22, rel=1e-3)
+    assert hw.peak_flops / hw.share(64 / 132).peak_flops == \
+        pytest.approx(41.45 / 23.7, rel=1e-3)
+
+
+@pytest.mark.parametrize("batch,plen,gen,n", [(2, 512, 64, 8), (1, 16, 8, 5)])
+def test_plan_at_share_one_is_unchanged(batch, plen, gen, n):
+    """At share 1 (no split, the CPU) every term is the whole card's."""
+    cfg, hw = get_arch(ARCH), CardModel()
+    assert hw.share(1.0) is hw
+    whole = split_streams("cpu", 0.5)
+    assert (whole.c_share, whole.p_share) == (1.0, 1.0)
+    for g in range(1, n + 1):
+        assert wave_makespan(cfg, whole, hw, batch, plen, gen, n, g) == \
+            wave_makespan(cfg, _shares(1.0, 1.0), hw, batch, plen, gen, n, g)
+    with pytest.raises(ValueError, match="share"):
+        hw.share(0.0)
+
+
+_SPLIT_MESH = """
+import json, os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from repro.configs.registry import get_arch
+from repro.dualmesh import TpuModel, split_mesh
+from repro.dualmesh.schedule import wave_makespan
+assert len(jax.devices()) == 8
+dual = split_mesh(jax.devices(), 0.25, tp_c=1, tp_p=1)
+hw = TpuModel(step_floor_base=0.0, step_floor_tp=0.0, step_floor_dp=0.0)
+cfg = get_arch("qwen2_0_5b")
+print(json.dumps({"chips": [dual.c_chips, dual.p_chips],
+                  "spans": [wave_makespan(cfg, dual, hw, 2, 512, 64, 8, g)
+                            for g in range(1, 9)]}))
+"""
+
+
+def test_linear_share_law_matches_split_mesh():
+    """Under a linear share law the port's one card priced at the
+    reference's 8-chip pod equals the reference's ``split_mesh`` at theta
+    0.25 on 8 host devices (2 c-chips, 6 p-chips, no TP, no step floor)."""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": str(root / "src")}
+    out = subprocess.run([sys.executable, "-c", _SPLIT_MESH], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    ref = json.loads(out.strip().splitlines()[-1])
+    assert ref["chips"] == [2, 6]
+    pod = dataclasses.replace(REF_HW, peak_flops=8 * REF_HW.peak_flops,
+                              mem_bw=8 * REF_HW.mem_bw, step_floor_base=0.0,
+                              step_floor_tp=0.0, step_floor_dp=0.0,
+                              flops_share_exp=1.0, bw_share_exp=1.0)
+    dual = _shares(2 / 8, 6 / 8)
+    cfg = get_arch(ARCH)
+    got = [wave_makespan(cfg, dual, pod, 2, 512, 64, 8, g)
+           for g in range(1, 9)]
+    assert got == pytest.approx(ref["spans"], rel=1e-12)
 
 
 def _prompts(cfg, n=4, batch=2, plen=8):
