@@ -151,10 +151,39 @@ any failure raises and the script exits non-zero:
             outputs bit-equal, the survivor's launches as the plans say,
             and the collected streams replayed on fresh in-process fleets
             on the card with the same signatures and outputs;
-8. report   one ``[report]`` line for each path and kernel (launches,
+8. control  the closed-loop controller (``fleet/control.py``) on the card,
+            each run's launches counted from 0 and printed apart from the
+            kernels line's: (a) the three CNNs as ``serve fleet`` builds
+            them (phase 4's fleet, one pool at theta 0.5), 48 requests one
+            a slot whose mix flips from 4:1:1 to 1:1:4 (mbv2:mbv1:sqz) at
+            request 24, under ``ControlLoop(interval=8)``: at least one
+            Reweight, every output bit-equal to phase 3's, launches as the
+            plans say; the stream and the decision log through JSON
+            replayed on a fresh warmed fleet with no controller (same
+            signature, bit-equal outputs, the log verifying, the same final
+            weights); (b) the same fleet and traffic under
+            ``ShedPolicy(clock="slot")``, every other request of the first
+            24 stale on arrival, on a pool split at theta 0.7: exactly one
+            RebalanceTheta, planned by ``plan_fleet`` at one evaluation
+            inside the slot (its host seconds printed: the planner's
+            stall), the pool re-split at its theta (each core's SMs
+            printed) and every member's lanes captured anew there, each
+            request served bit-equal or shed once, the stream replayed
+            bitwise on a fresh fleet at 0.7; (c) Qwen2-0.5B of phase 5 as a
+            ``DualMeshEngine`` member (its own ``split_streams`` at 0.5,
+            group size 4, quantum 8, its decode lanes of every reachable
+            width captured first) beside the three CNNs, 4 LM requests
+            (batch 2, prompt 512, 64 generated) among 24 CNN requests,
+            under a controller whose SLO (100 ms) lies below every LM
+            latency: Retune halves the width, tokens equal phase 5's, CNN
+            outputs bit-equal, K1-K7 launching as the plans say, no lane
+            captured during the run, the stream replayed bitwise on a fresh
+            uncontrolled fleet; walls, per-model p50/p95, tokens/s and the
+            decisions with their reasons;
+9. report   one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
-            ``{"ok": true, ...}`` line.
+            ``{"ok": true, ...}`` line; the host seconds of each phase.
 
 Per-shape rows also go to ``chiprun_out/chip_smoke.json``.
 The same file holds each path's launch counts, walls and kernel sums.
@@ -192,6 +221,24 @@ SPLIT_TURNS = 2                         # split, shared, shared, split
 WORKERS = 2                             # phase 7's worker processes
 WORKER_TURNS = 3                        # workers / 2 pools / 1 pool walls
 WORKER_KILL = ("pool1", 2)              # SIGKILLed at this router step
+CONTROL_REQUESTS = 48                   # phase 8's CNN traffic, one a slot
+CONTROL_FLIP = 24                       # its mix flips at this request
+CONTROL_MIXES = ({"mobilenet_v2": 4, "mobilenet_v1": 1, "squeezenet": 1},
+                 {"mobilenet_v2": 1, "mobilenet_v1": 1, "squeezenet": 4})
+CONTROL_INTERVAL = 8                    # ControlLoop's default
+CONTROL_PLAN_EVALS = 1                  # the planner's budget in 8(b)
+# 8(b)'s pool starts here: plan_fleet's theta for phase 8's mixes (0.4952)
+# asks the 64 c-core SMs of theta 0.5, and a REBALANCE to the SMs a pool
+# already has moves nothing
+CONTROL_FROM_THETA = 0.7
+MIXED_LM_REQUESTS = 4                   # 8(c): the LM member's requests
+MIXED_LM_ARRIVALS = (0, 6, 6, 6)        # ... and their slots
+MIXED_GROUP = 4
+MIXED_QUANTUM = 8
+MIXED_INTERVAL = 4
+# below every LM request's latency: its 63 decode steps alone take 390 ms
+# or more on the card
+MIXED_SLO_MS = 100.0
 CNN_KERNELS = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
                "fused_dw_pw_conv", "fused_pw_dw_pw_conv")      # K1-K5
 LM_ARCH = "qwen2_0_5b"
@@ -2323,6 +2370,441 @@ def workers_path(served: dict) -> dict:
                 sharing=sharing)
 
 
+# --------------------------------------------------------------------------
+# phase 8: the closed-loop controller
+# --------------------------------------------------------------------------
+def control_picks() -> list[tuple[str, int]]:
+    """Phase 8's CNN traffic: ``CONTROL_REQUESTS`` requests, tagged by
+    ``mix_schedule`` at ``CONTROL_MIXES[0]`` and, from request
+    ``CONTROL_FLIP`` on, at ``CONTROL_MIXES[1]``; each model's requests
+    take its phase-3 images in turn.  Returns (model, image index) a
+    request."""
+    from repro_torch.fleet import mix_schedule
+    tags = (mix_schedule(CONTROL_MIXES[0], CONTROL_FLIP)
+            + mix_schedule(CONTROL_MIXES[1], CONTROL_REQUESTS - CONTROL_FLIP))
+    seen: Counter = Counter()
+    out = []
+    for t in tags:
+        out.append((t, seen[t] % REQUESTS))
+        seen[t] += 1
+    return out
+
+
+def plans_launches(served: dict, picks) -> dict[str, int]:
+    """The launches the plans say ``picks``' requests make."""
+    out: Counter = Counter()
+    for m, _ in picks:
+        out.update(served[m]["per_request"])
+    return dict(out)
+
+
+def control_fleet(served: dict, theta: float = SPLIT_THETA, shed=False):
+    """The three CNNs as ``serve fleet`` builds them with its defaults
+    (``balanced``, ``weighted_fair``, burst 4, equal weights), on a pool
+    split at ``theta``, under ``ShedPolicy(clock="slot")`` with ``shed``;
+    each member warmed as ``serve fleet`` warms it and the lanes the
+    traffic holds captured by an uncontrolled pass of phase 8's traffic."""
+    from repro_torch.fleet import (DevicePool, FleetEngine, build_cnn_fleet,
+                                   make_policy)
+    from repro_torch.serving.api import Request, ShedPolicy, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+    models = list(served)
+    mix = {m: 1.0 / len(models) for m in models}
+    admission = ({m: ShedPolicy(clock="slot") for m in models} if shed
+                 else None)
+    fleet, _ = build_cnn_fleet(models, pool=DevicePool(DEV, theta=theta),
+                               seed=0, scheme=SCHEME,
+                               policy=make_policy(POLICY), weights=mix,
+                               burst=BURST, admission=admission)
+    for mm in fleet.members:
+        mm.engine.runner.run_sequential(served[mm.name]["io"][0][:1])
+    warm = FleetEngine({mm.name: DualCoreEngine(mm.engine.runner)
+                        for mm in fleet.members}, policy=make_policy(POLICY),
+                       weights=mix, burst=BURST, pool=fleet.pool)
+    picks = control_picks()
+    replay(warm, [Request(served[m]["io"][0][i], model=m) for m, i in picks],
+           list(range(len(picks))))
+    return fleet
+
+
+def check_control_outputs(what: str, res, served: dict, picks,
+                          shed: set[int] = frozenset()) -> None:
+    """Every request retired once: the ``shed`` ones shed with no output,
+    the others ok and bit-equal to their model's sequential kernel forward
+    of phase 3."""
+    comps = res.completions
+    if (len(comps) != len(picks)
+            or sorted(c.ticket.rid for c in comps) != list(range(len(picks)))):
+        raise AssertionError(f"{what}: {len(comps)} completions for "
+                             f"{len(picks)} requests")
+    for j, (c, (m, i)) in enumerate(zip(comps, picks)):
+        if j in shed:
+            if c.status != "shed" or c.output is not None:
+                raise AssertionError(f"{what}: request {j} should be shed, "
+                                     f"is {c.status}")
+        elif c.status != "ok" or not torch.equal(c.output,
+                                                 served[m]["io"][1][i]):
+            raise AssertionError(f"{what}: request {j} ({m}, {c.status}) "
+                                 f"differs from phase 3's sequential kernel "
+                                 f"forward")
+
+
+def replay_check(what: str, live, fresh, rep, res) -> None:
+    """A replay's stream signature and outputs against the live run's."""
+    from repro_torch.fleet import stream_signature
+    if stream_signature(fresh.stream) != stream_signature(live.stream):
+        raise AssertionError(f"{what}: the replayed stream's signature "
+                             f"differs from the live one's")
+    for j, (a, b) in enumerate(zip(rep.completions, res.completions)):
+        if a.status != b.status or (
+                a.output is not None and not torch.equal(a.output, b.output)):
+            raise AssertionError(f"{what}: request {j} differs from the "
+                                 f"live run's")
+
+
+def round_trip(fleet, ctl):
+    """The stream and the decision log through JSON text."""
+    from repro_torch.fleet import (decisions_from_json, decisions_to_json,
+                                   stream_from_json, stream_to_json)
+    return (stream_from_json(json.loads(json.dumps(
+                stream_to_json(fleet.stream, pool="pool0")))),
+            decisions_from_json(json.loads(json.dumps(
+                decisions_to_json(ctl.decisions)))))
+
+
+def print_decisions(tag: str, ctl) -> None:
+    for d in ctl.decisions:
+        print(f"{tag}   slot {d.slot} seq {d.seq} {d.action}: {d.reason}")
+
+
+def decisions_doc(ctl) -> list[dict]:
+    """A controller's decisions for ``chip_smoke.json``."""
+    return [dict(slot=d.slot, seq=d.seq, kind=d.action.kind,
+                 action=dataclasses.asdict(d.action), reason=d.reason)
+            for d in ctl.decisions]
+
+
+def control_reweight(served: dict) -> dict:
+    """8(a): a controlled CNN fleet whose traffic flips from 4:1:1 to
+    1:1:4 (mbv2:mbv1:sqz): at least one Reweight, outputs bit-equal,
+    launches as the plans say; the stream and the decision log through
+    JSON replayed on a fresh warmed fleet with no controller: the same
+    signature, bit-equal outputs, the log verifying, the same weights."""
+    from repro_torch.fleet import ControlLoop, verify_decisions
+    from repro_torch.serving.api import Request, replay
+    tag = "[control]"
+    picks = control_picks()
+    arrivals = list(range(len(picks)))
+
+    def requests():
+        return [Request(served[m]["io"][0][i], model=m) for m, i in picks]
+
+    fleet = control_fleet(served)
+    ctl = ControlLoop(fleet, interval=CONTROL_INTERVAL)
+    want = plans_launches(served, picks)
+    reset_counts()
+    res = replay(fleet, requests(), arrivals)
+    launches = launch_counts()
+    check_counts("control reweight", launches, want)
+    check_control_outputs("control reweight", res, served, picks)
+    kinds = res.stats["control"]["by_kind"]
+    if not kinds.get("reweight"):
+        raise AssertionError(f"control reweight: no Reweight fired "
+                             f"({kinds})")
+    stream, log = round_trip(fleet, ctl)
+    weights = {mm.name: mm.weight for mm in fleet.members}
+    fresh = control_fleet(served)
+    reset_counts()
+    rep = fresh.executor.replay(stream, requests(), arrivals)
+    check_counts("control reweight replay", launch_counts(), want)
+    replay_check("control reweight replay", fleet, fresh, rep, res)
+    verify_decisions(fresh.stream, log)
+    if {mm.name: mm.weight for mm in fresh.members} != weights:
+        raise AssertionError("control reweight replay: final weights "
+                             "differ")
+    st = res.stats
+    print(f"{tag} 8(a) reweight: {len(picks)} requests one a slot, mix "
+          f"4:1:1 then 1:1:4 (mbv2:mbv1:sqz) from request {CONTROL_FLIP}, "
+          f"ControlLoop(interval={CONTROL_INTERVAL}): {st['slots']} fleet "
+          f"slots, {st['wall_s'] * 1e3:.2f} ms; {ctl.observations} "
+          f"observations, decisions {kinds}; final weights "
+          + ", ".join(f"{k} {v:.4f}" for k, v in weights.items())
+          + f"; outputs bit-equal, launches as the plans say {launches}")
+    print_decisions(tag, ctl)
+    print(f"{tag} 8(a) the stream ({len(stream)} records) and the decision "
+          f"log through JSON replayed on a fresh warmed fleet with no "
+          f"controller: same signature, outputs bit-equal, the log "
+          f"verifies, the same final weights; {rep.stats['wall_s'] * 1e3:.2f}"
+          f" ms")
+    for name, pm in st["per_model"].items():
+        print(f"{tag}   {name:<14} p50 {pm['p50_ms']:.2f} ms, p95 "
+              f"{pm['p95_ms']:.2f} ms")
+    return dict(fleet=fleet, launches=launches, slots=st["slots"],
+                wall_s=st["wall_s"], replay_wall_s=rep.stats["wall_s"],
+                per_model=st["per_model"], weights=weights,
+                decisions=decisions_doc(ctl))
+
+
+def control_rebalance(served: dict) -> dict:
+    """8(b): the fleet of 8(a) under ``ShedPolicy(clock="slot")`` with
+    explicit slot deadlines on a pool split at ``CONTROL_FROM_THETA``: the
+    stale requests are shed, so exactly one RebalanceTheta fires, planned
+    by ``plan_fleet`` at ``CONTROL_PLAN_EVALS`` inside the slot; the pool
+    re-splits at its theta and every member captures new lanes there;
+    every request completes or is shed once, the served bit-equal; the
+    stream replays bitwise on a fresh fleet at the same start."""
+    from repro_torch.fleet import ControlLoop, verify_decisions
+    from repro_torch.kernels.green import split_count
+    from repro_torch.serving.api import Request, replay
+    tag = "[control]"
+    picks = control_picks()
+    arrivals = list(range(len(picks)))
+    # a stale request's deadline passed a slot before it arrived
+    stale = {j for j in range(CONTROL_FLIP) if j % 2}
+
+    def requests():
+        return [Request(served[m]["io"][0][i], model=m,
+                        deadline=j - 1 if j in stale
+                        else j + CONTROL_REQUESTS)
+                for j, (m, i) in enumerate(picks)]
+
+    fleet = control_fleet(served, CONTROL_FROM_THETA, shed=True)
+    pool = fleet.pool
+    ctl = ControlLoop(fleet, interval=CONTROL_INTERVAL,
+                      plan_evals=CONTROL_PLAN_EVALS)
+    stalls: list[tuple[int, float]] = []
+    on_slot = ctl.on_slot
+
+    def timed_on_slot(done):
+        t0 = time.perf_counter()
+        on_slot(done)
+        stalls.append((fleet._slot, time.perf_counter() - t0))
+
+    ctl.on_slot = timed_on_slot
+    runners = [mm.engine.runner for mm in fleet.members]
+    old_lanes = [r.lanes for r in runners]
+    before = {c: pool.cores.sms(c) for c in "cp"}
+    want = plans_launches(served, [p for j, p in enumerate(picks)
+                                   if j not in stale])
+    reset_counts()
+    res = replay(fleet, requests(), arrivals)
+    launches = launch_counts()
+    check_counts("control rebalance", launches, want)
+    check_control_outputs("control rebalance", res, served, picks, stale)
+    rb = [d for d in ctl.decisions if d.action.kind == "rebalance"]
+    if len(rb) != 1:
+        raise AssertionError(f"control rebalance: {len(rb)} RebalanceTheta "
+                             f"fired, want exactly 1")
+    theta = rb[0].action.theta
+    after = {c: pool.cores.sms(c) for c in "cp"}
+    recaptured = [r.lanes.count for r in runners]
+    if (pool.theta != theta
+            or after["c"] != split_count(theta, before["c"] + before["p"])
+            or after == before
+            or any(r.lanes is o for r, o in zip(runners, old_lanes))
+            or not all(recaptured)
+            or any(r.cores is not pool.cores for r in runners)):
+        raise AssertionError(f"control rebalance: theta {pool.theta} "
+                             f"(planned {theta}), SMs {before} -> {after}, "
+                             f"lanes recaptured {recaptured}")
+    stall_slot, stall_s = max(stalls, key=lambda x: x[1])
+    if stall_slot != rb[0].slot:
+        raise AssertionError(f"control rebalance: the longest decision was "
+                             f"at slot {stall_slot}, the REBALANCE at "
+                             f"{rb[0].slot}")
+    others = sorted(s for slot, s in stalls if slot != stall_slot)
+    stream, log = round_trip(fleet, ctl)
+    fresh = control_fleet(served, CONTROL_FROM_THETA, shed=True)
+    reset_counts()
+    rep = fresh.executor.replay(stream, requests(), arrivals)
+    check_counts("control rebalance replay", launch_counts(), want)
+    replay_check("control rebalance replay", fleet, fresh, rep, res)
+    verify_decisions(fresh.stream, log)
+    if {c: fresh.pool.cores.sms(c) for c in "cp"} != after:
+        raise AssertionError("control rebalance replay: the pool's SMs "
+                             "differ from the live run's")
+    st = res.stats
+    print(f"{tag} 8(b) rebalance: the same traffic under "
+          f"ShedPolicy(clock='slot'), {len(stale)} requests stale on "
+          f"arrival, on a pool split at theta {CONTROL_FROM_THETA} (c "
+          f"{before['c']} SMs, p {before['p']}), ControlLoop(interval="
+          f"{CONTROL_INTERVAL}, plan_evals={CONTROL_PLAN_EVALS}): "
+          f"{st['slots']} fleet slots, {st['wall_s'] * 1e3:.2f} ms; decisions"
+          f" {st['control']['by_kind']}; one RebalanceTheta at slot "
+          f"{rb[0].slot} to theta {theta} (c {after['c']} SMs, p "
+          f"{after['p']}; realised {pool.cores.theta:.4f}), decided in "
+          f"{stall_s:.3f} s of host (the planner's stall, inside the slot; "
+          f"the other observations {others[0] * 1e3:.3f}-"
+          f"{others[-1] * 1e3:.3f} ms); {sum(recaptured)} lanes captured in "
+          f"the new partitions ({recaptured}); {len(stale)} shed, "
+          f"{len(picks) - len(stale)} served bit-equal, each once; launches "
+          f"as the plans say {launches}")
+    print_decisions(tag, ctl)
+    print(f"{tag} 8(b) replayed on a fresh fleet at theta "
+          f"{CONTROL_FROM_THETA} with no controller: same signature, the "
+          f"same sheds, outputs bit-equal, the log verifies, the pool at "
+          f"{after}; {rep.stats['wall_s'] * 1e3:.2f} ms (no planner)")
+    return dict(launches=launches, slots=st["slots"], wall_s=st["wall_s"],
+                replay_wall_s=rep.stats["wall_s"], theta=theta,
+                sms_before=before, sms_after=after,
+                realised=pool.cores.theta, decision_s=stall_s,
+                other_decisions_s=others, recaptured=recaptured,
+                shed=len(stale),
+                decisions=decisions_doc(ctl))
+
+
+def capture_decode_lanes(runner, rows, per_key: int) -> None:
+    """Capture ``per_key`` decode lanes of each width in ``rows`` on the
+    runner's p-core before a timed run, so a retune reaches only lanes
+    already captured (a capture can wait for the card)."""
+    with torch.cuda.stream(runner.dual.stream("p")):
+        held = [runner.lanes.acquire((r, runner.max_len))
+                for r in rows for _ in range(per_key)]
+    for lane in held:
+        runner.lanes.retire(lane, None)
+    runner.dual.cores.synchronize()
+
+
+def control_mixed(served: dict, lm_keep: dict, cnn_fleet) -> dict:
+    """8(c): Qwen2-0.5B as a ``DualMeshEngine`` member (its own
+    ``split_streams`` at theta 0.5, a finite quantum, group size 4) beside
+    the three CNNs of 8(a)'s runners, no pool (the LM member keeps its own
+    cores, so no REBALANCE), under a controller whose SLO lies below every
+    LM request's latency: Retune halves the width; tokens equal phase 5's
+    for the same prompts, CNN outputs bit-equal, launches as the plans
+    say, no lane captured during the run; the recorded stream replayed
+    bitwise on a fresh uncontrolled fleet."""
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.runtime import DualMeshRunner
+    from repro_torch.fleet import (ControlLoop, FleetEngine, make_policy,
+                                   verify_decisions)
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+    from repro_torch.serving.lm import DualMeshEngine
+    tag = "[control]"
+    cfg, params = lm_keep["cfg"], lm_keep["params"]
+    prompts = lm_keep["prompts"][:MIXED_LM_REQUESTS]
+    want_lm = lm_keep["outputs"][:MIXED_LM_REQUESTS]
+    runner = DualMeshRunner(cfg, params, split_streams(DEV, LM_THETA),
+                            max_len=LM_MAX_LEN)
+    # every width the controller can reach (the configured one and its
+    # halvings) and every eviction remainder, two lanes each
+    capture_decode_lanes(runner, [LM_BATCH * w
+                                  for w in range(1, MIXED_GROUP + 1)], 2)
+    captures = runner.lanes.count
+    models = list(served)
+    cnn = {mm.name: mm.engine.runner for mm in cnn_fleet.members}
+    weights = {**{m: 1.0 for m in models}, "lm": 1.0}
+    order = [(m, i) for i in range(REQUESTS) for m in models]
+    # in arrival order (CNN request j at slot j, before an LM request of
+    # the same slot), so the fleet's rids follow the list
+    traffic = sorted([(j, ("cnn", j)) for j in range(len(order))]
+                     + [(a, ("lm", k))
+                        for k, a in enumerate(MIXED_LM_ARRIVALS)],
+                     key=lambda t: t[0])
+    arrivals = [a for a, _ in traffic]
+    reqs = [r for _, r in traffic]
+
+    def requests():
+        return [Request(served[order[j][0]]["io"][0][order[j][1]],
+                        model=order[j][0]) if kind == "cnn"
+                else Request(prompts[j], gen_steps=LM_GEN, model="lm")
+                for kind, j in reqs]
+
+    def build():
+        members = {m: DualCoreEngine(cnn[m]) for m in models}
+        members["lm"] = DualMeshEngine(runner, group_size=MIXED_GROUP,
+                                       quantum=MIXED_QUANTUM)
+        return FleetEngine(members, policy=make_policy(POLICY),
+                           weights=weights, burst=BURST)
+
+    fleet = build()
+    ctl = ControlLoop(fleet, interval=MIXED_INTERVAL, slo_ms=MIXED_SLO_MS)
+    reset_counts()
+    res = replay(fleet, requests(), arrivals)
+    launches = launch_counts()
+    lm = fleet._by_name["lm"].engine
+    lm_st = lm.result().stats
+    L = cfg.n_layers
+    steps = (LM_GEN - 1) * len(lm.fused_sizes)
+    want = plans_launches(served, order)
+    want.update({"rmsnorm": (MIXED_LM_REQUESTS + steps) * (2 * L + 1),
+                 "flash_attention": MIXED_LM_REQUESTS * L,
+                 "decode_attention": steps * L})
+    check_counts("control mixed", launches, want)
+    if runner.lanes.count != captures:
+        raise AssertionError(f"control mixed: {runner.lanes.count - captures}"
+                             f" decode lanes captured during the run")
+    outs = res.outputs
+    for j, (kind, k) in enumerate(reqs):
+        c = res.completions[j]
+        if c.status != "ok":
+            raise AssertionError(f"control mixed: request {j} {c.status}")
+        ok = (torch.equal(outs[j], want_lm[k]) if kind == "lm" else
+              torch.equal(outs[j], served[order[k][0]]["io"][1][order[k][1]]))
+        if not ok:
+            raise AssertionError(f"control mixed: request {j} ({kind}) "
+                                 f"differs from phase {5 if kind == 'lm' else 3}"
+                                 f"'s output")
+    retunes = [d.action.value for d in ctl.decisions
+               if d.action.kind == "retune"]
+    lm_p95 = res.stats["per_model"]["lm"]["p95_ms"]
+    if not retunes or retunes[0] != MIXED_GROUP // 2 or lm_p95 <= MIXED_SLO_MS:
+        raise AssertionError(f"control mixed: retunes {retunes}, LM p95 "
+                             f"{lm_p95:.1f} ms against the SLO "
+                             f"{MIXED_SLO_MS} ms")
+    stream, log = round_trip(fleet, ctl)
+    fresh = build()
+    reset_counts()
+    rep = fresh.executor.replay(stream, requests(), arrivals)
+    check_counts("control mixed replay", launch_counts(), want)
+    replay_check("control mixed replay", fleet, fresh, rep, res)
+    verify_decisions(fresh.stream, log)
+    st = res.stats
+    print(f"{tag} 8(c) mixed: {cfg.name} (a DualMeshEngine on "
+          f"{runner.dual.cores.describe()}, group size {MIXED_GROUP}, "
+          f"quantum {MIXED_QUANTUM}, {MIXED_LM_REQUESTS} requests x batch "
+          f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} generated, arriving at "
+          f"slots {list(MIXED_LM_ARRIVALS)}) beside {len(order)} CNN "
+          f"requests one a slot, ControlLoop(interval={MIXED_INTERVAL}, "
+          f"slo_ms={MIXED_SLO_MS}): {st['slots']} fleet slots, "
+          f"{st['wall_s'] * 1e3:.2f} ms; decisions "
+          f"{st['control']['by_kind']}, group size {MIXED_GROUP} -> "
+          + " -> ".join(str(v) for v in retunes)
+          + f"; fused sizes {lm.fused_sizes}; LM {lm_st['tokens_per_s']:.1f}"
+          f" tokens/s; tokens equal phase 5's, CNN outputs bit-equal, "
+          f"launches as the plans say {launches}; {captures} decode lanes "
+          f"captured before the run, none during it")
+    print_decisions(tag, ctl)
+    for name, pm in st["per_model"].items():
+        print(f"{tag}   {name:<14} p50 {pm['p50_ms']:.2f} ms, p95 "
+              f"{pm['p95_ms']:.2f} ms, {pm['requests_per_s']:.2f} requests/s")
+    print(f"{tag} 8(c) the recorded stream ({len(stream)} records) replayed "
+          f"on a fresh uncontrolled fleet: same signature, tokens and "
+          f"outputs bit-equal, the log verifies; "
+          f"{rep.stats['wall_s'] * 1e3:.2f} ms")
+    return dict(launches=launches, slots=st["slots"], wall_s=st["wall_s"],
+                replay_wall_s=rep.stats["wall_s"],
+                per_model=st["per_model"], retunes=retunes,
+                fused_sizes=lm.fused_sizes,
+                lm_tokens_per_s=lm_st["tokens_per_s"], captures=captures,
+                decisions=decisions_doc(ctl))
+
+
+def control_path(served: dict, lm_keep: dict) -> dict:
+    """Phase 8: 8(a) Reweight, 8(b) RebalanceTheta, 8(c) the mixed fleet's
+    Retune, each run's launches counted from 0 and kept apart from the
+    kernels line's."""
+    t0 = time.perf_counter()
+    a = control_reweight(served)
+    b = control_rebalance(served)
+    c = control_mixed(served, lm_keep, a.pop("fleet"))
+    print(f"[control] launches of the three controlled runs (not in the "
+          f"kernels line): 8(a) {a['launches']}; 8(b) {b['launches']}; 8(c) "
+          f"{c['launches']}; {time.perf_counter() - t0:.1f} s")
+    return dict(reweight=a, rebalance=b, mixed=c)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2340,6 +2822,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s: dict[str, float] = {}          # host seconds of the phases
+
+    def mark(phase: str) -> None:
+        phase_s[phase] = time.perf_counter() - t_start - sum(
+            phase_s.values())
 
     from repro_torch.kernels.green import split_sms
     from repro_torch.kernels.util import (ptxas_report, resolve_device,
@@ -2355,6 +2842,7 @@ def main() -> int:
     for name in PTXAS_SOURCES:
         for line in ptxas_report(name):
             print(f"[setup] ptxas {name}: {line}")
+    mark("1")
 
     # 2. kernels ----------------------------------------------------------
     gen = np.random.default_rng(0)
@@ -2406,29 +2894,41 @@ def main() -> int:
     print(f"[kernels] all kernels agree with their plain versions "
           f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes, "
           f"{len(geometry)} head geometries and {len(edges)} edge cases")
+    mark("2")
 
     # 3. paths ------------------------------------------------------------
     paths = [serve_path(model, gen, rows) for model in SERVED]
     served = {p["model"]: p for p in paths}
     paths.append(fused_forward_path(gen, rows))
+    mark("3")
 
     # 4. fleet ------------------------------------------------------------
     paths.append(fleet_path(served))
+    mark("4")
 
     # 5. lm ---------------------------------------------------------------
     lm = lm_path(rows, former)
     paths.append(lm)
     granite = granite_path()
+    mark("5")
 
     # 6. split ------------------------------------------------------------
-    split = split_path(served, lm.pop("keep"))
+    lm_keep = lm.pop("keep")
+    split = split_path(served, lm_keep)
+    mark("6")
 
     # 7. workers ----------------------------------------------------------
     workers = workers_path(served)
+    mark("7")
+
+    # 8. control ----------------------------------------------------------
+    control = control_path(served, lm_keep)
+    mark("8")
     for p in served.values():
         del p["io"], p["runner"]
+    del lm_keep
 
-    # 8. report -----------------------------------------------------------
+    # 9. report -----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -2451,7 +2951,7 @@ def main() -> int:
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
         former_decode_rows=list(former.values()),
         paths=paths, granite=granite, split=split, workers=workers,
-        kernels=kernels),
+        control=control, phase_s=phase_s, kernels=kernels),
         indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")
@@ -2470,7 +2970,8 @@ def main() -> int:
           f"partition_ms each call on its core's partition of the split at "
           f"theta {SPLIT_THETA} (the fuse=True forward's on the whole "
           f"card); launches are phases 3-5's counted runs; "
-          f"{time.perf_counter() - t_start:.1f} s total")
+          f"{time.perf_counter() - t_start:.1f} s total (phases "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + " s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,11 +26,23 @@ process per pool (``python -m repro_torch.fleet.worker``), and
 :class:`MultiPoolRouter` drives over the socket transport as it drives
 in-process pools (:mod:`~repro_torch.fleet.net`).
 
-Not ported yet (ROADMAP): the closed-loop controller
-(``fleet/control.py``) and LM members.
+Closed-loop SLO adaptation: a :class:`ControlLoop` attached to a fleet
+observes a sliding completion window every K slots and injects SET_PARAM
+(member weight, LM fusion width) and REBALANCE (a re-split of the card's
+SMs) instructions into the recorded stream, with a seq-watermarked
+decision log as the audit trail; controlled runs replay bitwise with no
+controller attached, and decision logs are byte-compatible with the
+reference's.  An LM ``DualMeshEngine`` serves beside CNN members as an
+opaque member (fused RUNs).
 """
 from repro_torch.fleet.compiler import (SlotCompiler, compile_fleet,
                                         stream_signature, validate_stream)
+from repro_torch.fleet.control import (ControlAction, ControlLoop,
+                                       Decision, RebalanceTheta, Retune,
+                                       Reweight, decisions_from_json,
+                                       decisions_to_json, dump_decisions,
+                                       load_decisions, lower_action,
+                                       verify_decisions)
 from repro_torch.fleet.engine import FleetEngine, Member, build_cnn_fleet
 from repro_torch.fleet.executor import MultiPoolRouter, PoolExecutor
 from repro_torch.fleet.faults import (Fault, FaultInjector, FaultPlan,
@@ -57,7 +69,10 @@ from repro_torch.fleet.router import (POLICY_NAMES, DeadlineEDF, MemberView,
 
 __all__ = [
     "COMPAT_VERSIONS",
+    "ControlAction",
+    "ControlLoop",
     "DeadlineEDF",
+    "Decision",
     "DevicePool",
     "ExecRecord",
     "Fault",
@@ -78,9 +93,12 @@ __all__ = [
     "PoolCrash",
     "PoolExecutor",
     "Rebalance",
+    "RebalanceTheta",
     "RecoveryConfig",
     "Recv",
     "RemoteFleet",
+    "Retune",
+    "Reweight",
     "RoundRobin",
     "Router",
     "Run",
@@ -96,17 +114,23 @@ __all__ = [
     "build_cnn_fleet",
     "compile_fleet",
     "connect",
+    "decisions_from_json",
+    "decisions_to_json",
+    "dump_decisions",
     "dump_stream",
+    "load_decisions",
     "load_stream",
+    "lower_action",
     "make_policy",
     "mix_schedule",
     "normalize_mix",
     "plan_fleet",
     "plan_rows",
-    "stream_from_json",
-    "stream_signature",
     "start_workers",
     "stop_workers",
+    "stream_from_json",
+    "stream_signature",
     "stream_to_json",
     "validate_stream",
+    "verify_decisions",
 ]

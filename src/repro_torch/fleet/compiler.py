@@ -312,6 +312,14 @@ def compile_fleet(fleet, requests: Sequence[Request],
     only contribute their routing/ordering metadata (model tag, deadline,
     priority); payloads never enter the stream.
     """
+    if getattr(fleet, "controller", None) is not None:
+        raise CompileError(
+            "cannot compile a fleet with a ControlLoop attached: the "
+            "controller's decisions depend on observed latencies and "
+            "arrival timing, which no device-free mirror can predict "
+            "ahead of time; drive the live FleetEngine (its step() "
+            "records every injected SET_PARAM/REBALANCE) and replay the "
+            "recorded stream")
     models: dict[str, MemberModel] = {
         m.name: MemberModel.of_engine(m.name, m.engine)
         for m in fleet.members}

@@ -39,9 +39,13 @@ and nothing else:
 
 Per-request metrics are accounted at the fleet boundary: latency runs
 from fleet submit to member completion, tagged with the model, so
-``result().metrics.by_model()`` gives the per-network p50/p95.  The
-reference's closed-loop controller (``fleet/control.py``) is not ported
-(ROADMAP queue 1 item 6.3).
+``result().metrics.by_model()`` gives the per-network p50/p95.  A
+closed-loop controller (:class:`~repro_torch.fleet.control.ControlLoop`)
+attaches itself as :attr:`FleetEngine.controller` and is consulted after
+every executed slot; its actions are instructions injected into the
+recorded stream, so a controlled run replays with no controller attached.
+Members need not be CNNs: an LM ``DualMeshEngine`` (no advance/retire
+split) runs as fused RUNs.
 """
 from __future__ import annotations
 
@@ -134,6 +138,11 @@ class FleetEngine(EngineBase):
         # executed stream — ``self.stream``); a MultiPoolRouter re-homes
         # this executor to give it a pool name and SEND/RECV transport
         self.executor = PoolExecutor(self)
+        # closed-loop controller (fleet.control.ControlLoop attaches
+        # itself here); consulted once per executed slot — its actions
+        # inject SET_PARAM/REBALANCE into the recorded stream, so a
+        # controlled run replays with no controller attached
+        self.controller = None
 
     # ------------------------------------------------------------------
     @property
@@ -234,6 +243,8 @@ class FleetEngine(EngineBase):
         instrs = compiler.lower_slot(views, self._dispatches)
         done = self.executor.execute_slot(instrs, self._slot)
         self._slot += 1
+        if self.controller is not None:
+            self.controller.on_slot(done)
         return done
 
     def withdraw_pending(self, max_n: int | None = None, *,
@@ -306,6 +317,8 @@ class FleetEngine(EngineBase):
                "per_model": metrics.by_model()}
         if self.pool is not None:
             out["pool"] = self.pool.stats()
+        if self.controller is not None:
+            out["control"] = self.controller.stats()
         return out
 
 

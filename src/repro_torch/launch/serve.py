@@ -46,8 +46,8 @@ the card's two cores:
       [--pools N [--transport local|file [--spool DIR]]] \\
       [--workers N --transport socket [--kill-worker POOL@STEP] \\
        [--verify-replay]] \\
-      [--faults PLAN.json] [--slo-ms X] [--trace PATH] \\
-      [--metrics PATH [--metrics-every K]] [--device cuda]
+      [--faults PLAN.json] [--slo-ms X] [--adapt [--control-interval K]] \\
+      [--trace PATH] [--metrics PATH [--metrics-every K]] [--device cuda]
 
 builds one ``DualCoreEngine`` per model on the pool's leased split behind
 a ``FleetEngine`` (or, with ``--pools N``, N such fleets behind a
@@ -61,9 +61,20 @@ CUDA context and one split of the card's SMs each, at the pool's default
 theta 0.5) behind the same router, over framed sockets; ``--kill-worker
 POOL@STEP`` SIGKILLs one mid-run, the ``exactly-once:`` line counts the
 retired requests, and ``--verify-replay`` replays the collected streams
-on fresh in-process fleets (exit 1 if either check fails).  The
-reference's ``--adapt`` is refused with the ROADMAP item that will port
-it.
+on fresh in-process fleets (exit 1 if either check fails).
+
+``--adapt`` attaches a closed-loop controller
+(``repro_torch.fleet.ControlLoop``) to each pool's fleet: every
+``--control-interval`` slots it observes the sliding completion window
+and injects SET_PARAM / REBALANCE instructions, re-weighting member
+shares toward the observed arrival mix, narrowing or widening retunable
+engines' fusion width on p95 SLO breaches (needs ``--slo-ms``), and
+re-splitting the card's SMs at a re-planned theta on sustained shedding
+(the planner's host search runs inside the slot, ``--plan-evals`` deep).
+The summary reports the decisions taken; the injected instructions land
+in the recorded stream, so the run replays bitwise without the
+controller.  ``--adapt`` runs in process: with ``--workers`` it is a
+usage error (exit 2).
 """
 from __future__ import annotations
 
@@ -84,12 +95,13 @@ from repro_torch.dualmesh.cost import CardModel
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
 from repro_torch.dualmesh.schedule import plan_admission
-from repro_torch.fleet import (POLICY_NAMES, FaultInjector, FaultPlan,
-                               FileTransport, FleetEngine, MultiPoolRouter,
-                               RecoveryConfig, build_cnn_fleet, connect,
-                               make_policy, mix_schedule, normalize_mix,
-                               plan_fleet, plan_rows, start_workers,
-                               stop_workers, stream_signature)
+from repro_torch.fleet import (POLICY_NAMES, ControlLoop, FaultInjector,
+                               FaultPlan, FileTransport, FleetEngine,
+                               MultiPoolRouter, RecoveryConfig,
+                               build_cnn_fleet, connect, make_policy,
+                               mix_schedule, normalize_mix, plan_fleet,
+                               plan_rows, start_workers, stop_workers,
+                               stream_signature)
 from repro_torch.fleet.trace import (host_enqueue_ms, roofline_model,
                                      write_chrome_trace)
 from repro_torch.kernels.util import resolve_device, timed_build
@@ -105,11 +117,6 @@ CNN_MODELS = ("mobilenet_v1", "mobilenet_v2", "squeezenet")
 CNN_SCHEMES = ("layer_type", "greedy", "round_robin", "balanced", "best")
 MODEL_ALIASES = {"mbv1": "mobilenet_v1", "mbv2": "mobilenet_v2",
                  "sqz": "squeezenet", **{m: m for m in CNN_MODELS}}
-#: reference flags the port refuses, and the ROADMAP item porting each
-NOT_PORTED = {
-    "adapt": "queue 1 item 6.3 (the controller, with the LM engine's "
-             "fleet surface)",
-}
 
 
 def _fail(msg: str) -> None:
@@ -430,10 +437,6 @@ def serve_fleet(args) -> int:
     """``fleet`` subcommand: several CNNs over one pool of the card's
     two cores, ``--pools N`` in-process pools behind a router, or
     ``--workers N`` worker processes behind ``--transport socket``."""
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
-            _fail(f"--{flag.replace('_', '-')} is not ported yet: ROADMAP "
-                  f"{item}")
     mix = _parse_fleet_mix(args)
     if args.pools < 1:
         _fail(f"--pools must be >= 1, got {args.pools}")
@@ -452,6 +455,9 @@ def serve_fleet(args) -> int:
             _fail("--faults is in-process fault injection; with "
                   "--workers, kill a process instead "
                   "(--kill-worker POOL@STEP)")
+        if args.adapt:
+            _fail("--adapt runs a per-pool in-process controller; it is "
+                  "not supported over --workers")
         if args.slo_ms is not None:
             _fail("--slo-ms attaches in-process shed policies; it is "
                   "not supported over --workers")
@@ -474,6 +480,9 @@ def serve_fleet(args) -> int:
     kill = _parse_kill(args)
     if args.slo_ms is not None and not args.slo_ms > 0:
         _fail(f"--slo-ms must be > 0, got {args.slo_ms}")
+    if args.control_interval < 1:
+        _fail(f"--control-interval must be >= 1, got "
+              f"{args.control_interval}")
     if args.metrics_every is not None and not args.metrics:
         _fail("--metrics-every needs --metrics PATH")
     if args.metrics_every is not None and args.metrics_every < 1:
@@ -535,6 +544,10 @@ def serve_fleet(args) -> int:
             print(f"[serve] inter-pool migration spooled through {spool}")
         engine = MultiPoolRouter(fleets, injector=injector,
                                  transport=transport)
+    controllers = ({name: ControlLoop(fl, interval=args.control_interval,
+                                      slo_ms=args.slo_ms,
+                                      plan_evals=args.plan_evals)
+                    for name, fl in fleets.items()} if args.adapt else {})
     for fl in fleets.values():
         # warm-up: one untimed pass over the same runners builds the
         # kernels, fills the caching allocator's pools of the new streams
@@ -582,6 +595,13 @@ def serve_fleet(args) -> int:
         print(f"[serve] goodput {m.goodput_fps() * args.batch:.2f} img/s "
               f"(shed {m.count('shed')}, failed {m.count('failed')}, "
               f"recovered {m.count('recovered')})")
+    for pname, ctl in controllers.items():
+        cs = ctl.stats()
+        weights = ", ".join(f"{mm.name}={mm.weight:.2f}"
+                            for mm in fleets[pname].members)
+        print(f"[serve] control{'' if args.pools == 1 else ' ' + pname}: "
+              f"{cs['observations']} observations, {cs['decisions']} "
+              f"decisions {cs['by_kind'] or '{}'}; final weights {weights}")
     sink.finish(steps)
     if args.trace:
         events, _ = write_chrome_trace(streams, args.trace,
@@ -718,7 +738,17 @@ def main(argv=None):
                             "streams and placement log on fresh "
                             "in-process fleets and check them bitwise")
     fleet.add_argument("--adapt", action="store_true",
-                       help="not ported (ROADMAP queue 1 item 6.3)")
+                       help="attach a closed-loop controller to each "
+                            "pool: observe the completion window every "
+                            "--control-interval slots and inject "
+                            "SET_PARAM/REBALANCE: reweight members toward "
+                            "the observed mix, retune fusion width on p95 "
+                            "breaches (with --slo-ms), re-split the SMs "
+                            "at a re-planned theta on sustained shedding")
+    fleet.add_argument("--control-interval", type=int, default=8,
+                       metavar="K",
+                       help="fleet slots between controller observations "
+                            "(with --adapt; default 8)")
     fleet.add_argument("--device", default="cuda",
                        help="'cuda' (default; raises without a card) or "
                             "'cpu' (the plain versions)")

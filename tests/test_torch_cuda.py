@@ -1003,3 +1003,109 @@ def test_cnn_workers_bit_equal_in_process_fleet_on_card(card, tmp_path):
                 want_n[k] += n * v
         assert {k: v for k, v in d["launches"].items() if v} == \
             dict(want_n)
+
+
+# --------------------------------------------------------------------------
+# the closed-loop controller
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_controlled_fleet_replays_bitwise_on_card(card):
+    """mobilenet_v1 + squeezenet at 64 px under a ``ControlLoop`` whose
+    traffic flips from 3:1 to 1:3: the reweights land in the stream, and
+    the stream and the decision log through JSON replay on a fresh fleet
+    with no controller: the same signature, every output bit-equal, the
+    log verifying and the same final weights."""
+    from repro_torch.fleet import (ControlLoop, decisions_from_json,
+                                   decisions_to_json, stream_from_json,
+                                   stream_signature, stream_to_json,
+                                   verify_decisions)
+    from repro_torch.serving.api import replay
+
+    models = ["mobilenet_v1", "squeezenet"]
+    xs = [x.to(card) for x in _arrays(21, *[(1, 64, 64, 3)] * 4)]
+    tags = ([models[0]] * 3 + [models[1]]) * 4 + \
+        ([models[1]] * 3 + [models[0]]) * 4
+    arrivals = list(range(len(tags)))
+
+    def build():
+        fleet, _ = build_cnn_fleet(models, device=card, burst=4,
+                                   policy=make_policy("weighted_fair"))
+        for m in fleet.members:        # warm each member, as the CLI does
+            m.engine.runner.run_sequential(xs[:1])
+        return fleet
+
+    def requests():
+        return [Request(xs[i % 4], model=t) for i, t in enumerate(tags)]
+
+    live = build()
+    ctl = ControlLoop(live, interval=4)
+    res = replay(live, requests(), arrivals)
+    assert [c.status for c in res.completions] == ["ok"] * len(tags)
+    assert res.stats["control"]["by_kind"].get("reweight")
+    stream = stream_from_json(json.loads(json.dumps(stream_to_json(
+        live.stream))))
+    log = decisions_from_json(json.loads(json.dumps(decisions_to_json(
+        ctl.decisions))))
+    fresh = build()
+    assert fresh.controller is None
+    rep = fresh.executor.replay(stream, requests(), arrivals)
+    assert stream_signature(fresh.stream) == stream_signature(live.stream)
+    for a, b in zip(rep.outputs, res.outputs):
+        assert torch.equal(a, b)
+    verify_decisions(fresh.stream, log)
+    assert [m.weight for m in fresh.members] == \
+        [m.weight for m in live.members]
+
+
+@pytest.mark.cuda
+def test_retune_mid_run_draws_on_captured_lanes_on_card(card):
+    """The smoke LM as a fleet member under a controller whose SLO lies
+    below every latency: its first request finishes early, so Retune
+    halves the fusion width 4 -> 2 while the second still decodes, and the
+    three that arrive next fuse 2 + 1 (4 would have fused all 3) on decode
+    lanes captured before the run (no capture during it); K6 and K7 launch
+    as the plan says, and the recorded stream replays bitwise on a fresh
+    uncontrolled fleet."""
+    from repro_torch.fleet import ControlLoop, FleetEngine, stream_signature
+    from repro_torch.serving.api import replay
+    from repro_torch.serving.lm import DualMeshEngine
+
+    cfg = get_smoke("qwen2_0_5b")
+    params = params_from_numpy(init_params(cfg, seed=0), card)
+    prompts = random_prompts(cfg, 5, 2, 8, seed=4, device=card)
+    gens, arrivals = [2, 6, 6, 6, 6], [0, 0, 2, 2, 2]
+    runner = DualMeshRunner(cfg, params, split_streams(card), max_len=24)
+    chip_smoke.capture_decode_lanes(runner, [2, 4, 6, 8], 2)
+    captured = runner.lanes.count
+
+    def build():
+        return FleetEngine({"lm": DualMeshEngine(runner, group_size=4,
+                                                 quantum=2)}, burst=2)
+
+    def requests():
+        return [Request(p, gen_steps=g, model="lm")
+                for p, g in zip(prompts, gens)]
+
+    live = build()
+    ctl = ControlLoop(live, interval=2, slo_ms=1e-3)
+    fns = (rmsnorm, flash_attention, decode_attention)
+    before = [f.launches for f in fns]
+    res = replay(live, requests(), arrivals)
+    after = [f.launches for f in fns]
+    lm = live._by_name["lm"].engine
+    assert [d.action.value for d in ctl.decisions
+            if d.action.kind == "retune"] == [2, 1]
+    assert lm.fused_sizes == [2, 2, 1]
+    assert runner.lanes.count == captured
+    steps = 5 * len(lm.fused_sizes)         # each group lives 5 steps
+    per_forward = 2 * cfg.n_layers + 1
+    assert [a - b for a, b in zip(after, before)] == [
+        (5 + steps) * per_forward, 5 * cfg.n_layers, steps * cfg.n_layers]
+    assert [tuple(o.shape) for o in res.outputs] == \
+        [(2, 8 + g) for g in gens]
+    fresh = build()
+    rep = fresh.executor.replay(list(live.stream), requests(), arrivals)
+    assert stream_signature(fresh.stream) == stream_signature(live.stream)
+    assert runner.lanes.count == captured
+    for a, b in zip(rep.outputs, res.outputs):
+        assert torch.equal(a, b)

@@ -26,6 +26,7 @@ import inspect
 import json
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,28 +51,38 @@ from repro.fleet import (FaultInjector as RefInjector,
 from repro.fleet import instructions as ref_instr
 from repro.fleet.net import wire as ref_wire
 from repro.fleet.router import MemberView as RefView
+from repro.dualmesh import DualMeshRunner as RefLMRunner
+from repro.dualmesh import split_mesh
+from repro.fleet import ControlLoop as RefControlLoop
 from repro.fleet.trace import chrome_trace as ref_chrome_trace
+from repro.lm import model as ref_lm_model
 from repro.models.zoo import get_graph as ref_get_graph
 from repro.obs import to_prometheus as ref_to_prometheus
+from repro.serving import DualMeshEngine as RefLMEngine
 from repro.serving import EngineBase as RefEngineBase
 from repro.serving import FixedRateAdmission as RefFixedRate
 from repro.serving import QueueFull as RefQueueFull
 from repro.serving import Request as RefRequest
 from repro.serving import poisson_arrivals as ref_poisson_arrivals
 from repro.serving import replay as ref_replay
+from repro_torch.configs.registry import get_smoke
 from repro_torch.core import area, search
 from repro_torch.core.arch import (DUAL_BASELINE, DUAL_MULTI, DUAL_SQZ,
                                    BoardModel)
-from repro_torch.fleet import (POLICY_NAMES, DevicePool, FaultInjector,
-                               FaultPlan, FileTransport, FleetEngine,
-                               MultiPoolRouter, Rebalance, build_cnn_fleet,
-                               compile_fleet, make_policy, mix_schedule,
-                               normalize_mix, plan_fleet, plan_rows,
-                               stream_signature, validate_stream)
+from repro_torch.dualmesh.partition import split_streams
+from repro_torch.dualmesh.runtime import DualMeshRunner
+from repro_torch.fleet import (POLICY_NAMES, ControlLoop, DevicePool,
+                               FaultInjector, FaultPlan, FileTransport,
+                               FleetEngine, MultiPoolRouter, Rebalance,
+                               SetParam, build_cnn_fleet, compile_fleet,
+                               make_policy, mix_schedule, normalize_mix,
+                               plan_fleet, plan_rows, stream_signature,
+                               validate_stream, verify_decisions)
 from repro_torch.fleet import instructions
 from repro_torch.fleet.net import wire
 from repro_torch.fleet.router import MemberView
 from repro_torch.fleet.trace import chrome_trace
+from repro_torch.lm import model as lm_model
 from repro_torch.models.cnn import init_params
 from repro_torch.models.zoo import get_graph
 from repro_torch.obs import to_prometheus
@@ -79,6 +90,7 @@ from repro_torch.serving import api as serving_api
 from repro_torch.serving.api import (EngineBase, FixedRateAdmission,
                                      QueueFull, Request, poisson_arrivals,
                                      replay)
+from repro_torch.serving.lm import DualMeshEngine
 
 ref_search = importlib.import_module("repro.core.search")
 ref_serving_api = importlib.import_module("repro.serving.api")
@@ -774,3 +786,188 @@ def test_pool_leases_and_resplit_keep_the_streams():
     assert pool.stats()["degenerate"] is True      # one queue on the CPU
     with pytest.raises(KeyError):
         pool.release("never_leased")
+
+
+# --------------------------------------------------------------------------
+# LM members beside CNN members
+# --------------------------------------------------------------------------
+LM_ARCH = "qwen2_0_5b"
+
+
+@pytest.fixture(scope="module")
+def lm_weights():
+    """``get_smoke("qwen2_0_5b")``'s reference parameters and the same
+    parameters carried over to the port."""
+    cfg = get_smoke(LM_ARCH)
+    ref_params = ref_lm_model.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, ref_params, lm_model.params_from_numpy(
+        jax.tree.map(np.asarray, ref_params), device="cpu")
+
+
+def _lm_engine(pkg, lm_weights, **kw):
+    cfg, ref_params, params = lm_weights
+    if pkg == "ref":
+        return RefLMEngine(RefLMRunner(cfg, ref_params,
+                                       split_mesh(jax.devices()[:1], 0.5),
+                                       max_len=16), **kw)
+    return DualMeshEngine(DualMeshRunner(cfg, params, split_streams("cpu"),
+                                         max_len=16), **kw)
+
+
+def _cnn_engine(pkg, model="squeezenet"):
+    fl, _ = (ref_fleet if pkg == "ref" else port_fleet)([model])
+    return fl._by_name[model].engine
+
+
+def _mixed(pkg, lm_weights, fleet_kw=None, **lm_kw):
+    """An LM member and a SqueezeNet member in one fleet, as the
+    reference's fleet tests build one."""
+    return (RefFleet if pkg == "ref" else FleetEngine)(
+        {"lm": _lm_engine(pkg, lm_weights, **lm_kw),
+         "squeezenet": _cnn_engine(pkg)}, **(fleet_kw or {}))
+
+
+def _lm_prompts(n, seed=1, plen=4):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, get_smoke(LM_ARCH).vocab, (1, plen))
+            for _ in range(n)]
+
+
+def _mixed_requests(pkg, plan):
+    """Requests from ``plan``: ("lm", gen) or ("img", seed) each."""
+    req = RefRequest if pkg == "ref" else Request
+    to = jnp.asarray if pkg == "ref" else torch.from_numpy
+    prompts = iter(_lm_prompts(sum(k == "lm" for k, _ in plan)))
+    out = []
+    for kind, v in plan:
+        if kind == "lm":
+            out.append(req(to(next(prompts)), gen_steps=v, model="lm"))
+        else:
+            out.append(req(to(_images(1, v)[0]), model="squeezenet"))
+    return out
+
+
+def _check_mixed(port_res, ref_res):
+    """LM tokens equal, CNN logits within ``TOL``, statuses equal."""
+    assert [c.status for c in port_res.completions] == \
+        [c.status for c in ref_res.completions]
+    for a, b in zip(port_res.outputs, ref_res.outputs):
+        if a.dtype == torch.int64:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_fleet_with_lm_member_matches_reference(lm_weights):
+    """The reference's LM + CNN fleet: a ``DualMeshEngine`` beside a
+    ``DualCoreEngine`` behind one front end, its decode fused into RUNs;
+    the same stream, tokens equal and logits within 1e-3 of the
+    reference's."""
+    plan = [("lm", 2), ("img", 2)]
+    runs = {}
+    for pkg in ("port", "ref"):
+        eng = _mixed(pkg, lm_weights, group_size=1)
+        for r in _mixed_requests(pkg, plan):
+            eng.submit(r)
+        runs[pkg] = (eng, eng.drain())
+    (eng, res), (ref_eng, ref_res) = runs["port"], runs["ref"]
+    assert res.metrics.completed == 2
+    assert tuple(res.outputs[0].shape) == (1, 6)   # prompt + 2 generated
+    assert tuple(res.outputs[1].shape) == (1, 1000)
+    assert set(res.metrics.by_model()) == {"lm", "squeezenet"}
+    _check_mixed(res, ref_res)
+    assert _sig(eng.stream) == _sig(ref_eng.stream)
+    assert any(r.instr.fused for r in eng.stream
+               if r.instr.op == "RUN" and r.instr.member == "lm")
+
+
+def test_controlled_mixed_fleet_retunes_and_replays(lm_weights):
+    """A controlled LM + CNN fleet (an SLO far below any latency): the
+    controller halves the LM member's fusion width; both packages emit
+    the same actions and streams, tokens equal, logits within 1e-3; the
+    port's recording replays bitwise on a fresh uncontrolled port fleet,
+    its decision log verifying there, and with the same signature on the
+    reference's."""
+    plan = ([("lm", 4)] + [("img", s) for s in range(3)]
+            + [("lm", 3)] * 3 + [("img", s) for s in range(3, 6)])
+    arrivals = [0, 0, 1, 2, 5, 5, 5, 6, 7, 8]
+    lm_kw = dict(group_size=4, quantum=2)
+    fleet_kw = dict(burst=2)
+    runs = {}
+    for pkg, ctl_cls, rep in (("port", ControlLoop, replay),
+                              ("ref", RefControlLoop, ref_replay)):
+        eng = _mixed(pkg, lm_weights, fleet_kw, **lm_kw)
+        ctl = ctl_cls(eng, interval=2, slo_ms=1e-3)
+        res = rep(eng, _mixed_requests(pkg, plan), arrivals)
+        runs[pkg] = (eng, ctl, res)
+    (eng, ctl, res), (ref_eng, ref_ctl, ref_res) = runs["port"], runs["ref"]
+    retunes = [d.action for d in ctl.decisions if d.action.kind == "retune"]
+    assert [a.value for a in retunes] == [2, 1]
+    assert [dataclasses.asdict(d.action) for d in ctl.decisions] == \
+        [dataclasses.asdict(d.action) for d in ref_ctl.decisions]
+    # the three later requests fuse 2 + 1 after the first halving (4 would
+    # have fused all 3 at once)
+    assert eng._by_name["lm"].engine.fused_sizes == [1, 2, 1] == \
+        ref_eng._by_name["lm"].engine.fused_sizes
+    assert res.stats["control"]["by_kind"]["retune"] == 2
+    _check_mixed(res, ref_res)
+    assert _sig(eng.stream) == _sig(ref_eng.stream)
+    verify_decisions(eng.stream, ctl.decisions)
+
+    doc = instructions.stream_to_json(eng.stream, pool="pool0")
+    fresh = _mixed("port", lm_weights, fleet_kw, **lm_kw)
+    assert fresh.controller is None
+    rep = fresh.executor.replay(instructions.stream_from_json(doc),
+                                _mixed_requests("port", plan), arrivals)
+    assert stream_signature(fresh.stream) == stream_signature(eng.stream)
+    _equal(rep.outputs, res.outputs)
+    verify_decisions(fresh.stream, ctl.decisions)
+    assert fresh._by_name["lm"].engine.group_size == 1
+    ref_fresh = _mixed("ref", lm_weights, fleet_kw, **lm_kw)
+    ref_rep = ref_fresh.executor.replay(ref_instr.stream_from_json(doc),
+                                        _mixed_requests("ref", plan),
+                                        arrivals)
+    assert _sig(ref_fresh.stream) == _sig(eng.stream)
+    _check_mixed(rep, ref_rep)
+    assert any(isinstance(r.instr, SetParam) for r in fresh.stream)
+
+
+def test_multipool_lm_cnn_round_trip_bitwise(lm_weights):
+    """The reference's mixed-modality round trip: two pools, an LM member
+    (fused RUNs) beside CNN members, a forced migration; recorded,
+    serialized and replayed on fresh port pools bitwise, and on fresh
+    reference pools with the same signature and outputs."""
+    plan = [("lm", 2)] + [("img", s) for s in range(4)]
+
+    def pools(pkg):
+        fleet = RefFleet if pkg == "ref" else FleetEngine
+        return {"p0": fleet({"lm": _lm_engine(pkg, lm_weights,
+                                              group_size=1),
+                             "squeezenet": _cnn_engine(pkg)}),
+                "p1": fleet({"squeezenet": _cnn_engine(pkg)})}
+
+    live = MultiPoolRouter(pools("port"))
+    for r in _mixed_requests("port", plan):
+        live.submit(r)
+    assert live.drain_pool("p1") >= 1           # force SEND/RECV mid-run
+    res = live.drain()
+    assert res.metrics.completed == 5
+    assert tuple(res.outputs[0].shape) == (1, 6)
+    fused = [r for r in live.stream() if r.instr.op == "RUN"
+             and r.instr.fused]
+    assert fused and all(r.instr.member == "lm" for r in fused)
+    docs = {name: instructions.stream_to_json(recs, pool=name)
+            for name, recs in live.streams().items()}
+    fresh = MultiPoolRouter(pools("port"))
+    rep = fresh.replay({k: instructions.stream_from_json(v)
+                        for k, v in docs.items()}, live.placements,
+                       _mixed_requests("port", plan))
+    assert stream_signature(fresh.stream()) == stream_signature(
+        live.stream())
+    _equal(rep.outputs, res.outputs)
+    ref = RefRouter(pools("ref"))
+    ref_rep = ref.replay({k: ref_instr.stream_from_json(v)
+                          for k, v in docs.items()}, live.placements,
+                         _mixed_requests("ref", plan))
+    assert _sig(ref.stream()) == _sig(live.stream())
+    _check_mixed(rep, ref_rep)

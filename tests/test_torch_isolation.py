@@ -119,7 +119,7 @@ FLEET_MODULES = ("core/area", "core/search", "obs/__init__", "obs/registry",
                  "fleet/compiler", "fleet/faults", "fleet/net/__init__",
                  "fleet/net/wire", "fleet/net/transport", "fleet/executor",
                  "fleet/engine", "fleet/trace", "fleet/net/worker",
-                 "fleet/net/coordinator", "fleet/worker")
+                 "fleet/net/coordinator", "fleet/worker", "fleet/control")
 
 
 @pytest.mark.parametrize("name", FLEET_MODULES)
@@ -144,18 +144,6 @@ def test_fleet_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["fleet", "--models", "sqz", "--image-size", "32"])
     assert DevicePool("cpu").cores.streams == {"c": None, "p": None}
-
-
-@pytest.mark.parametrize("flags,item", [(["--adapt"], "item 6.3")])
-def test_serve_fleet_refuses_unported_flags(flags, item, capsys):
-    """The reference's controller flag exits with an error naming the
-    ROADMAP item that ports it; nothing falls back."""
-    from repro_torch.launch.serve import main
-
-    with pytest.raises(SystemExit) as e:
-        main(["fleet", "--device", "cpu", *flags])
-    assert e.value.code == 2
-    assert f"ROADMAP queue 1 {item}" in capsys.readouterr().err
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

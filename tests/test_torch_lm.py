@@ -42,6 +42,7 @@ from repro.lm import model as ref_model
 from repro.lm import modules as ref_modules
 from repro.serving import DualMeshEngine as RefEngine
 from repro.serving import Request as RefRequest
+from repro.serving import api as ref_api
 from repro_torch.configs.registry import ARCH_IDS, get_arch, get_smoke
 from repro_torch.dualmesh.cost import CardModel, decode_cost, prefill_cost
 from repro_torch.dualmesh.partition import split_streams
@@ -54,7 +55,8 @@ from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.util import resolve_device
 from repro_torch.lm import model
 from repro_torch.lm import modules
-from repro_torch.serving.api import Request
+from repro_torch.serving import api
+from repro_torch.serving.api import QueueFull, Request
 from repro_torch.serving.lm import DualMeshEngine
 
 ARCH = "qwen2_0_5b"
@@ -598,6 +600,135 @@ def test_engine_matches_reference(smoke, chunk, group_size):
                 "total_tokens"):
         assert got.stats[key] == want.stats[key], key
     assert [t[:2] for t in got.trace] == [t[:2] for t in want.trace]
+
+
+#: engine scenarios run on both packages: the engine's options (``policy``
+#: names a class of ``serving.api``), the requests as (arrival step,
+#: generated tokens, slot deadline), the steps at which the test sweeps
+#: the queue on its own slot clock (as the fleet executor does at a RUN)
+#: and the retunes made before a step
+LM_SCENARIOS = {
+    "lifecycle": dict(kw=dict(group_size=2),
+                      reqs=[(0, 3, None), (0, 3, None), (1, 2, None)]),
+    "cap_below_group": dict(kw=dict(group_size=2, max_in_flight=1),
+                            reqs=[(0, 2, None), (0, 2, None)]),
+    "quantum_greedy": dict(kw=dict(group_size=2, quantum=2,
+                                   policy="GreedyAdmission"),
+                           reqs=[(0, 6, None), (0, 4, None), (0, 5, None),
+                                 (2, 3, None)]),
+    "slot_shed": dict(kw=dict(group_size=2, policy="ShedPolicy"),
+                      reqs=[(0, 3, None), (0, 3, 0), (0, 2, 5), (0, 3, 1)],
+                      sweep=True),
+    "retune": dict(kw=dict(group_size=4, quantum=3),
+                   reqs=[(0, 5, None), (0, 5, None), (0, 4, None),
+                         (3, 4, None), (3, 4, None)],
+                   retune={2: dict(group_size=1),
+                           4: dict(quantum=1, prefill_chunk=2),
+                           6: dict(group_size=2)}),
+}
+
+
+def _drive_lm(eng, scenario, make_req, prompt):
+    """Step ``eng`` through ``scenario``; returns per step (queued,
+    in flight, next core, next dispatch cycles, completions as (rid,
+    status)) and the final result."""
+    reqs = list(scenario["reqs"])
+    log, step = [], 0
+    while reqs or eng.has_work:
+        while reqs and reqs[0][0] <= step:
+            _, gen, deadline = reqs.pop(0)
+            eng.submit(make_req(prompt, gen_steps=gen, deadline=deadline))
+        for k, v in scenario.get("retune", {}).items():
+            if k == step:
+                eng.retune(**v)
+        shed = (eng.shed_expired(step) if scenario.get("sweep") else [])
+        row = (eng.queued, eng.in_flight, eng.next_core,
+               eng.next_dispatch_cycles())
+        done = shed + (eng.step() if eng.has_work else [])
+        log.append(row + ([(c.ticket.rid, c.metrics.status)
+                           for c in done],))
+        step += 1
+        assert step < 100, "the engine did not terminate"
+    return log, eng.result()
+
+
+@pytest.mark.parametrize("name", sorted(LM_SCENARIOS))
+def test_engine_fleet_surface_matches_reference(smoke, name):
+    """The LM engine's fleet surface on the reference's scenarios and
+    more (an in-flight cap below the group size that still terminates, a
+    finite quantum with greedy admission, slot-clock shedding swept as
+    the fleet executor sweeps, retunes mid-run): step for step the same
+    queue, in-flight count, ``next_core`` and ``next_dispatch_cycles``,
+    the same completions and statuses, tokens equal, the same stats."""
+    cfg, ref_params, params = smoke
+    sc = LM_SCENARIOS[name]
+    prompt = _prompts(cfg, n=1, batch=1, plen=4)[0]
+    runs = {}
+    for pkg, runner, mod, req, to in (
+            ("ref", RefRunner(cfg, ref_params,
+                              split_mesh(jax.devices()[:1], 0.5),
+                              max_len=24), ref_api, RefRequest, jnp.asarray),
+            ("port", DualMeshRunner(cfg, params, split_streams("cpu"),
+                                    max_len=24), api, Request, _t)):
+        kw = dict(sc["kw"])
+        if "policy" in kw:
+            kw["policy"] = (mod.ShedPolicy(clock="slot")
+                            if kw["policy"] == "ShedPolicy"
+                            else getattr(mod, kw["policy"])())
+        eng = (RefEngine if pkg == "ref" else DualMeshEngine)(runner, **kw)
+        runs[pkg] = _drive_lm(eng, sc, lambda p, **k: req(to(p), **k),
+                              prompt)
+    (ref_log, want), (port_log, got) = runs["ref"], runs["port"]
+    assert port_log == ref_log
+    assert [c.metrics.status for c in got.completions] == \
+        [c.metrics.status for c in want.completions]
+    for a, b in zip(want.outputs, got.outputs):
+        if a is None:
+            assert b is None
+        else:
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for key in ("fused_sizes", "prefill_tokens", "decode_tokens",
+                "total_tokens", "group_size", "retunes", "n_streams"):
+        assert got.stats[key] == want.stats[key], key
+    if name == "cap_below_group":
+        assert got.stats["fused_sizes"] == [1, 1]
+    if name == "slot_shed":
+        assert [c.metrics.status for c in got.completions].count(
+            "shed") == 2
+    if name == "retune":
+        assert [r["group_size"] for r in got.stats["retunes"]
+                if "group_size" in r] == [1, 2]
+
+
+def test_engine_retune_validation_and_backpressure(smoke):
+    """``retune`` refuses a knob below 1 and changes nothing then; a
+    bounded queue raises ``QueueFull``; the ``serve`` shim equals the
+    engine driven directly."""
+    cfg, _, params = smoke
+    runner = DualMeshRunner(cfg, params, split_streams("cpu"), max_len=24)
+    eng = DualMeshEngine(runner, group_size=2, quantum=4, max_queue=1)
+    for knob in ("group_size", "quantum", "prefill_chunk"):
+        with pytest.raises(ValueError, match=f"{knob} must be >= 1"):
+            eng.retune(**{knob: 0})
+    assert eng.retune() == {"group_size": 2, "quantum": 4,
+                            "prefill_chunk": None}
+    assert eng.retunes == [] and eng.next_core is None
+    p = _t(_prompts(cfg, n=1, batch=1, plen=4)[0])
+    eng.submit(Request(p, gen_steps=1))
+    with pytest.raises(QueueFull):
+        eng.submit(Request(p, gen_steps=1))
+    assert eng.drain().metrics.completed == 1
+    prompts = [_t(x) for x in _prompts(cfg, n=3, batch=1, plen=6)]
+    shim = runner.serve(prompts, gen_steps=4, group_size=2)
+    eng = DualMeshEngine(runner, group_size=2)
+    for x in prompts:
+        eng.submit(Request(x, gen_steps=4))
+    res = eng.drain()
+    for a, b in zip(shim.outputs, res.outputs):
+        assert torch.equal(a, b)
+    for key in ("prefill_tokens", "decode_tokens", "total_tokens",
+                "fused_sizes", "n_streams"):
+        assert shim.stats[key] == res.stats[key], key
 
 
 def test_runner_jit_groups_pools_decode_lanes_on_the_cpu(smoke):
