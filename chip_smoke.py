@@ -41,10 +41,12 @@ any failure raises and the script exits non-zero:
             (tensor or CUDA cores, cluster, keys a rank, slots, blocks,
             shared memory) beside them, and at build time their ``-Xptxas -v``
             registers and spills.  K7 is also timed at the head geometry of
-            the other registered dense configs (Qwen2.5-14B 40/8,
-            Granite-20B 48/1, Command R+ 96/8, D 128): decode at 16 rows
-            and a cache of 576, checked there with ragged ``kv_len`` down
-            to 0 and 1, and flash at the path's prefill of 2 x 512;
+            the other registered configs (Qwen2.5-14B 40/8, Granite-20B
+            48/1, Command R+ 96/8, Qwen-MoE 16/16, all D 128; Granite-MoE
+            24/8 at D 64): decode at 16 rows and a cache of 576, checked
+            there with ragged ``kv_len`` down to 0 and 1, and flash at the
+            path's prefill of 2 x 512; K6 at their widths over 1024 and 16
+            rows;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the eager
             sequential kernel forward (``jit_groups=False``) against the
@@ -180,7 +182,33 @@ any failure raises and the script exits non-zero:
             captured during the run, the stream replayed bitwise on a fresh
             uncontrolled fleet; walls, per-model p50/p95, tokens/s and the
             decisions with their reasons;
-9. report   one ``[report]`` line for each path and kernel (launches,
+9. design   the LM design flow and the larger LMs, every earlier phase's
+            tensors freed first (green contexts stay): (a) ``search`` on
+            the card's SMs for phase 5's traffic (Qwen2-0.5B, 8 x batch
+            2, 512 + 64): the visited thetas with their SMs, the chosen
+            theta, its planned makespan and the memory check's margin, no
+            green context made while it runs; Qwen2-0.5B served at the
+            chosen theta and at 0.5 in turns (each warmed first), tokens
+            equal, launches as the plan says, walls beside the plans'
+            makespans (no ranking claimed); (b) Qwen2.5-14B at full depth
+            (48 layers, 59 GB of f32): searched the same way, its weights
+            drawn from seed 0 straight to the card (``load_params``; the
+            host seconds and the card's memory printed), served 8 x batch
+            2, 512 + 64 through ``DualMeshEngine`` at the searched theta,
+            K6 97 and K7 48 launches a forward step, tokens on two
+            streams equal one stream's; tokens/s, p50/p95, the prefill
+            and decode step on their cores' streams and on the whole card
+            with the host held out beside the cost model's; K6 and K7 at
+            the path's shapes held against their plain versions and
+            timed; (c) Qwen-MoE at full depth (57 GB) the same way (K6 49
+            and K7 24 a step; the modelled decode step, which prices the
+            active parameters, beside the measured one, which reads every
+            expert), then Qwen-MoE and Granite-MoE at full width cut to 2
+            layers on the card against the CPU's plain versions: the
+            16-token prompt (the dense branch) and one 2 x 512 prefill
+            (the scatter branch) at 1e-3.  The phase's launches are
+            printed apart from the kernels line's;
+10. report  one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line; the host seconds of each phase.
@@ -191,6 +219,7 @@ The same file holds each path's launch counts, walls and kernel sums.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -251,7 +280,8 @@ LM_THETA = SPLIT_THETA         # (DualCoreRunner's default) and the LM's
 LM_MAX_LEN = LM_PROMPT + LM_GEN + 8    # the CLI's cache length
 LM_CHECK_PROMPT = 16                    # card against CPU, full width
 # the other registered dense configs, whose decode geometry phase 2 checks
-LM_GEOMETRY_ARCHS = ("qwen2_5_14b", "granite_20b", "command_r_plus_104b")
+LM_GEOMETRY_ARCHS = ("qwen2_5_14b", "granite_20b", "command_r_plus_104b",
+                     "qwen2_moe_a2_7b", "granite_moe_3b_a800m")
 LM_GEOMETRY_ROWS = LM_BATCH * 8         # the LM path's decode rows
 LM_GEOMETRY_CACHE = 576
 GRANITE = "granite_20b"                 # checked at full width, cut depth
@@ -259,6 +289,14 @@ GRANITE = "granite_20b"                 # checked at full width, cut depth
 # enqueue of a step): the planned group size is printed under it too
 FORMER_STEP_FLOOR_BASE = 2.79e-3
 GRANITE_LAYERS = 2
+DESIGN_EVALS = 10                       # serve lm --search's budget
+DESIGN_TURNS = 2                        # searched theta / 0.5 wall pairs
+BIG_ARCH = "qwen2_5_14b"                # 9(b): served at full depth
+BIG_REQUESTS = LM_REQUESTS
+MOE_ARCH = "qwen2_moe_a2_7b"            # 9(c): served at full depth
+MOE_ARCHS = ("qwen2_moe_a2_7b", "granite_moe_3b_a800m")
+MOE_LAYERS = 2                          # 9(c): full width, card vs CPU
+WARM_PROMPT = 16                        # 9: warm-up prompts' length
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
 # the CUDA cores (no tensor cores) 67 TFLOP/s, TF32 on the tensor cores 495
 # TFLOP/s, of which 3xTF32 (three products per f32 product) gets a third.
@@ -1187,11 +1225,14 @@ def lm_edge_calls() -> list[dict]:
 
 
 def lm_geometry_calls() -> list[dict]:
-    """K7 decode at the head geometry of the other registered dense
-    configs, at the LM path's decode rows and a cache of 576, and K7 flash
-    there at the LM path's prefill (batch 2, 512 tokens)."""
+    """K7 decode at the head geometry of the other registered configs
+    (dense and MoE), at the LM path's decode rows and a cache of 576, and
+    K7 flash there at the LM path's prefill (batch 2, 512 tokens); K6 at
+    their widths over the prefill's and the decode's rows."""
     from repro_torch.configs.registry import get_arch
-    out = []
+    out = [_k6(rows, d) for d in sorted({get_arch(name).d_model
+                                         for name in LM_GEOMETRY_ARCHS})
+           for rows in (LM_BATCH * LM_PROMPT, LM_GEOMETRY_ROWS)]
     for name in LM_GEOMETRY_ARCHS:
         cfg = get_arch(name)
         out.append(_decode(LM_GEOMETRY_ROWS, LM_GEOMETRY_CACHE, LM_MAX_LEN,
@@ -1292,6 +1333,39 @@ def lm_device_ms(cfg, params, rows_dec: int) -> tuple[float, float]:
     return step, prefill
 
 
+def served_run(runner, prompts, gs: int):
+    """One counted run of ``prompts`` through ``DualMeshEngine`` at group
+    size ``gs``: the result, its launches and the stream ms of its
+    stages."""
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.lm import DualMeshEngine
+    start = len(runner.trace)
+    reset_counts()
+    res = replay(DualMeshEngine(runner, group_size=gs),
+                 [Request(p, gen_steps=LM_GEN) for p in prompts])
+    launches = launch_counts()
+    return res, launches, runner.trace_stream_ms()[start:]
+
+
+def check_lm_run(tag: str, cfg, res, launches, prompts) -> int:
+    """Launches as the plan says (a forward step: K6 2L + 1, K7 L) and
+    well-formed outputs that keep their prompts; returns the decode
+    steps."""
+    L, n = cfg.n_layers, len(prompts)
+    steps = (LM_GEN - 1) * len(res.stats["fused_sizes"])
+    check_counts(tag, launches, {"rmsnorm": (n + steps) * (2 * L + 1),
+                                 "flash_attention": n * L,
+                                 "decode_attention": steps * L})
+    for i, (out, p) in enumerate(zip(res.outputs, prompts)):
+        if (out.shape != (LM_BATCH, LM_PROMPT + LM_GEN)
+                or out.dtype != torch.int64
+                or not torch.equal(out[:, :LM_PROMPT], p)
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
+            raise AssertionError(f"{tag} request {i}: bad output "
+                                 f"{tuple(out.shape)} {out.dtype}")
+    return steps
+
+
 def lm_path(rows: dict, former: dict) -> dict:
     """Qwen2-0.5B served through ``DualMeshEngine`` on the two streams, its
     decode steps replayed from CUDA graphs, beside one stream and the
@@ -1304,8 +1378,6 @@ def lm_path(rows: dict, former: dict) -> dict:
     from repro_torch.dualmesh.schedule import plan_admission
     from repro_torch.kernels.util import cuda_time_ms
     from repro_torch.lm.model import init_params, params_from_numpy
-    from repro_torch.serving.api import Request, replay
-    from repro_torch.serving.lm import DualMeshEngine
 
     cfg = get_arch(LM_ARCH)
     t0 = time.perf_counter()
@@ -1347,33 +1419,16 @@ def lm_path(rows: dict, former: dict) -> dict:
           + " MiB a lane")
 
     def run(name):
-        r = runners[name]
-        start = len(r.trace)
-        res = replay(DualMeshEngine(r, group_size=gs),
-                     [Request(p, gen_steps=LM_GEN) for p in prompts])
-        return res, r.trace_stream_ms()[start:]
+        res, _, stream_ms = served_run(runners[name], prompts, gs)
+        return res, stream_ms
 
-    reset_counts()
-    res, stream_ms = run("two")
-    launches = launch_counts()
+    res, launches, stream_ms = served_run(runner, prompts, gs)
     L = cfg.n_layers
-    n_groups = len(res.stats["fused_sizes"])
-    steps = (LM_GEN - 1) * n_groups
-    want = {"rmsnorm": (LM_REQUESTS + steps) * (2 * L + 1),
-            "flash_attention": LM_REQUESTS * L,
-            "decode_attention": steps * L}
-    check_counts("lm serving", launches, want)
+    steps = check_lm_run("lm serving", cfg, res, launches, prompts)
     if res.stats["fused_sizes"] != lm_group_sizes():
         raise AssertionError(f"lm serving formed decode groups "
                              f"{res.stats['fused_sizes']}, but phase 2 "
                              f"checked K7 decode at {lm_group_sizes()}")
-    for i, (out, p) in enumerate(zip(res.outputs, prompts)):
-        if (out.shape != (LM_BATCH, LM_PROMPT + LM_GEN)
-                or out.dtype != torch.int64
-                or not torch.equal(out[:, :LM_PROMPT], p)
-                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
-            raise AssertionError(f"lm request {i}: bad output "
-                                 f"{tuple(out.shape)} {out.dtype}")
     runs = {"two": (res, stream_ms)}
     for name in ("one", "eager"):
         runs[name] = run(name)
@@ -2805,6 +2860,382 @@ def control_path(served: dict, lm_keep: dict) -> dict:
     return dict(reweight=a, rebalance=b, mixed=c)
 
 
+# --------------------------------------------------------------------------
+# phase 9: the design flow, Qwen2.5-14B at full depth, the MoE family
+# --------------------------------------------------------------------------
+def free_card(what: str) -> None:
+    """Drop what nothing refers to, hand the allocator's free blocks back
+    and print the card's memory still allocated and reserved."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[design] {what}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
+def design_search(cfg, n_requests: int) -> tuple:
+    """``search`` on the card's SMs for ``n_requests`` x batch 2, 512 +
+    64: the visited thetas and their SMs, the chosen theta, its planned
+    makespan; no green context made while it runs."""
+    from repro_torch.dualmesh.partition import card_split
+    from repro_torch.dualmesh.schedule import request_stages
+    from repro_torch.dualmesh.search import card_memory, card_model, search
+    from repro_torch.kernels import green
+    hw = card_model(DEV)
+    stages = request_stages(cfg, [(LM_BATCH, LM_PROMPT, LM_GEN)])
+    before = len(green._SPLITS)
+    t0 = time.perf_counter()
+    res = search(stages, cfg, hw=hw, max_evals=DESIGN_EVALS,
+                 n_streams=n_requests)
+    host_s = time.perf_counter() - t0
+    if len(green._SPLITS) != before:
+        raise AssertionError(f"the search made {len(green._SPLITS) - before}"
+                             f" green context(s)")
+    mem = card_memory(stages, cfg, hw)
+    visits = [(t, card_split(t, res.sms).c_sms) for t in res.visited]
+    print(f"[design] {cfg.name}: search on the card's {res.sms} SMs, "
+          f"{n_requests} x batch {LM_BATCH}, {LM_PROMPT} + {LM_GEN}, "
+          f"{DESIGN_EVALS} evaluations at most, {host_s * 1e3:.1f} ms of "
+          f"host, no green context made: visited "
+          + ", ".join(f"{t:.4f} (c {c})" for t, c in visits)
+          + f"; chose theta {res.theta:.4f} (c {res.dual.c_sms} SMs, p "
+          f"{res.dual.p_sms}), planned makespan {res.makespan * 1e3:.1f} "
+          f"ms, {res.tokens_per_s:.0f} tokens/s; memory check: weights "
+          f"{mem['weights'] / 1e9:.2f} GB + both cores' KV "
+          f"{mem['kv'] / 1e9:.3f} GB against 0.75 x "
+          f"{hw.mem_bytes / 1e9:.2f} GB, margin {mem['margin'] / 1e9:.3f} "
+          f"GB{' (nothing fits: relaxed)' if res.relaxed else ''}")
+    return res, dict(visited=[list(v) for v in visits], theta=res.theta,
+                     c_sms=res.dual.c_sms, p_sms=res.dual.p_sms,
+                     makespan_ms=res.makespan * 1e3,
+                     tokens_per_s=res.tokens_per_s, host_s=host_s,
+                     relaxed=res.relaxed, memory=mem,
+                     mem_bytes=hw.mem_bytes)
+
+
+def warm_runner(runner, cfg, n: int, gs: int) -> None:
+    """Warm ``runner`` for ``n`` requests fused ``gs`` a group: one short
+    prefill through the engine, then a captured decode lane of every
+    width the groups take, so the timed run captures nothing."""
+    from repro_torch.dualmesh.runtime import random_prompts
+    warm = random_prompts(cfg, 1, LM_BATCH, WARM_PROMPT, seed=3, device=DEV)
+    runner.serve(warm, gen_steps=2, group_size=1)
+    widths = sorted({LM_BATCH * min(gs, n - i) for i in range(0, n, gs)})
+    capture_decode_lanes(runner, widths, 1)
+
+
+def design_walls(cfg) -> dict:
+    """9(a): the search on the card's SMs for the LM path's traffic, then
+    Qwen2-0.5B served at the searched theta and at 0.5 in turns."""
+    from repro_torch.dualmesh.cost import CardModel
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+    from repro_torch.dualmesh.schedule import plan_admission
+    from repro_torch.lm.model import load_params
+    res, doc = design_search(cfg, LM_REQUESTS)
+    params = load_params(cfg, 0, DEV)
+    prompts = random_prompts(cfg, LM_REQUESTS, LM_BATCH, LM_PROMPT, seed=1,
+                             device=DEV)
+    gens = [LM_GEN] * LM_REQUESTS
+    runs = {}
+    for name, theta in (("the searched theta", res.theta),
+                        ("theta 0.5", SPLIT_THETA)):
+        r = DualMeshRunner(cfg, params, split_streams(DEV, theta),
+                           max_len=LM_MAX_LEN)
+        gs = r.planned_group_size(prompts, gens)
+        plan = plan_admission(cfg, r.dual, CardModel(), LM_BATCH, LM_PROMPT,
+                              LM_GEN, LM_REQUESTS)
+        warm_runner(r, cfg, LM_REQUESTS, gs)
+        runs[name] = dict(runner=r, gs=gs, walls=[], tokens_per_s=[],
+                          theta=r.dual.theta,
+                          makespan_ms=plan.est_makespan * 1e3,
+                          sms=(r.dual.cores.sms("c"), r.dual.cores.sms("p")))
+    tokens = None
+    for _ in range(DESIGN_TURNS):
+        for name, run in runs.items():
+            out, launches, _ = served_run(run["runner"], prompts, run["gs"])
+            check_lm_run(f"design {name}", cfg, out, launches, prompts)
+            run["walls"].append(out.stats["wall_s"])
+            run["tokens_per_s"].append(out.stats["tokens_per_s"])
+            if tokens is None:
+                tokens = out.outputs
+            elif not all(torch.equal(a, b)
+                         for a, b in zip(tokens, out.outputs)):
+                raise AssertionError(f"design: {name} generated other "
+                                     f"tokens")
+    for name, run in runs.items():
+        print(f"[design] {cfg.name} at {name} ({run['theta']:.4f} "
+              f"realised: c {run['sms'][0]} SMs, p {run['sms'][1]}; group "
+              f"size {run['gs']}): walls "
+              + ", ".join(f"{w * 1e3:.2f}" for w in run["walls"])
+              + f" ms (in turns), {max(run['tokens_per_s']):.1f} tokens/s "
+              f"at best; the plan's makespan {run['makespan_ms']:.1f} ms")
+        del run["runner"]
+    print("[design] tokens equal at both thetas; the walls are reported, "
+          "no ranking is claimed")
+    return dict(search=doc, runs=runs)
+
+
+def events_ms(fn, reps: int = 2) -> float:
+    """Device ms of one ``fn()`` call: CUDA events around single calls, the
+    least of ``reps`` after one untimed call.  For calls of more launches
+    than the launch queue holds (a 48-layer forward), where
+    ``cuda_time_ms`` cannot keep the host ahead under a sleep; the host's
+    enqueue then stays inside the window wherever it is the slower."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def served_model(cfg, params, theta: float, n: int, tag: str) -> dict:
+    """``cfg`` served at full depth through ``DualMeshEngine`` on the split
+    at ``theta``: ``n`` x batch 2, 512 + 64; launches as the plan says;
+    tokens on two streams equal to one stream's; tokens/s, p50/p95, the
+    stages' stream ms, a decode step's graph replayed on the p-core with
+    the host held out, a prefill forward on the whole card, and the cost
+    model's beside them."""
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+    from repro_torch.kernels.util import cuda_time_ms
+    from repro_torch.lm.model import decode_step, init_cache
+    prompts = random_prompts(cfg, n, LM_BATCH, LM_PROMPT, seed=1,
+                             device=DEV)
+    gens = [LM_GEN] * n
+    mid = LM_PROMPT + LM_GEN // 2
+    outs, walls, peak = {}, {}, {}
+    gs = None
+    for name, one in (("two", False), ("one", True)):
+        r = DualMeshRunner(cfg, params,
+                           split_streams(DEV, theta, one_stream=one),
+                           max_len=LM_MAX_LEN)
+        # the split's plan; one stream fuses the same groups
+        gs = gs or r.planned_group_size(prompts, gens)
+        torch.cuda.reset_peak_memory_stats()
+        warm_runner(r, cfg, n, gs)
+        mem = torch.cuda.memory_allocated()
+        res, launches, sms = served_run(r, prompts, gs)
+        peak[name] = torch.cuda.max_memory_allocated()
+        run_steps = check_lm_run(f"{tag} {name}", cfg, res, launches,
+                                 prompts)
+        outs[name] = res.outputs
+        walls[name] = res.stats["wall_s"]
+        for (kind, core, host_s), d in zip(res.trace, sms):
+            print(f"[design]   {tag} {name}: {kind:<8} on {core}  host "
+                  f"{host_s * 1e3:9.2f} ms  on its stream {d:9.2f} ms")
+        if name == "two":
+            main, main_launches, stream_ms, dual = res, launches, sms, r.dual
+            steps, lanes = run_steps, r.lanes.count
+            rows_dec = LM_BATCH * res.stats["fused_sizes"][0]
+            graph_ms = {}
+            for rows in sorted({LM_BATCH * g
+                                for g in res.stats["fused_sizes"]}):
+                lane = r.lanes.lanes[rows, LM_MAX_LEN][0]
+
+                def replay_step():
+                    lane.pos.fill_(mid)      # every replay at mid position
+                    lane.graph.replay()
+
+                graph_ms[rows] = cuda_time_ms(replay_step, reps=4)
+            graph_step = graph_ms[rows_dec]
+            del lane
+        r.dual.cores.synchronize()
+        del r
+        gc.collect()
+    for i, (a, b) in enumerate(zip(outs["two"], outs["one"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} request {i}: two streams and one "
+                                 f"generated different tokens")
+    del outs
+    s, m = main.stats, main.metrics
+    prefill_ms = [d for (kind, _, _), d in zip(main.trace, stream_ms)
+                  if kind == "prefill"]
+    decode_ms = sum(d for (kind, _, _), d in zip(main.trace, stream_ms)
+                    if kind == "decode") / steps
+    free_card(f"{tag} served")
+    ptok = torch.zeros((LM_BATCH, LM_PROMPT), dtype=torch.int64, device=DEV)
+    pcache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, DEV)
+    dev_prefill = events_ms(lambda: decode_step(params, cfg, ptok, pcache,
+                                                last_only=True))
+    del pcache
+    model = step_model(cfg, dual, rows_dec)
+    print(f"[design] {cfg.name}: {n} requests x batch {LM_BATCH}, prompt "
+          f"{LM_PROMPT}, {LM_GEN} generated, on c {dual.cores.sms('c')} "
+          f"SMs and p {dual.cores.sms('p')} (theta {dual.theta:.4f}): "
+          f"{s['wall_s'] * 1e3:.1f} ms, {s['tokens_per_s']:.1f} tokens/s "
+          f"({s['total_tokens']} tokens), p50 {m.p50_ms():.1f} ms, p95 "
+          f"{m.p95_ms():.1f} ms; fused sizes {s['fused_sizes']}; one "
+          f"stream {walls['one'] * 1e3:.1f} ms, the same tokens; launches "
+          f"{main_launches} (a forward step K6 {2 * cfg.n_layers + 1}, K7 "
+          f"{cfg.n_layers}: the plan's); {lanes} decode lane(s), "
+          f"{mem / 1e9:.2f} GB allocated before the run, at most "
+          f"{peak['two'] / 1e9:.2f} GB in it (one stream "
+          f"{peak['one'] / 1e9:.2f})")
+    print(f"[design] {cfg.name}: a prefill (2 x {LM_PROMPT}) "
+          f"{sum(prefill_ms) / len(prefill_ms):.1f} ms on the c-core's "
+          f"stream (the run's mean), {dev_prefill:.1f} ms on the whole "
+          f"card (events around one call), modelled "
+          f"{model['prefill_ms']:.1f} ms ({model['prefill_bound']}); a "
+          f"decode step of {rows_dec} rows at cache {mid} {decode_ms:.2f} "
+          f"ms on the p-core's stream (the run's mean), one graph replay on "
+          f"the p-core with the host held out "
+          + ", ".join(f"{v:.2f} ms at {k} rows" for k, v in graph_ms.items())
+          + f", modelled "
+          f"{model['latency_ms']:.2f} ms ({model['bound']}; f32 bytes "
+          f"{model['bytes_ms']:.2f} ms, compute {model['compute_ms']:.2f} "
+          f"ms, step floor {model['floor_ms']:.2f} ms)")
+    return dict(model=cfg.name, theta=dual.theta,
+                sms=[dual.cores.sms("c"), dual.cores.sms("p")],
+                launches=main_launches, fused_sizes=s["fused_sizes"],
+                wall_s=s["wall_s"], one_stream_wall_s=walls["one"],
+                tokens_per_s=s["tokens_per_s"], p50_ms=m.p50_ms(),
+                p95_ms=m.p95_ms(), prefill_stream_ms=prefill_ms,
+                decode_stream_ms_per_step=decode_ms,
+                device_ms_prefill=dev_prefill, graph_ms_per_step=graph_step,
+                graph_ms_by_rows=graph_ms,
+                step_model=model, allocated_before_run=mem,
+                peak_allocated=peak, rows=rows_dec,
+                group_size=main.stats["fused_sizes"][0])
+
+
+def path_kernels(cfg, rows_dec: int, gen) -> dict:
+    """K6 and K7 at the served path's shapes of ``cfg`` (decode at the mid
+    of the served cache lengths), each held against its plain version and
+    timed, summed over one request: its prefill forward and its share of
+    its group's 63 decode steps."""
+    L, d = cfg.n_layers, cfg.d_model
+    size = rows_dec // LM_BATCH
+    mid = LM_PROMPT + LM_GEN // 2
+    geo = dict(d=cfg.d_head, hq=cfg.n_heads, hkv=cfg.n_kv_heads)
+    steps = LM_GEN - 1
+    calls = [(_k6(LM_BATCH * LM_PROMPT, d), 2 * L), (_k6(LM_BATCH, d), 1),
+             (_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN, **geo), L),
+             (_k6(rows_dec, d), (2 * L + 1) * steps / size),
+             (_decode(rows_dec, LM_MAX_LEN, LM_MAX_LEN,
+                      kv_len=[mid] * rows_dec, **geo), L * steps / size)]
+    rows = {json.dumps(c, sort_keys=True): check_and_time(c, gen, True)
+            for c, _ in calls}
+    out = weighted_sums(rows, calls)
+    for name, v in out.items():
+        b_ms, b_by = bound_ms(v["bytes"], v["flops"], v["tc_flops"])
+        v.update(bound_ms=b_ms, bound_by=b_by)
+        print(f"[design] {cfg.name}: {name} calls a request {v['calls']:g},"
+              f" ms {v['ms']:.4f}, bound {b_ms:.5f} ({b_by}), plain "
+              f"{v['plain_ms']:.4f}, library {v['library_ms']:.4f}, err "
+              f"{v['max_abs_err']:.1e} (decode at cache {mid})")
+    return out
+
+
+def full_depth(name: str, n: int, gen) -> dict:
+    """9(b)/(c): ``name`` at full depth: the search on the card's SMs and
+    its memory check, the weights drawn straight to the card, served at
+    the searched theta, and K6 and K7 at its path's shapes."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.lm.model import load_params
+    cfg = get_arch(name)
+    free_card(f"before {name}")
+    res, doc = design_search(cfg, n)
+    t0 = time.perf_counter()
+    params = load_params(cfg, 0, DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    print(f"[design] {name}: {cfg.param_count() / 1e9:.3f} B parameters "
+          f"({4 * cfg.param_count() / 1e9:.2f} GB f32) drawn from seed 0 "
+          f"straight to the card in {draw_s:.1f} s of host; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    served = served_model(cfg, params, res.theta, n, name)
+    mem, peak = doc["memory"], max(served["peak_allocated"].values())
+    print(f"[design] {name}: the search's memory check counts "
+          f"{(mem['weights'] + mem['kv']) / 1e9:.2f} GB against its limit "
+          f"{mem['limit'] / 1e9:.2f} GB; the run peaked at {peak / 1e9:.2f} "
+          f"GB allocated, {(peak - mem['limit']) / 1e9:+.2f} GB beside that "
+          f"limit (the check leaves out the requests in flight, the decode "
+          f"lanes and the prefill logits)")
+    kernels = path_kernels(cfg, served["rows"], gen)
+    del params
+    free_card(f"after {name}")
+    return dict(search=doc, draw_s=draw_s, served=served, kernels=kernels,
+                peak_over_check_limit=peak - mem["limit"])
+
+
+def moe_card_vs_cpu(name: str) -> dict:
+    """9(c): ``name`` at full width cut to ``MOE_LAYERS`` layers: the
+    16-token prompt's prefill, chunk and 3 decode steps (the dense branch)
+    and one 2 x 512 prefill (the scatter branch) on the card against the
+    CPU's plain versions."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.runtime import random_prompts
+    from repro_torch.lm.model import (decode_step, init_cache, init_params,
+                                      params_from_numpy)
+    full = get_arch(name)
+    cfg = full.scaled(name=f"{name}_{MOE_LAYERS}l", n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    host = init_params(cfg, seed=0)
+    params = params_from_numpy(host, DEV)
+    draw_s = time.perf_counter() - t0
+    reset_counts()
+    err = lm_card_vs_cpu(cfg, params, host)
+    launches = launch_counts()
+    if launches["decode_attention"] != 3 * cfg.n_layers:
+        raise AssertionError(f"{name}: K7 decode launched "
+                             f"{launches['decode_attention']} times, not "
+                             f"{3 * cfg.n_layers}")
+    tokens = random_prompts(cfg, 1, LM_BATCH, LM_PROMPT, seed=4)[0]
+    if LM_BATCH * LM_PROMPT <= cfg.moe_dense_threshold:
+        raise AssertionError("the long prefill would not scatter")
+    cpu = params_from_numpy(host, "cpu")
+    want, _ = decode_step(cpu, cfg, tokens,
+                          init_cache(cfg, LM_BATCH, LM_PROMPT, "cpu"),
+                          last_only=True)
+    got, _ = decode_step(params, cfg, tokens.to(DEV),
+                         init_cache(cfg, LM_BATCH, LM_PROMPT, DEV),
+                         last_only=True)
+    got = got.cpu()
+    scatter_err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=FORWARD_TOL, atol=FORWARD_TOL):
+        raise AssertionError(f"{name}: the scatter prefill's logits differ "
+                             f"by {scatter_err:.3e}")
+    print(f"[design] {name} cut to {cfg.n_layers} of {full.n_layers} "
+          f"layers: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"(G {cfg.n_heads // cfg.n_kv_heads}, D {cfg.d_head}), "
+          f"{cfg.moe_experts} experts top {cfg.moe_top_k} + "
+          f"{cfg.moe_shared} shared; {cfg.param_count() / 1e9:.3f} B "
+          f"parameters from seed 0 in {draw_s:.1f} s; card against CPU "
+          f"plain versions: 16-token prompt (dense branch) max |logit err| "
+          f"{err:.2e}, one {LM_BATCH} x {LM_PROMPT} prefill (the scatter "
+          f"branch, t {LM_BATCH * LM_PROMPT} > "
+          f"{cfg.moe_dense_threshold}) {scatter_err:.2e} (tol "
+          f"{FORWARD_TOL}); launches {launches}")
+    return dict(model=name, layers=cfg.n_layers, draw_s=draw_s,
+                card_vs_cpu_max_abs_err=err, scatter_max_abs_err=scatter_err,
+                launches=launches)
+
+
+def design_path() -> dict:
+    """Phase 9: (a) the design flow on the card's SMs for the LM path;
+    (b) Qwen2.5-14B at full depth; (c) Qwen-MoE at full depth and both
+    MoE configs at 2 layers of full width against the CPU.  Launches are
+    counted per run and printed apart from the kernels line."""
+    from repro_torch.configs.registry import get_arch
+    t0 = time.perf_counter()
+    free_card("before phase 9 (green contexts stay)")
+    gen = np.random.default_rng(9)
+    a = design_walls(get_arch(LM_ARCH))
+    b = full_depth(BIG_ARCH, BIG_REQUESTS, gen)
+    c = dict(served=full_depth(MOE_ARCH, LM_REQUESTS, gen),
+             cut=[moe_card_vs_cpu(name) for name in MOE_ARCHS])
+    print(f"[design] {time.perf_counter() - t0:.1f} s")
+    return dict(search=a, big=b, moe=c)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2874,11 +3305,11 @@ def main() -> int:
     for c in lm_geometry_calls():
         r = geometry[json.dumps(c, sort_keys=True)] = check_and_time(
             c, gen, timing=True)
+        plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
         print(f"[kernels] geometry {r['kernel']:<16} {_shape_str(c):<40} ms "
               f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library "
               f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']})  err {r['max_abs_err']:.1e}  plan "
-              f"{plan_str(r['plan'])}")
+              f"({r['bound_by']})  err {r['max_abs_err']:.1e}{plan}")
     former = {}
     for c in lm_decode_calls(LM_BATCH * max(lm_group_sizes()), whole=False):
         former[json.dumps(c, sort_keys=True)] = check_and_time(c, gen,
@@ -2928,7 +3359,11 @@ def main() -> int:
         del p["io"], p["runner"]
     del lm_keep
 
-    # 9. report -----------------------------------------------------------
+    # 9. design -----------------------------------------------------------
+    design = design_path()
+    mark("9")
+
+    # 10. report ----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -2951,7 +3386,7 @@ def main() -> int:
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
         former_decode_rows=list(former.values()),
         paths=paths, granite=granite, split=split, workers=workers,
-        control=control, phase_s=phase_s, kernels=kernels),
+        control=control, design=design, phase_s=phase_s, kernels=kernels),
         indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")

@@ -1,18 +1,19 @@
 """Registry of the architectures the port can run.
 
 Port of ``repro/configs/registry.py``.  The reference registers ten LM
-architectures; the port lists only those whose blocks it has: the four
-dense transformers.  Granite-20B (113 GB of f32 weights) and Command R+
-(428 GB) do not fit one 80 GB card at full depth; they are registered for
-their configs and their smoke widths.  Asking for any other raises ``KeyError`` naming the
-ones the port has.
+architectures; the port lists those whose blocks it has: the four dense
+transformers and the two MoE transformers.  Granite-20B (113 GB of f32
+weights) and Command R+ (428 GB) do not fit one 80 GB card at full depth;
+they are registered for their configs and their smoke widths.  Asking
+for an SSM, hybrid, encoder-decoder or M-RoPE architecture raises
+``KeyError`` naming the ones the port has.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ("qwen2_0_5b", "qwen2_5_14b", "granite_20b",
-            "command_r_plus_104b")
+            "command_r_plus_104b", "qwen2_moe_a2_7b", "granite_moe_3b_a800m")
 
 CNN_IDS = ("mobilenet_v1", "mobilenet_v2", "squeezenet")
 

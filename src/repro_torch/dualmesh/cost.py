@@ -72,6 +72,12 @@ class CardModel:
     # 68).  The step floor stands for that step's time and scales with it.
     flops_share_exp: float = 0.772
     bw_share_exp: float = 0.288
+    # H100 SXM data sheet: 80 GB of HBM3 and 132 SMs.  A plan for the card
+    # in hand takes the card's own (``dualmesh.search.card_model``:
+    # ``torch.cuda.get_device_properties``' ``total_memory`` and
+    # ``multi_processor_count``)
+    mem_bytes: int = 80 * 10 ** 9
+    sm_count: int = 132
 
     def share(self, fraction: float) -> "CardModel":
         """The card as a core holding ``fraction`` of its SMs sees it: the

@@ -13,6 +13,12 @@ reference prices each submesh by its chips.
 ``sm_split=False`` gives two plain streams on every SM, the baseline.  On
 the CPU both cores alias one queue, like the reference's degenerate
 single-device split.
+
+The design-flow search (``dualmesh/search.py``) prices splits it never
+makes: :class:`SplitPlan` has the fields the planner reads and no
+streams.  :func:`abstract_split` is the reference's pod of abstract chips
+with a TP width a side; :func:`card_split` is the card's SMs split as
+:func:`split_streams` would split them, counted only (no green context).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import dataclasses
 import torch
 
 from repro_torch.dualcore.runtime import DualCores
+from repro_torch.kernels.green import split_count
 from repro_torch.kernels.util import resolve_device
 
 
@@ -67,3 +74,48 @@ def split_streams(device: str | torch.device = "cuda", theta: float = 0.5,
     return DualStreams(cores=cores, theta=cores.theta,
                        c_share=cores.sms("c") / total,
                        p_share=cores.sms("p") / total)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """A c/p split as the planner prices it, with nothing to run on: the
+    realised c-share, chips and TP width a side, each core's share of the
+    card's SMs, and on a card plan each core's SM count."""
+
+    theta: float
+    c_chips: int = 1
+    p_chips: int = 1
+    tp_c: int = 1
+    tp_p: int = 1
+    c_share: float = 1.0
+    p_share: float = 1.0
+    c_sms: int | None = None
+    p_sms: int | None = None
+
+
+def abstract_split(n_devices: int, theta: float, tp_c: int = 16,
+                   tp_p: int = 4) -> SplitPlan:
+    """The reference's plan-time split of ``n_devices`` abstract chips:
+    ``n_c = min(n-1, max(1, round(theta*n)))`` chips for the c-side, each
+    side's TP width the largest divisor of its chips up to ``tp_c`` /
+    ``tp_p``; each side prices a whole chip (share 1)."""
+    n_c = min(n_devices - 1, max(1, round(theta * n_devices)))
+    n_p = n_devices - n_c
+    tc = max(1, min(tp_c, n_c))
+    while n_c % tc:
+        tc -= 1
+    tp_ = max(1, min(tp_p, n_p))
+    while n_p % tp_:
+        tp_ -= 1
+    return SplitPlan(theta=n_c / n_devices, c_chips=n_c, p_chips=n_p,
+                     tp_c=tc, tp_p=tp_)
+
+
+def card_split(theta: float, sms: int) -> SplitPlan:
+    """The split of a card of ``sms`` SMs that :func:`split_streams` makes
+    at ``theta`` (``split_count``'s c-core SMs, the rest for the p-core),
+    counted only: one chip and TP 1 a core, each priced at its share of
+    the SMs, as ``split_streams`` records it."""
+    n_c = split_count(theta, sms)
+    return SplitPlan(theta=n_c / sms, c_share=n_c / sms,
+                     p_share=(sms - n_c) / sms, c_sms=n_c, p_sms=sms - n_c)

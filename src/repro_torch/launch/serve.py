@@ -3,21 +3,25 @@
 Port of the ``lm`` and ``cnn`` subcommands of ``repro/launch/serve.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch qwen2_0_5b \\
-      --requests 8 --batch 2 --prompt-len 512 --gen 64 [--theta 0.5] \\
+      --requests 8 --batch 2 --prompt-len 512 --gen 64 [--smoke] \\
+      [--theta 0.5 | --search [--plan-chips N]] \\
       [--group-size G] [--prefill-chunk C] [--streams N] \\
       [--arrival-rate 1.0] [--max-queue 64] [--device cuda]
 
-serves the published configuration with seeded random weights through a
-``DualMeshEngine``: chunked prefills on the c-core, fused decode groups on
-the p-core, the two cores two green contexts on disjoint SMs of the card
-split at ``--theta``; every RMSNorm launches K6 and every attention K7.
+serves the published configuration (``--smoke``: the reduced one) with
+seeded random weights through a ``DualMeshEngine``: chunked prefills on
+the c-core, fused decode groups on the p-core, the two cores two green
+contexts on disjoint SMs of the card split at ``--theta``; every RMSNorm
+launches K6 and every attention K7.  With ``--search`` the §V-B design
+flow picks theta first: a branch and bound over the card's SMs
+(``dualmesh/search.py``; with ``--plan-chips N`` over N abstract cards,
+as the reference plans), and the design-flow line prints the theta, both
+cores' SMs, the planned makespan and tokens/s and which plan it was.
 Prints the admission plan (the card cost model's group size and its
 projected makespan and tokens/s, each core priced at its share of the
 card's SMs), tokens per second, p50/p95 request latency, the fused
 decode batch sizes, and the per-stage c/p trace with each stage's host
 enqueue time and its time on the core's stream (idle gaps included).
-The reference's ``--search``, ``--plan-chips`` and ``--smoke`` are not
-ported.
 
 The ``cnn`` subcommand serves all three of the paper's models:
 
@@ -86,15 +90,15 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import ARCH_IDS, get_arch
+from repro_torch.configs.registry import ARCH_IDS, get_arch, get_smoke
 from repro_torch.core.arch import DUAL_BASELINE, BoardModel
 from repro_torch.core.scheduler import best_schedule, build_schedule
 from repro_torch.core.simulator import simulate_dual_core
 from repro_torch.dualcore.runtime import DualCoreRunner
-from repro_torch.dualmesh.cost import CardModel
 from repro_torch.dualmesh.partition import split_streams
 from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
-from repro_torch.dualmesh.schedule import plan_admission
+from repro_torch.dualmesh.schedule import plan_admission, request_stages
+from repro_torch.dualmesh.search import card_model, search
 from repro_torch.fleet import (POLICY_NAMES, ControlLoop, FaultInjector,
                                FaultPlan, FileTransport, FleetEngine,
                                MultiPoolRouter, RecoveryConfig,
@@ -105,7 +109,7 @@ from repro_torch.fleet import (POLICY_NAMES, ControlLoop, FaultInjector,
 from repro_torch.fleet.trace import (host_enqueue_ms, roofline_model,
                                      write_chrome_trace)
 from repro_torch.kernels.util import resolve_device, timed_build
-from repro_torch.lm.model import init_params, params_from_numpy
+from repro_torch.lm.model import load_params
 from repro_torch.models.cnn import build_model
 from repro_torch.obs import write_metrics
 from repro_torch.serving.api import (QueueFull, Request, ShedPolicy,
@@ -135,15 +139,42 @@ def _arrivals(n: int, rate: float) -> list[int]:
 
 def serve_lm(args) -> int:
     """``lm`` subcommand: dual-core continuous batching."""
+    if args.plan_chips is not None and (not args.search
+                                        or args.plan_chips < 2):
+        _fail("--plan-chips N takes --search and N >= 2")
     dev = resolve_device(args.device)
-    cfg = get_arch(args.arch)
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # full f32, as XLA
         print(f"[serve] kernels built and loaded in {timed_build():.1f} s")
     n = args.requests
     n_streams = args.streams or n
-    dual = split_streams(dev, args.theta)
-    plan = plan_admission(cfg, dual, CardModel(), args.batch,
+    theta = args.theta
+    res = None
+    hw = card_model(dev)
+    if args.search:
+        stages = request_stages(cfg, [(args.batch, args.prompt_len,
+                                       args.gen)])
+        res = search(stages, cfg, n_devices=args.plan_chips, hw=hw,
+                     max_evals=10, n_streams=n_streams)
+        theta = res.theta
+    dual = split_streams(dev, theta)
+    if res is not None:
+        split = res.dual
+        card = "the card" if dev.type == "cuda" else "a modelled H100"
+        where = (f"on {args.plan_chips} abstract cards (c {split.c_chips}, "
+                 f"p {split.p_chips} chips)" if args.plan_chips else
+                 f"on {card}'s {res.sms} SMs (c {split.c_sms}, p "
+                 f"{split.p_sms})")
+        served = (f"c {dual.cores.sms('c')} SMs, p {dual.cores.sms('p')}"
+                  if dual.cores.sm_split else dual.cores.describe())
+        print(f"[serve] design flow: theta={theta:.4f} tp=({res.tp_c},"
+              f"{res.tp_p}) n_streams={n_streams} planned makespan="
+              f"{res.makespan * 1e3:.1f} ms tokens/s={res.tokens_per_s:.0f}"
+              f" {where}{' (nothing fits: relaxed)' if res.relaxed else ''}"
+              f"; visited {', '.join(f'{t:.4f}' for t in res.visited)}; "
+              f"served at theta {dual.theta:.4f}: {served}")
+    plan = plan_admission(cfg, dual, hw, args.batch,
                           args.prompt_len, args.gen, n_streams,
                           max_group=args.group_size)
     group_size = args.group_size or plan.group_size
@@ -152,7 +183,7 @@ def serve_lm(args) -> int:
           f"tok/s on the card cost model, the c-core priced at "
           f"{dual.c_share:.4f} of the card and the p-core at "
           f"{dual.p_share:.4f})")
-    params = params_from_numpy(init_params(cfg, seed=0), dev)
+    params = load_params(cfg, seed=0, device=dev)
     runner = DualMeshRunner(cfg, params, dual,
                             max_len=args.prompt_len + args.gen + 8)
     prompts = random_prompts(cfg, n, args.batch, args.prompt_len, seed=1,
@@ -620,6 +651,8 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
     lm = sub.add_parser("lm", help="dual-core LM continuous batching")
     lm.add_argument("--arch", choices=ARCH_IDS, required=True)
+    lm.add_argument("--smoke", action="store_true",
+                    help="the reduced configuration (get_smoke)")
     lm.add_argument("--requests", type=int, default=2,
                     help="number of requests to serve (>= 1)")
     lm.add_argument("--batch", type=int, default=2)
@@ -631,6 +664,12 @@ def main(argv=None):
     lm.add_argument("--prompt-len", type=int, default=16)
     lm.add_argument("--gen", type=int, default=8)
     lm.add_argument("--theta", type=float, default=0.5)
+    lm.add_argument("--search", action="store_true",
+                    help="run the design-flow search for theta first "
+                         "(on the card's SMs)")
+    lm.add_argument("--plan-chips", type=int, default=None, metavar="N",
+                    help="with --search: plan on N abstract cards, as the "
+                         "reference does, instead of the card's SMs")
     lm.add_argument("--streams", type=int, default=None,
                     help="concurrent streams the planner optimizes for "
                          "(default: --requests)")

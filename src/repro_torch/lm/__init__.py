@@ -1,2 +1,3 @@
-"""Port of ``repro.lm``: the dense-transformer part (config, modules,
-model); MoE, SSM, hybrid and encoder-decoder blocks are not ported yet."""
+"""Port of ``repro.lm``: the dense and MoE transformers (config, modules,
+model); SSM, hybrid, encoder-decoder and M-RoPE blocks are not ported
+yet."""

@@ -1,17 +1,26 @@
-"""Model assembly for the dense transformer.
+"""Model assembly for the dense and MoE transformers.
 
 Port of the transformer branch of ``repro/lm/model.py``: ``init_params``
 (seeded, from numpy), ``params_from_numpy``, ``forward`` and the decode
-path (``DecodeCache``, ``init_cache``, ``decode_step``).  Parameters keep
-the reference's stacked pytree (a leading L axis on every block leaf), so
-the reference's own parameters carry over as numpy.  The reference's
-layer scan and rematerialisation become a Python loop over the layers.
+path (``DecodeCache``, ``init_cache``, ``decode_step``), for the dense
+family and the MoE family (``lm/modules.py``'s ``moe_block`` in place of
+the SwiGLU MLP).  Parameters keep the reference's stacked pytree (a
+leading L axis on every block leaf), so the reference's own parameters
+carry over as numpy.  The reference's layer scan and rematerialisation
+become a Python loop over the layers.  ``load_params`` puts the same
+parameters as ``params_from_numpy(init_params(...))`` on a device a chunk
+at a time, for models whose weights the host should not hold at once.
 
-Any other block type or family (MoE, SSM, hybrid, encoder-decoder,
-M-RoPE) raises ``NotImplementedError``: it is ROADMAP queue 1 item 6.4.
+SSM, hybrid, encoder-decoder and M-RoPE blocks raise
+``NotImplementedError``: they are ROADMAP queue 1 item 6.4.
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import itertools
+import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -21,55 +30,142 @@ from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.util import resolve_device
 from repro_torch.lm.config import ArchConfig
 from repro_torch.lm.modules import (KVCache, decode_position, gqa_attention,
-                                    rope_freqs, swiglu_mlp)
+                                    moe_block, rope_freqs, swiglu_mlp)
 
 INIT_SCALE = 0.02
+#: elements of one seeded draw: chunk j of the i-th normal leaf (flat) is
+#: drawn from its own stream, ``default_rng([seed, i, j])``, so chunks are
+#: drawn on several host threads and the values do not depend on how many
+DRAW_CHUNK = 1 << 22
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the port can run ``cfg``."""
-    if (cfg.block_type != "transformer" or cfg.family != "dense"
+    if (cfg.block_type != "transformer"
+            or cfg.family not in ("dense", "moe")
             or cfg.encoder_decoder or cfg.attn_every or cfg.mrope):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, block {cfg.block_type!r} "
-            f"is not in the port yet; only the dense transformer is "
-            f"(MoE, SSM, hybrid, encoder-decoder and M-RoPE are ROADMAP "
-            f"queue 1 item 6.4)")
+            f"is not in the port yet; the dense and MoE transformers are "
+            f"(SSM, hybrid, encoder-decoder and M-RoPE are ROADMAP queue 1 "
+            f"item 6.4)")
 
 
 # ==========================================================================
 # Parameters
 # ==========================================================================
-def init_params(cfg: ArchConfig, seed: int = 0) -> dict:
-    """Seeded parameters as numpy float32, in the reference's shapes:
-    normal(0, INIT_SCALE) matrices, unit norm scales, zero QKV biases, and
-    a separate ``lm_head`` (d_model, padded_vocab) as the reference keeps
-    even for tied configs.  Block leaves carry a leading L axis."""
-    check_supported(cfg)
-    rng = np.random.default_rng(seed)
-    L, d = cfg.n_layers, cfg.d_model
-
-    def dense(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) \
-            * np.float32(INIT_SCALE)
-
-    attn = {"wq": dense(L, d, cfg.q_dim), "wk": dense(L, d, cfg.kv_dim),
-            "wv": dense(L, d, cfg.kv_dim), "wo": dense(L, cfg.q_dim, d)}
+def _leaf_specs(cfg: ArchConfig) -> list[tuple[tuple[str, ...],
+                                               tuple[int, ...], str]]:
+    """(path, shape, init) of every parameter leaf, in tree order: the
+    reference's leaves and shapes (its ``_moe_params`` for the MoE family,
+    the shared experts with a leading s axis), block leaves with a leading
+    L axis, and a separate ``lm_head`` (d_model, padded_vocab) as the
+    reference keeps even for tied configs."""
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    specs = [(("embed",), (cfg.vocab, d), "normal"),
+             (("final_norm",), (d,), "ones"),
+             (("blocks", "ln1"), (L, d), "ones"),
+             (("blocks", "ln2"), (L, d), "ones")]
+    attn = [("wq", (L, d, cfg.q_dim)), ("wk", (L, d, cfg.kv_dim)),
+            ("wv", (L, d, cfg.kv_dim)), ("wo", (L, cfg.q_dim, d))]
+    specs += [(("blocks", "attn", k), shape, "normal") for k, shape in attn]
     if cfg.qkv_bias:
-        attn["bq"] = np.zeros((L, cfg.q_dim), np.float32)
-        attn["bk"] = np.zeros((L, cfg.kv_dim), np.float32)
-        attn["bv"] = np.zeros((L, cfg.kv_dim), np.float32)
-    return {
-        "embed": dense(cfg.vocab, d),
-        "final_norm": np.ones((d,), np.float32),
-        "blocks": {"ln1": np.ones((L, d), np.float32),
-                   "ln2": np.ones((L, d), np.float32),
-                   "attn": attn,
-                   "mlp": {"wg": dense(L, d, cfg.d_ff),
-                           "wu": dense(L, d, cfg.d_ff),
-                           "wd": dense(L, cfg.d_ff, d)}},
-        "lm_head": dense(d, cfg.padded_vocab),
-    }
+        specs += [(("blocks", "attn", k), (L, n), "zeros")
+                  for k, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                               ("bv", cfg.kv_dim))]
+    mlp = ("blocks", "mlp")
+    if cfg.family == "moe":
+        e, sh = cfg.moe_experts, cfg.moe_shared
+        specs += [(mlp + ("router",), (L, d, e), "normal"),
+                  (mlp + ("wg",), (L, e, d, f), "normal"),
+                  (mlp + ("wu",), (L, e, d, f), "normal"),
+                  (mlp + ("wd",), (L, e, f, d), "normal")]
+        if sh:
+            specs += [(mlp + ("shared", "wg"), (L, sh, d, f), "normal"),
+                      (mlp + ("shared", "wu"), (L, sh, d, f), "normal"),
+                      (mlp + ("shared", "wd"), (L, sh, f, d), "normal")]
+    else:
+        specs += [(mlp + ("wg",), (L, d, f), "normal"),
+                  (mlp + ("wu",), (L, d, f), "normal"),
+                  (mlp + ("wd",), (L, f, d), "normal")]
+    specs.append((("lm_head",), (d, cfg.padded_vocab), "normal"))
+    return specs
+
+
+def _draw(seed: int, leaf: int, chunk: int, n: int) -> np.ndarray:
+    """``n`` normal(0, INIT_SCALE) float32 draws of one chunk's stream."""
+    a = np.random.default_rng([seed, leaf, chunk]).standard_normal(
+        n, dtype=np.float32)
+    a *= np.float32(INIT_SCALE)
+    return a
+
+
+def _chunks(specs, seed: int):
+    """Yield ``(leaf, lo, hi), values`` for every chunk of every normal
+    leaf, in order, drawn ahead on a pool of host threads (numpy draws
+    without the GIL); at most two chunks a thread are held at once."""
+    sizes = [math.prod(shape) if init == "normal" else 0
+             for _, shape, init in specs]
+    jobs = ((i, lo, min(n, lo + DRAW_CHUNK)) for i, n in enumerate(sizes)
+            for lo in range(0, n, DRAW_CHUNK))
+    workers = max(1, min(8, len(os.sched_getaffinity(0))))
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        def submit(job):
+            i, lo, hi = job
+            return job, pool.submit(_draw, seed, i, lo // DRAW_CHUNK,
+                                    hi - lo)
+
+        pending = collections.deque(
+            submit(j) for j in itertools.islice(jobs, 2 * workers))
+        while pending:
+            job, fut = pending.popleft()
+            nxt = next(jobs, None)
+            if nxt is not None:
+                pending.append(submit(nxt))
+            yield job, fut.result()
+
+
+def _tree(specs, leaves) -> dict:
+    out: dict = {}
+    for (path, _, _), leaf in zip(specs, leaves):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def init_params(cfg: ArchConfig, seed: int = 0) -> dict:
+    """Seeded parameters as numpy float32, in the reference's shapes
+    (``_leaf_specs``): normal(0, INIT_SCALE) matrices drawn chunk by chunk
+    (``DRAW_CHUNK``), unit norm scales and zero QKV biases."""
+    check_supported(cfg)
+    specs = _leaf_specs(cfg)
+    make = {"normal": np.empty, "ones": np.ones, "zeros": np.zeros}
+    leaves = [make[init](shape, np.float32) for _, shape, init in specs]
+    for (i, lo, hi), values in _chunks(specs, seed):
+        leaves[i].reshape(-1)[lo:hi] = values
+    return _tree(specs, leaves)
+
+
+def load_params(cfg: ArchConfig, seed: int = 0,
+                device: str | torch.device = "cuda") -> dict:
+    """``params_from_numpy(init_params(cfg, seed), device)``, bit for bit,
+    without the host holding the parameters: each chunk goes to ``device``
+    as soon as it is drawn, so the host holds a few chunks at a time (a
+    full-depth Qwen2.5-14B is 59 GB of float32).  ``device`` defaults to
+    the card and raises without one."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    specs = _leaf_specs(cfg)
+    make = {"normal": torch.empty, "ones": torch.ones, "zeros": torch.zeros}
+    leaves = [make[init](shape, dtype=torch.float32, device=dev)
+              for _, shape, init in specs]
+    for (i, lo, hi), values in _chunks(specs, seed):
+        leaves[i].view(-1)[lo:hi].copy_(torch.from_numpy(values))
+    out = _tree(specs, leaves)
+    out["layers"] = _layer_views(out["blocks"])
+    return out
 
 
 def _to_torch(tree, device: torch.device):
@@ -114,7 +210,10 @@ def _transformer_layer(lp, x, cfg, positions, rope, cache=None,
                          positions, cache=cache, cache_pos=cache_pos,
                          rope=rope)
     x = x + h
-    return x + swiglu_mlp(lp["mlp"], rmsnorm(x, lp["ln2"], eps=eps))
+    inner = rmsnorm(x, lp["ln2"], eps=eps)
+    if cfg.family == "moe":
+        return x + moe_block(lp["mlp"], inner, cfg)
+    return x + swiglu_mlp(lp["mlp"], inner)
 
 
 def forward(params: dict, cfg: ArchConfig,

@@ -1,8 +1,9 @@
-"""Transformer building blocks of the dense LM.
+"""Transformer building blocks of the dense and MoE LMs.
 
-Port of the dense-transformer part of ``repro/lm/modules.py``: RoPE, the
-KV cache, GQA attention and the SwiGLU MLP, over plain dictionaries of
-tensors with weights in the reference's (d_in, d_out) layout.  The
+Port of the transformer part of ``repro/lm/modules.py``: RoPE, the KV
+cache, GQA attention, the SwiGLU MLP and the MoE block (shared experts and
+routed top-k experts), over plain dictionaries of tensors with weights in
+the reference's (d_in, d_out) layout.  The
 reference's ``rms_norm`` has no counterpart here: ``lm/model.py`` calls
 K6's wrapper ``rmsnorm`` itself.
 
@@ -168,3 +169,70 @@ def swiglu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     gate = torch.nn.functional.silu(torch.matmul(x, params["wg"]))
     up = torch.matmul(x, params["wu"])
     return torch.matmul(gate * up, params["wd"])
+
+
+# --------------------------------------------------------------------------
+# MoE (shared experts, always on, and routed top-k experts)
+# --------------------------------------------------------------------------
+def _experts(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+             wd: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert: x (E, C, d) or (C, d) against (E, d, f),
+    (E, d, f), (E, f, d) -> (E, C, d)."""
+    gate = torch.nn.functional.silu(torch.matmul(x, wg))
+    return torch.matmul(gate * torch.matmul(x, wu), wd)
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The reference's ``moe_block``: a softmax router picks ``moe_top_k``
+    of ``moe_experts`` experts a token, the gates renormalised over the
+    chosen (``clip(sum, 1e-9)``), plus ``moe_shared`` experts always on.
+
+    The reference branches on the token count ``t`` of the call (batch x
+    tokens), and so does the port:
+
+    * dense (``t <= cfg.moe_dense_threshold``, decode): every expert runs
+      on every token and the gates combine them; no token is dropped, and
+      the shapes are static (no host sync), so a decode step captures.
+    * scatter (prefill): each token's rank within its expert comes from a
+      cumulative sum over the token-major (t*k, e) one-hot; up to ``cap =
+      max(8, int(capacity_factor * t * k / e))`` tokens an expert go into
+      an (e, cap, d) buffer, the experts run as one batched product, and
+      each token gathers its k results weighted by its gates.  A token
+      past its expert's capacity is dropped: it adds a zero row into slot
+      ``cap - 1`` and gathers slot 0 with gate 0, as in the reference, so
+      every kept slot sums exactly one token whatever the order of the
+      adds.
+    """
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    xt = x.reshape(t, d)
+    probs = torch.softmax(torch.matmul(xt, params["router"]), dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)                  # (t, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    if t <= cfg.moe_dense_threshold:
+        y_all = _experts(xt, params["wg"], params["wu"], params["wd"])
+        weights = torch.zeros((t, e), dtype=gate.dtype, device=x.device)
+        weights.scatter_(1, idx, gate)                         # (t, e)
+        out = torch.einsum("te,etd->td", weights, y_all)
+    else:
+        cap = max(8, int(cfg.moe_capacity_factor * t * k / e))
+        flat = torch.zeros((t * k, e), dtype=torch.int64, device=x.device)
+        flat.scatter_(1, idx.reshape(t * k, 1), 1)             # one-hot
+        rank = torch.cumsum(flat, dim=0) - flat
+        rank = (rank * flat).sum(-1).reshape(t, k)             # slot in expert
+        keep = rank < cap
+        gate = gate * keep
+        slot = torch.where(keep, rank, cap - 1).reshape(-1)
+        rows = (xt[:, None, :] * keep[..., None]).reshape(t * k, d)
+        buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+        buf.index_put_((idx.reshape(-1), slot), rows, accumulate=True)
+        y = _experts(buf, params["wg"], params["wu"], params["wd"])
+        got = y[idx.reshape(-1), torch.where(keep, rank, 0).reshape(-1)]
+        out = (got.reshape(t, k, d) * gate[..., None]).sum(dim=1)
+
+    if cfg.moe_shared:
+        sh = params["shared"]
+        out = out + _experts(xt, sh["wg"], sh["wu"], sh["wd"]).sum(dim=0)
+    return out.reshape(b, s, d).to(x.dtype)

@@ -757,6 +757,69 @@ def test_decode_graph_bit_equal_eager_on_card(card):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["smoke", "full_2l"])
+def test_moe_decode_graph_bit_equal_eager_on_card(width, card):
+    """Qwen-MoE (smoke width, and full width cut to 2 layers): a fused
+    decode step of 4 rows (the dense branch) captured as a graph and
+    replayed, bit-equal to the same step run eagerly, step by step; the
+    prefills take the scatter branch (threshold lowered at smoke width,
+    2 x 512 tokens at full width)."""
+    from repro_torch.configs.registry import get_arch
+    name = "qwen2_moe_a2_7b"
+    if width == "smoke":
+        cfg = dataclasses.replace(get_smoke(name), moe_dense_threshold=4)
+        plen = 8
+    else:
+        cfg = get_arch(name).scaled(name=f"{name}_2l", n_layers=2)
+        plen = 512
+    params = params_from_numpy(init_params(cfg, seed=0), card)
+    prompts = random_prompts(cfg, 2, 2, plen, seed=4, device=card)
+    runs = []
+    for jit in (True, False):
+        r = DualMeshRunner(cfg, params, split_streams(card),
+                           max_len=plen + 8, jit_groups=jit)
+        streams = [r.run_prefill(r.new_stream(p, 6, rid=i))
+                   for i, p in enumerate(prompts)]
+        g = r._fuse(streams)
+        logits = []
+        for _ in range(5):
+            r._decode_group(g, 1)
+            r.dual.cores.synchronize()
+            logits.append(g.lane.logits.clone())
+        assert (g.lane.graph is not None) == jit
+        runs.append((logits, g.lane.seq[:, :g.pos + 1].clone()))
+    (la, sa), (lb, sb) = runs
+    for a, b in zip(la, lb):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert torch.equal(sa, sb)
+
+
+@pytest.mark.cuda
+def test_search_on_card_makes_no_green_context(card):
+    """The design-flow search plans on the card's SM counts alone: the
+    number of green contexts is the same before and after, and the plan
+    takes the card's memory and SM count; serving at its theta makes (or
+    reuses) the one split of its count."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.schedule import request_stages
+    from repro_torch.dualmesh.search import card_model, search
+
+    cfg = get_arch("qwen2_0_5b")
+    hw = card_model(card)
+    props = torch.cuda.get_device_properties(card)
+    assert (hw.mem_bytes, hw.sm_count) == (props.total_memory,
+                                           props.multi_processor_count)
+    before = len(green._SPLITS)
+    res = search(request_stages(cfg, [(2, 512, 64)]), cfg, hw=hw,
+                 max_evals=10, n_streams=8)
+    assert len(green._SPLITS) == before
+    assert res.sms == props.multi_processor_count and len(res.visited) > 1
+    dual = split_streams(card, res.theta)
+    assert dual.cores.sms("c") == res.dual.c_sms
+    assert dual.c_share == res.dual.c_share
+
+
 # --------------------------------------------------------------------------
 # the c/p split of the card's SMs (green contexts)
 # --------------------------------------------------------------------------

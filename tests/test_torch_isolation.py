@@ -97,7 +97,8 @@ def test_lm_entry_points_without_device_raise_without_a_card(monkeypatch):
     from repro_torch.configs.registry import get_smoke
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.launch.serve import main
-    from repro_torch.lm.model import init_cache
+    from repro_torch.dualmesh.search import card_model
+    from repro_torch.lm.model import init_cache, load_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke("qwen2_0_5b")
@@ -107,6 +108,10 @@ def test_lm_entry_points_without_device_raise_without_a_card(monkeypatch):
         split_streams()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        card_model()
     assert split_streams("cpu").stream("p") is None
     assert init_cache(cfg, 1, 8, device="cpu").kv_k.device.type == "cpu"
 
@@ -125,6 +130,25 @@ FLEET_MODULES = ("core/area", "core/search", "obs/__init__", "obs/registry",
 @pytest.mark.parametrize("name", FLEET_MODULES)
 def test_fleet_modules_are_the_ports_own(name):
     """Each fleet-slice module exists in the port beside its reference
+    counterpart (the probe imports it; the source scan reads it)."""
+    assert (PORT / f"{name}.py").is_file()
+    assert (ROOT / "src" / "repro" / f"{name}.py").is_file()
+
+
+#: the LM slices' modules, the design flow and the MoE configs among them:
+#: each a copy of the reference module at the same path, importing neither
+#: JAX nor ``repro``
+LM_MODULES = ("lm/config", "lm/modules", "lm/model", "dualmesh/__init__",
+              "dualmesh/partition", "dualmesh/cost", "dualmesh/schedule",
+              "dualmesh/search", "dualmesh/runtime", "serving/lm",
+              "configs/registry", "configs/qwen2_0_5b", "configs/qwen2_5_14b",
+              "configs/granite_20b", "configs/command_r_plus_104b",
+              "configs/qwen2_moe_a2_7b", "configs/granite_moe_3b_a800m")
+
+
+@pytest.mark.parametrize("name", LM_MODULES)
+def test_lm_modules_are_the_ports_own(name):
+    """Each LM-slice module exists in the port beside its reference
     counterpart (the probe imports it; the source scan reads it)."""
     assert (PORT / f"{name}.py").is_file()
     assert (ROOT / "src" / "repro" / f"{name}.py").is_file()

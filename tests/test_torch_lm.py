@@ -69,7 +69,13 @@ LM_TOL = dict(rtol=1e-4, atol=1e-4)
 # model
 REF_HW = CardModel(peak_flops=197e12, mem_bw=819e9, link_bw=50e9,
                    mfu_ceiling=0.6, bw_ceiling=0.8, step_floor_base=25e-6,
-                   step_floor_tp=8e-6, step_floor_dp=2e-6, elem_bytes=2)
+                   step_floor_tp=8e-6, step_floor_dp=2e-6, elem_bytes=2,
+                   mem_bytes=16 * 1024 ** 3)
+# the registered MoE configs
+MOE = ("qwen2_moe_a2_7b", "granite_moe_3b_a800m")
+# the reference's architectures whose blocks the port lacks (ROADMAP queue
+# 1 item 6.4): SSM, hybrid, encoder-decoder and M-RoPE
+LACKING = ("xlstm_350m", "zamba2_2_7b", "whisper_small", "qwen2_vl_72b")
 
 
 def _arrays(seed, *shapes, scale=1.0):
@@ -107,8 +113,8 @@ def test_configs_match_reference():
 
 def test_registry_refuses_an_architecture_the_port_lacks():
     with pytest.raises(KeyError, match="qwen2_0_5b"):
-        get_arch("qwen2_moe_a2_7b")
-    assert ARCH_IDS == (ARCH, *DENSE)
+        get_arch("xlstm_350m")
+    assert ARCH_IDS == (ARCH, *DENSE, *MOE)
 
 
 @pytest.mark.parametrize("name", DENSE)
@@ -157,11 +163,158 @@ def test_init_params_has_the_reference_shapes(smoke):
     assert abs(float(mine["embed"].std()) - model.INIT_SCALE) < 1e-3
     again = model.init_params(cfg, seed=0)
     assert np.array_equal(again["lm_head"], mine["lm_head"])
-    moe = ref_get_arch("qwen2_moe_a2_7b")
+    ssm = ref_get_arch("xlstm_350m")
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue 1 item 6.4"):
         model.init_params(dataclasses.replace(
-            get_smoke(ARCH), family=moe.family, moe_experts=4, moe_top_k=2))
+            get_smoke(ARCH), family=ssm.family, block_type=ssm.block_type))
+
+
+@pytest.mark.parametrize("name", LACKING)
+def test_check_supported_refuses_the_blocks_the_port_lacks(name):
+    """SSM, hybrid, encoder-decoder and M-RoPE: refused, naming item 6.4;
+    the registry does not list them."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 6.4"):
+        model.check_supported(ref_get_smoke(name))
+    assert name not in ARCH_IDS
+
+
+# --------------------------------------------------------------------------
+# MoE
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("name", MOE)
+def test_moe_configs_match_reference(name):
+    """Qwen-MoE and Granite-MoE at ``full()`` and ``smoke()``: the
+    reference's fields, padded vocabulary and parameter counts, total and
+    active."""
+    for mine, ref in ((get_arch(name), ref_get_arch(name)),
+                      (get_smoke(name), ref_get_smoke(name))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.padded_vocab == ref.padded_vocab
+        assert mine.param_count() == ref.param_count()
+        assert mine.active_param_count() == ref.active_param_count()
+        model.check_supported(mine)
+    assert get_arch("granite_moe_3b_a800m").padded_vocab == 51200
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe_smoke(request):
+    """A MoE smoke config, the reference's parameters, and the same
+    parameters carried over to the port."""
+    cfg = ref_get_smoke(request.param)
+    ref_params = ref_model.init_params(cfg, jax.random.PRNGKey(1))
+    params = model.params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                     device="cpu")
+    return cfg, ref_params, params
+
+
+@pytest.mark.parametrize("branch", ["dense", "scatter", "scatter_drop"])
+def test_moe_block_matches_reference(moe_smoke, branch):
+    """Layer 0's MoE block on 2 x 32 tokens: the dense branch (t <= the
+    threshold), the scatter branch (threshold lowered), and the scatter
+    branch with a capacity that drops tokens (capacity factor 0.2: 8
+    slots an expert for 16 routed on average)."""
+    cfg, ref_params, params = moe_smoke
+    kw = {"dense": {}, "scatter": dict(moe_dense_threshold=4),
+          "scatter_drop": dict(moe_dense_threshold=4,
+                               moe_capacity_factor=0.2)}[branch]
+    cfg = dataclasses.replace(cfg, **kw)
+    x, = _arrays(21, (2, 32, cfg.d_model))
+    lp = jax.tree.map(lambda a: a[0], ref_params["blocks"]["mlp"])
+    if branch == "scatter_drop":
+        # some token lost its place in an expert, so the drop is exercised
+        logits = jnp.einsum("td,de->te", jnp.asarray(x).reshape(64, -1),
+                            lp["router"])
+        _, idx = jax.lax.top_k(jax.nn.softmax(logits, -1), cfg.moe_top_k)
+        assert np.bincount(np.asarray(idx).ravel()).max() > 8
+    want = ref_modules.moe_block(lp, jnp.asarray(x), cfg)
+    got = modules.moe_block(params["layers"][0]["mlp"], _t(x), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+
+
+def test_moe_forward_and_decode_match_reference(moe_smoke):
+    """Each MoE config at its smoke width, the reference's parameters
+    carried over as numpy: the forward's logits, then an 8-token prefill
+    and 3 decode steps fed the reference's argmax, at 1e-4."""
+    cfg, ref_params, params = moe_smoke
+    mine = get_smoke(cfg.name.removesuffix("_smoke"))
+    tokens = np.random.default_rng(13).integers(0, cfg.vocab, (2, 8))
+    want = ref_model.forward(ref_params, cfg, jnp.asarray(tokens))
+    got = model.forward(params, mine, _t(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+    rc = ref_model.init_cache(cfg, 2, 16)
+    pc = model.init_cache(mine, 2, 16, device="cpu")
+    feed = tokens
+    for _ in range(4):
+        want, rc = ref_model.decode_step(ref_params, cfg, jnp.asarray(feed),
+                                         rc)
+        got, pc = model.decode_step(params, mine, _t(feed), pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LM_TOL)
+        feed = np.asarray(jnp.argmax(want[:, -1, :cfg.vocab], -1))[:, None]
+
+
+def test_moe_engine_matches_reference(moe_smoke):
+    """The MoE model through ``DualMeshEngine`` (chunked prefills on the
+    scatter branch, fused decode on the dense one) against the
+    reference's engine: the same tokens, fused sizes and trace."""
+    cfg, ref_params, params = moe_smoke
+    cfg = dataclasses.replace(cfg, moe_dense_threshold=4)
+    prompts = _prompts(cfg, n=3)
+    ref = RefEngine(RefRunner(cfg, ref_params,
+                              split_mesh(jax.devices()[:1], 0.5),
+                              max_len=24), group_size=2, prefill_chunk=4)
+    mine = DualMeshEngine(DualMeshRunner(cfg, params, split_streams("cpu"),
+                                         max_len=24),
+                          group_size=2, prefill_chunk=4)
+    for p in prompts:
+        ref.submit(RefRequest(jnp.asarray(p), gen_steps=5))
+        mine.submit(Request(_t(p), gen_steps=5))
+    want, got = ref.drain(), mine.drain()
+    for a, b in zip(want.outputs, got.outputs):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert got.stats["fused_sizes"] == want.stats["fused_sizes"]
+    assert [t[:2] for t in got.trace] == [t[:2] for t in want.trace]
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_init_params_has_the_reference_shapes(name):
+    """The port's seeded MoE leaves in the reference's shapes: ``router``
+    (L, d, e), ``wg``/``wu`` (L, e, d, f), ``wd`` (L, e, f, d) and the
+    shared experts with a leading s axis."""
+    cfg = ref_get_smoke(name)
+    ref = jax.eval_shape(lambda: ref_model.init_params(
+        cfg, jax.random.PRNGKey(0)))
+    mine = model.init_params(get_smoke(name), seed=0)
+    assert jax.tree.map(lambda a: tuple(a.shape), mine) == \
+        jax.tree.map(lambda a: tuple(a.shape), ref)
+    mlp = mine["blocks"]["mlp"]
+    L, d, f, e = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.moe_experts
+    assert mlp["router"].shape == (L, d, e)
+    assert mlp["wd"].shape == (L, e, f, d)
+    assert ("shared" in mlp) == bool(cfg.moe_shared)
+
+
+@pytest.mark.parametrize("name", (ARCH, *MOE))
+def test_load_params_is_bit_equal_to_init_params(name, monkeypatch):
+    """The leaf-by-leaf loader gives ``params_from_numpy(init_params())``
+    bit for bit, with chunks small enough that leaves span several, and
+    the draws do not depend on the number of host threads."""
+    monkeypatch.setattr(model, "DRAW_CHUNK", 1000)
+    cfg = get_smoke(name)
+    want = model.params_from_numpy(model.init_params(cfg, seed=5), "cpu")
+    got = model.load_params(cfg, seed=5, device="cpu")
+    keys = ("embed", "final_norm", "blocks", "lm_head")
+    a = jax.tree.leaves({k: want[k] for k in keys})
+    b = jax.tree.leaves({k: got[k] for k in keys})
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert len(got["layers"]) == cfg.n_layers
+    assert got["layers"][1]["mlp"]["wg"].data_ptr() == \
+        got["blocks"]["mlp"]["wg"][1].data_ptr()
+    monkeypatch.setattr(model.os, "sched_getaffinity", lambda pid: {0})
+    one = model.init_params(cfg, seed=5)
+    assert np.array_equal(one["lm_head"], want["lm_head"].numpy())
+    assert not np.array_equal(model.init_params(cfg, seed=6)["lm_head"],
+                              one["lm_head"])
 
 
 # --------------------------------------------------------------------------
