@@ -46,7 +46,18 @@ any failure raises and the script exits non-zero:
             24/8 at D 64): decode at 16 rows and a cache of 576, checked
             there with ragged ``kv_len`` down to 0 and 1, and flash at the
             path's prefill of 2 x 512; K6 at their widths over 1024 and 16
-            rows;
+            rows.  Then phase 10's path shapes (``block_calls``), timed
+            the same way on the whole card: K6 at xLSTM's 1024, Zamba2's
+            2560, Whisper's 768 and Qwen2-VL's 8192; K7 flash at Zamba2's
+            32/32 heads of D 80 (causal, 2 x 512), Whisper's 12/12 of D 64
+            (the encoder's non-causal 1500 x 1500, the decoder's 16 queries
+            against 1500 memory keys and its causal prefill) and Qwen2-VL's
+            64/8 of D 128 (2 x 320); K7 decode at Zamba2's D 80 (the path's
+            rows at the mid cache, and 16 rows at a cache of 576),
+            Whisper's one query row against 1500 memory keys and its self
+            cache, Qwen2-VL's cache; edge cases at D 80 (ragged ``kv_len``
+            down to 0 and 1 on the CUDA and the tensor cores, flash at 37
+            rows and as a chunk) and Whisper's ragged cross decode;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the eager
             sequential kernel forward (``jit_groups=False``) against the
@@ -208,7 +219,34 @@ any failure raises and the script exits non-zero:
             16-token prompt (the dense branch) and one 2 x 512 prefill
             (the scatter branch) at 1e-3.  The phase's launches are
             printed apart from the kernels line's;
-10. report  one ``[report]`` line for each path and kernel (launches,
+10. blocks  the SSM, hybrid, encoder-decoder and M-RoPE families at their
+            published widths, every earlier phase's tensors freed first:
+            (a) xLSTM-350M (24 mLSTM layers) and (b) Zamba2-2.7B (54
+            Mamba2 layers, 9 applications of the shared block; about 10 GB
+            of f32 drawn straight to the card by ``load_params``), each
+            served through ``DualMeshEngine`` on the split at theta 0.5, 8
+            requests x batch 2, prompt 512 + 64 generated, the decode steps
+            replayed from captured lanes that hold the SSM states: launches
+            as the plan says (``forward_launches``: xLSTM K6 25 a forward
+            step and no K7, Zamba2 K6 73 and K7 9), tokens equal to the
+            same run on one stream without graphs; walls, tokens/s, a
+            prefill on the c-core's stream and a decode step's graph
+            replayed with the host held out; (c) Whisper-small (12 encoder
+            and 12 decoder layers): ``encode`` over 2 x 1500 seeded frame
+            embeddings, ``init_cache(memory=..., params=...)``, a 16-token
+            prefill and 64 greedy ``decode_step``s, tokens equal to the
+            same run with the plain versions on the card (``plain_kernels``)
+            and the prefill's and first step's logits within 1e-3; (d)
+            Qwen2-VL-72B at its full width cut to 8 of its 80 layers (38 GB
+            of f32): the forward and a prefill by ``decode_step`` over 256
+            patch embeddings on a 16 x 16 grid at t = 0 and 64 text tokens
+            on M-RoPE, then 16 decode steps with equal position streams
+            past the grid, against the plain versions on the card at 1e-3,
+            and a text forward on three equal streams bit-equal to the same
+            forward on RoPE; for (c) and (d) walls, tokens/s, the prefill's
+            device time and a decode step's graph replay.  Each run's
+            launches are counted from 0 and count in the kernels line;
+11. report  one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line; the host seconds of each phase.
@@ -218,6 +256,7 @@ The same file holds each path's launch counts, walls and kernel sums.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -297,6 +336,18 @@ MOE_ARCH = "qwen2_moe_a2_7b"            # 9(c): served at full depth
 MOE_ARCHS = ("qwen2_moe_a2_7b", "granite_moe_3b_a800m")
 MOE_LAYERS = 2                          # 9(c): full width, card vs CPU
 WARM_PROMPT = 16                        # 9: warm-up prompts' length
+BLOCK_SERVED = ("xlstm_350m", "zamba2_2_7b")    # 10(a), 10(b): served
+WHISPER = "whisper_small"                       # 10(c)
+WHISPER_PROMPT = 16
+WHISPER_GEN = 64                                # greedy decode steps
+WHISPER_MAX_LEN = WHISPER_PROMPT + WHISPER_GEN + 8
+VL_ARCH = "qwen2_vl_72b"                        # 10(d)
+VL_LAYERS = 8                                   # of its 80, full width
+VL_GRID = 16                                    # 16 x 16 patches at t = 0
+VL_TEXT = 64                                    # text tokens after them
+VL_PROMPT = VL_GRID ** 2 + VL_TEXT
+VL_STEPS = 16
+VL_MAX_LEN = VL_PROMPT + VL_STEPS + 8
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
 # the CUDA cores (no tensor cores) 67 TFLOP/s, TF32 on the tensor cores 495
 # TFLOP/s, of which 3xTF32 (three products per f32 product) gets a third.
@@ -692,7 +743,7 @@ def _lm_case(kt: dict, call: dict, gen) -> dict:
     vis = kpos < kv_end
     if causal:
         vis = vis & (kpos <= qpos)
-    pairs = int(vis.sum().item())
+    pairs = int(vis.expand(sq, sk).sum().item())     # every query row's
     keys = min(kv_end, off + sq) if causal else kv_end
     plain_causal = causal and off == 0 and sq == sk and sk_valid is None
     flops = 4 * d * pairs * b * hq
@@ -1128,17 +1179,18 @@ def fused_forward_path(gen, rows: dict) -> dict:
 # --------------------------------------------------------------------------
 # the LM path
 # --------------------------------------------------------------------------
-def lm_group_sizes() -> list[int]:
-    """The fused decode groups the LM path forms: the card cost model's
-    group size for its queue (``DualMeshRunner.planned_group_size``),
-    each core priced at its share of the SMs of the split at
-    ``LM_THETA`` (made once and kept, so phase 5's runner gets the same)."""
+def lm_group_sizes(name: str = LM_ARCH) -> list[int]:
+    """The fused decode groups the LM path of ``name`` forms: the card
+    cost model's group size for its queue
+    (``DualMeshRunner.planned_group_size``), each core priced at its share
+    of the SMs of the split at ``LM_THETA`` (made once and kept, so the
+    served runners get the same)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.dualmesh.cost import CardModel
     from repro_torch.dualmesh.partition import split_streams
     from repro_torch.dualmesh.schedule import plan_admission
     dual = split_streams(DEV, LM_THETA)
-    gs = plan_admission(get_arch(LM_ARCH), dual, CardModel(), LM_BATCH,
+    gs = plan_admission(get_arch(name), dual, CardModel(), LM_BATCH,
                         LM_PROMPT, LM_GEN, LM_REQUESTS).group_size
     return [min(gs, LM_REQUESTS - i) for i in range(0, LM_REQUESTS, gs)]
 
@@ -1251,6 +1303,113 @@ def lm_geometry_edge_calls() -> list[dict]:
             for c in lm_geometry_calls() if c["kernel"] == "decode_attention"]
 
 
+def forward_launches(cfg) -> tuple[int, int]:
+    """K6 and K7 launches of one forward step (a prefill or a decode step)
+    of ``cfg``'s decoder, as its layers make them: a transformer 2 norms
+    and an attention a layer (Whisper's decoder 3 and 2: its
+    cross-attention), an SSM layer 1 norm and no attention, Zamba2's
+    shared block 2 norms and an attention each time it is applied; and
+    the final norm."""
+    L = cfg.n_layers
+    if cfg.block_type == "transformer":
+        cross = 1 if cfg.encoder_decoder else 0
+        return (2 + cross) * L + 1, (1 + cross) * L
+    apps = L // cfg.attn_every if cfg.attn_every else 0
+    return L + 2 * apps + 1, apps
+
+
+def _geo(cfg) -> dict:
+    return dict(d=cfg.d_head, hq=cfg.n_heads, hkv=cfg.n_kv_heads)
+
+
+def block_request_calls(name: str, size: int) -> list[tuple[dict, float]]:
+    """One request's kernel calls with their weights on phase 10's paths.
+    xLSTM and Zamba2 served as the LM path is (a request's prefill of 2 x
+    512 and its share 1/size of its group's 63 decode steps, K7 decode at
+    the mid cache); Whisper's whole run (the encoder over 2 x 1500 frames,
+    a 16-token prefill, 64 decode steps: self-attention at the mid cache
+    and cross-attention over the 1500 memory keys); Qwen2-VL cut to 8
+    layers (its forward and its prefill by ``decode_step`` over the 320
+    prompt tokens, 16 decode steps, two text forwards)."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(name)
+    d, geo = cfg.d_model, _geo(cfg)
+    norms, attn = forward_launches(cfg)
+    if name == WHISPER:
+        enc, cap = cfg.enc_layers, WHISPER_MAX_LEN
+        mid = WHISPER_PROMPT + WHISPER_GEN // 2
+        rows = LM_BATCH * WHISPER_PROMPT
+        frames = cfg.enc_positions
+        L = cfg.n_layers
+        return [(_k6(LM_BATCH * frames, d), 2 * enc + 1),
+                (_flash(LM_BATCH, frames, frames, frames, causal=False,
+                        **geo), enc),
+                (_k6(rows, d), norms),
+                (_flash(LM_BATCH, WHISPER_PROMPT, WHISPER_PROMPT, cap,
+                        **geo), L),
+                (_flash(LM_BATCH, WHISPER_PROMPT, frames, frames,
+                        causal=False, **geo), L),
+                (_k6(LM_BATCH, d), norms * WHISPER_GEN),
+                (_decode(LM_BATCH, cap, cap, kv_len=[mid] * LM_BATCH, **geo),
+                 L * WHISPER_GEN),
+                (_decode(LM_BATCH, frames, frames, **geo), L * WHISPER_GEN)]
+    if name == VL_ARCH:
+        L = VL_LAYERS
+        norms, mid = 2 * L + 1, VL_PROMPT + VL_STEPS // 2
+        rows = LM_BATCH * VL_PROMPT
+        return [(_k6(rows, d), 4 * norms),
+                (_flash(LM_BATCH, VL_PROMPT, VL_PROMPT, VL_PROMPT, **geo),
+                 3 * L),
+                (_flash(LM_BATCH, VL_PROMPT, VL_PROMPT, VL_MAX_LEN, **geo),
+                 L),
+                (_k6(LM_BATCH, d), norms * VL_STEPS),
+                (_decode(LM_BATCH, VL_MAX_LEN, VL_MAX_LEN,
+                         kv_len=[mid] * LM_BATCH, **geo), L * VL_STEPS)]
+    rows_dec, steps = LM_BATCH * size, LM_GEN - 1
+    mid = LM_PROMPT + LM_GEN // 2
+    calls = [(_k6(LM_BATCH * LM_PROMPT, d), norms - 1), (_k6(LM_BATCH, d), 1),
+             (_k6(rows_dec, d), norms * steps / size)]
+    if attn:
+        calls += [(_flash(LM_BATCH, LM_PROMPT, LM_PROMPT, LM_MAX_LEN, **geo),
+                   attn),
+                  (_decode(rows_dec, LM_MAX_LEN, LM_MAX_LEN,
+                           kv_len=[mid] * rows_dec, **geo),
+                   attn * steps / size)]
+    return calls
+
+
+def block_calls() -> list[dict]:
+    """Phase 10's distinct kernel calls (each served config's at each of
+    its planned group sizes), and K7 decode at Zamba2's head geometry at
+    the LM path's 16 rows and a cache of 576."""
+    from repro_torch.configs.registry import get_arch
+    out = []
+    for name in BLOCK_SERVED:
+        for size in sorted(set(lm_group_sizes(name))):
+            out += [c for c, _ in block_request_calls(name, size)]
+    out += [c for name in (WHISPER, VL_ARCH)
+            for c, _ in block_request_calls(name, 1)]
+    out.append(_decode(LM_GEOMETRY_ROWS, LM_GEOMETRY_CACHE, LM_MAX_LEN,
+                       **_geo(get_arch("zamba2_2_7b"))))
+    return list({json.dumps(c, sort_keys=True): c for c in out}.values())
+
+
+def block_edge_calls() -> list[dict]:
+    """K7 at Zamba2's head width 80 (no power of two): decode with ragged
+    ``kv_len`` (0 and 1 among them) on the CUDA cores (G 1) and on the
+    tensor cores (G 16), flash at 37 rows and as a chunk against a cache;
+    Whisper's cross-attention decode with ragged lengths."""
+    from repro_torch.configs.registry import get_arch
+    z = _geo(get_arch("zamba2_2_7b"))
+    return [_decode(4, 576, LM_MAX_LEN, kv_len=[576, 0, 1, 300], **z),
+            _decode(4, 576, LM_MAX_LEN, kv_len=[576, 0, 1, 300], d=80,
+                    hq=32, hkv=2),
+            _decode(3, 100, 100, kv_len=[100, 37, 1], d=80, hq=8, hkv=8),
+            _flash(1, 37, 37, 37, **z),
+            _flash(2, 128, 512, LM_MAX_LEN, 384, **z),
+            _decode(2, 1500, 1500, kv_len=[1500, 1], d=64, hq=12, hkv=12)]
+
+
 def weighted_sums(rows: dict, calls: list[tuple[dict, float]],
                   cores: list[str] | None = None) -> dict:
     """Per kernel, the phase-2 numbers summed over weighted calls, as
@@ -1348,14 +1507,15 @@ def served_run(runner, prompts, gs: int):
 
 
 def check_lm_run(tag: str, cfg, res, launches, prompts) -> int:
-    """Launches as the plan says (a forward step: K6 2L + 1, K7 L) and
-    well-formed outputs that keep their prompts; returns the decode
-    steps."""
-    L, n = cfg.n_layers, len(prompts)
+    """Launches as the plan says (a forward step: ``forward_launches``,
+    for a transformer K6 2L + 1 and K7 L) and well-formed outputs that
+    keep their prompts; returns the decode steps."""
+    n = len(prompts)
+    norms, attn = forward_launches(cfg)
     steps = (LM_GEN - 1) * len(res.stats["fused_sizes"])
-    check_counts(tag, launches, {"rmsnorm": (n + steps) * (2 * L + 1),
-                                 "flash_attention": n * L,
-                                 "decode_attention": steps * L})
+    check_counts(tag, launches, {"rmsnorm": (n + steps) * norms,
+                                 "flash_attention": n * attn,
+                                 "decode_attention": steps * attn})
     for i, (out, p) in enumerate(zip(res.outputs, prompts)):
         if (out.shape != (LM_BATCH, LM_PROMPT + LM_GEN)
                 or out.dtype != torch.int64
@@ -3236,6 +3396,422 @@ def design_path() -> dict:
     return dict(search=a, big=b, moe=c)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the SSM, hybrid, encoder-decoder and M-RoPE families
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's K6 and K7 calls go to their plain versions while
+    inside, on the card too (the reference run of phase 10(c) and (d))."""
+    import repro_torch.lm.model as lm_model
+    import repro_torch.lm.modules as lm_modules
+    from repro_torch.kernels.attention.ref import (decode_attention_ref,
+                                                   flash_attention_ref)
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    saved = (lm_model.rmsnorm, lm_modules.flash_attention,
+             lm_modules.decode_attention)
+    lm_model.rmsnorm = lambda x, w, eps=1e-6: rmsnorm_ref(x, w, eps)
+    lm_modules.flash_attention = flash_attention_ref
+    lm_modules.decode_attention = decode_attention_ref
+    try:
+        yield
+    finally:
+        (lm_model.rmsnorm, lm_modules.flash_attention,
+         lm_modules.decode_attention) = saved
+
+
+def draw_to_card(cfg, tag: str) -> tuple[dict, float]:
+    """``load_params(cfg, 0)`` on the card, its host seconds printed."""
+    from repro_torch.lm.model import load_params
+    t0 = time.perf_counter()
+    params = load_params(cfg, 0, DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    print(f"[blocks] {tag}: {cfg.param_count() / 1e9:.3f} B parameters "
+          f"({4 * cfg.param_count() / 1e9:.2f} GB f32) drawn from seed 0 "
+          f"straight to the card in {draw_s:.1f} s of host; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return params, draw_s
+
+
+def graph_step_ms(params, cfg, cache, rows: int, pos: int,
+                  positions3=None) -> float:
+    """Device ms of one decode step of ``rows`` rows at position ``pos``,
+    captured as a CUDA graph and replayed with the host held out
+    (``cuda_time_ms``); the cache is written in place at ``pos``."""
+    from repro_torch.kernels.util import capture_graph, cuda_time_ms
+    from repro_torch.lm.model import decode_step
+    at = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    tok = torch.zeros((rows, 1), dtype=torch.int64, device=DEV)
+    c = cache._replace(pos=pos, pos_dev=at)
+
+    def body():
+        return decode_step(params, cfg, tok, c, positions3=positions3)[0]
+
+    body()                               # the kernels' attributes set
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph, _ = capture_graph(body, stream=side)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def replay():
+        at.fill_(pos)
+        graph.replay()
+
+    return cuda_time_ms(replay, reps=4)
+
+
+def served_block(name: str, rows: dict) -> dict:
+    """10(a)/(b): ``name`` at full depth served through ``DualMeshEngine``
+    on the split at ``LM_THETA``, 8 x batch 2, 512 + 64, decode steps
+    replayed from captured lanes (the SSM states in them): launches as
+    the plan says, tokens equal to the same run on one stream without
+    graphs; walls, tokens/s, a prefill on the c-core's stream and a
+    decode step's graph replayed with the host held out, beside the card
+    cost model's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.cost import CardModel
+    from repro_torch.dualmesh.partition import split_streams
+    from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+    from repro_torch.dualmesh.schedule import plan_admission
+    from repro_torch.kernels.util import cuda_time_ms
+    cfg = get_arch(name)
+    free_card(f"before {name}")
+    params, draw_s = draw_to_card(cfg, name)
+    prompts = random_prompts(cfg, LM_REQUESTS, LM_BATCH, LM_PROMPT, seed=1,
+                             device=DEV)
+    gens = [LM_GEN] * LM_REQUESTS
+    runners = {
+        "graphs": DualMeshRunner(cfg, params, split_streams(DEV, LM_THETA),
+                                 max_len=LM_MAX_LEN),
+        "one stream, eager": DualMeshRunner(
+            cfg, params, split_streams(DEV, LM_THETA, one_stream=True),
+            max_len=LM_MAX_LEN, jit_groups=False)}
+    main = runners["graphs"]
+    gs = main.planned_group_size(prompts, gens)
+    for r in runners.values():
+        warm_runner(r, cfg, LM_REQUESTS, gs)
+    res, launches, stream_ms = served_run(main, prompts, gs)
+    steps = check_lm_run(f"{name} served", cfg, res, launches, prompts)
+    if res.stats["fused_sizes"] != lm_group_sizes(name):
+        raise AssertionError(f"{name} formed decode groups "
+                             f"{res.stats['fused_sizes']}, but phase 2 "
+                             f"checked {lm_group_sizes(name)}")
+    walls = {"graphs": [res.stats["wall_s"]]}
+    for turn in range(2):
+        for tag, r in runners.items():
+            if turn == 0 and tag == "graphs":
+                continue
+            out, _, _ = served_run(r, prompts, gs)
+            walls.setdefault(tag, []).append(out.stats["wall_s"])
+            for i, (a, b) in enumerate(zip(res.outputs, out.outputs)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} request {i}: {tag} "
+                                         f"generated other tokens")
+    prefill = [d for (kind, _, _), d in zip(res.trace, stream_ms)
+               if kind == "prefill"]
+    rows_dec = LM_BATCH * res.stats["fused_sizes"][0]
+    mid = LM_PROMPT + LM_GEN // 2
+    lane = main.lanes.lanes[rows_dec, LM_MAX_LEN][0]
+
+    def replay_step():
+        lane.pos.fill_(mid)
+        lane.graph.replay()
+
+    graph_ms = cuda_time_ms(replay_step, reps=4)
+    norms, attn = forward_launches(cfg)
+    s, m = res.stats, res.metrics
+    model = step_model(cfg, main.dual, rows_dec)
+    model["makespan_ms"] = plan_admission(
+        cfg, main.dual, CardModel(), LM_BATCH, LM_PROMPT, LM_GEN,
+        LM_REQUESTS).est_makespan * 1e3
+    print(f"[blocks] {name}: {cfg.n_layers} {cfg.block_type} layers"
+          + (f" and {attn} applications of the shared block" if attn else "")
+          + f", d {cfg.d_model}; {LM_REQUESTS} requests x batch {LM_BATCH},"
+          f" prompt {LM_PROMPT}, {LM_GEN} generated on c "
+          f"{main.dual.cores.sms('c')} SMs and p {main.dual.cores.sms('p')}"
+          f": {s['wall_s'] * 1e3:.2f} ms, {s['tokens_per_s']:.1f} tokens/s "
+          f"({s['total_tokens']} tokens), p50 {m.p50_ms():.2f} ms, p95 "
+          f"{m.p95_ms():.2f} ms; fused sizes {s['fused_sizes']}; launches "
+          f"{launches} (a forward step K6 {norms}, K7 {attn}: the plan's); "
+          f"walls (in turns) "
+          + "; ".join(f"{k} " + ", ".join(f"{w * 1e3:.2f}" for w in v)
+                      + " ms" for k, v in walls.items())
+          + "; tokens equal")
+    print(f"[blocks] {name}: a prefill (2 x {LM_PROMPT}) "
+          f"{sum(prefill) / len(prefill):.2f} ms on the c-core's stream "
+          f"(the run's mean); a decode step of {rows_dec} rows "
+          f"{graph_ms:.3f} ms (one graph replay on the p-core, host held "
+          f"out; {steps} steps served); {main.lanes.count} lane(s) captured "
+          f"in {main.capture_s * 1e3:.1f} ms, "
+          + ", ".join(f"{ln.nbytes / 2 ** 20:.1f}"
+                      for v in main.lanes.lanes.values() for ln in v)
+          + " MiB a lane")
+    print(f"[blocks] {name}: the card cost model on the split: a prefill "
+          f"{model['prefill_ms']:.2f} ms ({model['prefill_bound']}), a "
+          f"decode step of {rows_dec} rows {model['latency_ms']:.3f} ms "
+          f"({model['bound']}; f32 bytes {model['bytes_ms']:.3f} ms, step "
+          f"floor {model['floor_ms']:.3f} ms), the plan's makespan "
+          f"{model['makespan_ms']:.1f} ms against the wall "
+          f"{s['wall_s'] * 1e3:.1f} ms")
+    out = dict(model=name, launches=launches,
+               kernels=weighted_sums(rows, block_request_calls(
+                   name, s["fused_sizes"][0])),
+               draw_s=draw_s, fused_sizes=s["fused_sizes"],
+               wall_s=s["wall_s"], walls=walls,
+               tokens_per_s=s["tokens_per_s"], p50_ms=m.p50_ms(),
+               p95_ms=m.p95_ms(), prefill_stream_ms=prefill,
+               graph_ms_per_step=graph_ms, rows=rows_dec,
+               capture_s=main.capture_s, step_model=model)
+    for r in runners.values():
+        r.dual.cores.synchronize()
+    del runners, main, lane, params
+    return out
+
+
+def whisper_run(cfg, params, frames, prompt) -> tuple[list, list, float]:
+    """Whisper end to end: ``encode`` the frames, ``init_cache`` with the
+    memory, a prefill of the prompt, ``WHISPER_GEN`` greedy decode steps.
+    Returns each step's logits (the prefill's last position first), the
+    tokens and the wall seconds."""
+    from repro_torch.lm.model import decode_step, encode, init_cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    memory = encode(params, cfg, frames)
+    cache = init_cache(cfg, LM_BATCH, WHISPER_MAX_LEN, DEV, memory=memory,
+                       params=params)
+    logits, cache = decode_step(params, cfg, prompt, cache)
+    steps = [logits[:, -1]]
+    toks = [torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)]
+    for _ in range(WHISPER_GEN):
+        logits, cache = decode_step(params, cfg, toks[-1][:, None], cache)
+        steps.append(logits[:, -1])
+        toks.append(torch.argmax(logits[:, -1, :cfg.vocab], dim=-1))
+    torch.cuda.synchronize()
+    return steps, toks, time.perf_counter() - t0
+
+
+def whisper_path(rows: dict) -> dict:
+    """10(c): Whisper-small at its published size: ``encode`` over 2 x 1500
+    seeded frame embeddings, ``init_cache(memory=..., params=...)``, a
+    16-token prefill and 64 greedy ``decode_step``s, the same run with the
+    plain versions on the card: tokens equal, the first step's logits
+    within 1e-3."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dualmesh.runtime import random_prompts
+    from repro_torch.kernels.util import cuda_time_ms
+    from repro_torch.lm.model import decode_step, encode, init_cache
+    cfg = get_arch(WHISPER)
+    free_card(f"before {WHISPER}")
+    params, draw_s = draw_to_card(cfg, WHISPER)
+    frames = rand(np.random.default_rng(10),
+                  (LM_BATCH, cfg.enc_positions, cfg.d_model), 0.1)
+    prompt = random_prompts(cfg, 1, LM_BATCH, WHISPER_PROMPT, seed=5,
+                            device=DEV)[0]
+    with plain_kernels():
+        plain, plain_toks, plain_s = whisper_run(cfg, params, frames, prompt)
+    reset_counts()
+    got, toks, wall = whisper_run(cfg, params, frames, prompt)
+    launches = launch_counts()
+    norms, attn = forward_launches(cfg)
+    enc = cfg.enc_layers
+    check_counts(f"{WHISPER} run", launches, {
+        "rmsnorm": 2 * enc + 1 + (1 + WHISPER_GEN) * norms,
+        "flash_attention": enc + attn, "decode_attention":
+        WHISPER_GEN * attn})
+    for i, (a, b) in enumerate(zip(toks, plain_toks)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{WHISPER} step {i}: the kernels' tokens "
+                                 f"differ from the plain versions'")
+    errs = [(a - b).abs().max().item() for a, b in zip(got, plain)]
+    for i in (0, 1):                     # the prefill's, the first step's
+        if not torch.allclose(got[i], plain[i], rtol=FORWARD_TOL,
+                              atol=FORWARD_TOL):
+            raise AssertionError(f"{WHISPER} step {i}: the logits differ "
+                                 f"from the plain versions' by "
+                                 f"{errs[i]:.3e}")
+    walls = [wall, whisper_run(cfg, params, frames, prompt)[2]]
+    enc_ms = cuda_time_ms(lambda: encode(params, cfg, frames), reps=4)
+    memory = encode(params, cfg, frames)
+    cache = init_cache(cfg, LM_BATCH, WHISPER_MAX_LEN, DEV, memory=memory,
+                       params=params)
+    prefill_ms = cuda_time_ms(lambda: decode_step(params, cfg, prompt,
+                                                  cache), reps=4)
+    mid = WHISPER_PROMPT + WHISPER_GEN // 2
+    step_ms = graph_step_ms(params, cfg, cache, LM_BATCH, mid)
+    tokens = LM_BATCH * (WHISPER_PROMPT + 1 + WHISPER_GEN)
+    print(f"[blocks] {WHISPER}: {enc} encoder and {cfg.n_layers} decoder "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads (D {cfg.d_head}); "
+          f"encode 2 x {cfg.enc_positions} frames, a {WHISPER_PROMPT}-token "
+          f"prefill and {WHISPER_GEN} greedy decode steps: walls "
+          + ", ".join(f"{w * 1e3:.2f}" for w in walls)
+          + f" ms ({tokens / min(walls):.1f} tokens/s: prompt and generated "
+          f"tokens over the best wall; the plain versions' run "
+          f"{plain_s * 1e3:.2f} ms); launches {launches}; tokens equal the "
+          f"plain versions' on the card, the prefill's and the first "
+          f"step's logits within {max(errs[:2]):.2e} (tol {FORWARD_TOL}), "
+          f"every step's within {max(errs):.2e}")
+    print(f"[blocks] {WHISPER}: encode {enc_ms:.3f} ms, the prefill "
+          f"{prefill_ms:.3f} ms, a decode step {step_ms:.3f} ms (one graph "
+          f"replay at position {mid}), each on the device with the host "
+          f"held out")
+    del params, cache, memory
+    return dict(model=WHISPER, launches=launches,
+                kernels=weighted_sums(rows, block_request_calls(WHISPER, 1)),
+                draw_s=draw_s, walls=walls, plain_wall_s=plain_s,
+                tokens_per_s=tokens / min(walls), encode_ms=enc_ms,
+                prefill_ms=prefill_ms, graph_ms_per_step=step_ms,
+                first_step_max_abs_err=max(errs[:2]),
+                max_abs_err_steps=max(errs))
+
+
+def vl_inputs(cfg) -> dict:
+    """The prompt of 10(d): ``VL_GRID`` x ``VL_GRID`` patch embeddings at t
+    = 0 (h the row, w the column), then ``VL_TEXT`` text tokens whose
+    three position streams are equal and go on past the grid."""
+    gen = np.random.default_rng(11)
+    tokens = torch.from_numpy(gen.integers(
+        0, cfg.vocab, (LM_BATCH, VL_PROMPT))).to(DEV)
+    patches = rand(gen, (LM_BATCH, VL_GRID ** 2, cfg.d_model), 0.02)
+    cells = torch.arange(VL_GRID ** 2, device=DEV)
+    text = VL_GRID + torch.arange(VL_TEXT, device=DEV)
+    zero = torch.zeros_like(cells)
+    p3 = torch.stack([torch.cat([zero, text]),
+                      torch.cat([cells // VL_GRID, text]),
+                      torch.cat([cells % VL_GRID, text])])
+    return dict(tokens=tokens, patches=patches,
+                positions3=p3.expand(LM_BATCH, 3, VL_PROMPT).contiguous())
+
+
+def vl_run(cfg, params, inp, feed=None) -> tuple[list, list, float]:
+    """10(d)'s run: the forward over the prompt, its prefill by
+    ``decode_step`` with the patches, then ``VL_STEPS`` decode steps with
+    equal position streams past the text, fed ``feed`` (else their own
+    argmax).  Returns the logits (the forward's, the prefill's last
+    position, each step's), the tokens fed and the wall seconds."""
+    from repro_torch.lm.model import decode_step, forward, init_cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd = forward(params, cfg, inp["tokens"], positions3=inp["positions3"],
+                  extra_embeds=inp["patches"])
+    cache = init_cache(cfg, LM_BATCH, VL_MAX_LEN, DEV)
+    pre, cache = decode_step(params, cfg, inp["tokens"], cache,
+                             positions3=inp["positions3"],
+                             extra_embeds=inp["patches"])
+    outs, toks = [fwd, pre[:, -1]], []
+    nxt = pre[:, -1]
+    start = VL_GRID + VL_TEXT
+    for i in range(VL_STEPS):
+        tok = (feed[i] if feed is not None
+               else torch.argmax(nxt[:, :cfg.vocab], dim=-1))
+        toks.append(tok)
+        p3 = torch.full((LM_BATCH, 3, 1), start + i, device=DEV)
+        logits, cache = decode_step(params, cfg, tok[:, None], cache,
+                                    positions3=p3)
+        nxt = logits[:, -1]
+        outs.append(nxt)
+    torch.cuda.synchronize()
+    return outs, toks, time.perf_counter() - t0
+
+
+def vl_path(rows: dict) -> dict:
+    """10(d): Qwen2-VL-72B at its full width cut to ``VL_LAYERS`` of its 80
+    layers: the forward and the prefill over patches and text on M-RoPE,
+    16 decode steps, against the plain versions on the card at 1e-3; a
+    text-only forward on three equal streams bit-equal to RoPE's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.lm.model import decode_step, forward, init_cache
+    full = get_arch(VL_ARCH)
+    cfg = full.scaled(name=f"{VL_ARCH}_{VL_LAYERS}l", n_layers=VL_LAYERS)
+    free_card(f"before {VL_ARCH}")
+    params, draw_s = draw_to_card(
+        cfg, f"{VL_ARCH} cut to {VL_LAYERS} of its {full.n_layers} layers "
+        f"(full width: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, d_ff {cfg.d_ff}; {4 * full.param_count() / 1e9:.0f} GB f32"
+        f" at full depth does not fit one card)")
+    inp = vl_inputs(cfg)
+    with plain_kernels():
+        plain, plain_toks, plain_s = vl_run(cfg, params, inp)
+    reset_counts()
+    got, _, wall = vl_run(cfg, params, inp, feed=plain_toks)
+    launches = launch_counts()
+    norms = 2 * VL_LAYERS + 1
+    check_counts(f"{VL_ARCH} run", launches, {
+        "rmsnorm": (2 + VL_STEPS) * norms, "flash_attention": 2 * VL_LAYERS,
+        "decode_attention": VL_STEPS * VL_LAYERS})
+    errs = []
+    for i, (a, b) in enumerate(zip(got, plain)):
+        errs.append((a - b).abs().max().item())
+        if a.shape != b.shape or not torch.allclose(a, b, rtol=FORWARD_TOL,
+                                                    atol=FORWARD_TOL):
+            raise AssertionError(f"{VL_ARCH} output {i}: the kernels' logits "
+                                 f"differ from the plain versions' by "
+                                 f"{errs[-1]:.3e}")
+    walls = [wall, vl_run(cfg, params, inp, feed=plain_toks)[2]]
+    reset_counts()
+    same = torch.arange(VL_PROMPT, device=DEV).expand(LM_BATCH, 3, VL_PROMPT)
+    a = forward(params, cfg, inp["tokens"], positions3=same)
+    b = forward(params, cfg, inp["tokens"])
+    text = launch_counts()
+    check_counts(f"{VL_ARCH} text forwards", text, {
+        "rmsnorm": 2 * norms, "flash_attention": 2 * VL_LAYERS})
+    if not torch.equal(a, b):
+        raise AssertionError(f"{VL_ARCH}: the text forward on three equal "
+                             f"streams differs from RoPE's")
+    del a, b
+    launches = {k: n + text[k] for k, n in launches.items()}
+    fwd_ms = events_ms(lambda: forward(params, cfg, inp["tokens"],
+                                       positions3=inp["positions3"],
+                                       extra_embeds=inp["patches"]))
+    cache = init_cache(cfg, LM_BATCH, VL_MAX_LEN, DEV)
+    prefill_ms = events_ms(lambda: decode_step(
+        params, cfg, inp["tokens"], cache, positions3=inp["positions3"],
+        extra_embeds=inp["patches"]))
+    mid = VL_PROMPT + VL_STEPS // 2
+    p3 = torch.full((LM_BATCH, 3, 1), VL_GRID + VL_TEXT + VL_STEPS // 2,
+                    device=DEV)
+    step_ms = graph_step_ms(params, cfg, cache, LM_BATCH, mid, p3)
+    tokens = LM_BATCH * (VL_PROMPT + VL_STEPS)
+    print(f"[blocks] {VL_ARCH} cut to {VL_LAYERS} of {full.n_layers} "
+          f"layers: a prompt of {VL_GRID} x {VL_GRID} patches at t = 0 and "
+          f"{VL_TEXT} text tokens on M-RoPE, forward, prefill and "
+          f"{VL_STEPS} decode steps: walls "
+          + ", ".join(f"{w * 1e3:.2f}" for w in walls)
+          + f" ms ({tokens / min(walls):.1f} tokens/s: prompt and generated "
+          f"tokens over the best wall; the plain versions' run "
+          f"{plain_s * 1e3:.2f} ms); launches {launches}; the kernels' "
+          f"logits within {max(errs):.2e} of the plain versions' on the card"
+          f" (tol {FORWARD_TOL}); the text forward on three equal streams "
+          f"bit-equal to RoPE's")
+    print(f"[blocks] {VL_ARCH} cut: the forward {fwd_ms:.2f} ms and the "
+          f"prefill {prefill_ms:.2f} ms (events around one call), a decode "
+          f"step {step_ms:.3f} ms (one graph replay at position {mid}, host "
+          f"held out), on the whole card")
+    del params, cache
+    return dict(model=f"{VL_ARCH} ({VL_LAYERS} layers)", launches=launches,
+                kernels=weighted_sums(rows, block_request_calls(VL_ARCH, 1)),
+                layers=VL_LAYERS, draw_s=draw_s, walls=walls,
+                plain_wall_s=plain_s, tokens_per_s=tokens / min(walls),
+                forward_ms=fwd_ms, prefill_ms=prefill_ms,
+                graph_ms_per_step=step_ms, max_abs_err=max(errs))
+
+
+def blocks_path(rows: dict) -> list[dict]:
+    """Phase 10: (a) xLSTM-350M and (b) Zamba2-2.7B served, (c)
+    Whisper-small end to end, (d) Qwen2-VL-72B at full width and 8
+    layers; each run's launches counted from 0 and kept for the kernels
+    line."""
+    t0 = time.perf_counter()
+    free_card("before phase 10 (green contexts stay)")
+    out = [served_block(name, rows) for name in BLOCK_SERVED]
+    out.append(whisper_path(rows))
+    out.append(vl_path(rows))
+    free_card("after phase 10")
+    print(f"[blocks] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3316,14 +3892,16 @@ def main() -> int:
                                                                timing=True)
     print(f"[kernels] K7 decode also cut to the filled prefix (the former "
           f"path's calls): {len(former)} shapes checked and timed")
-    edges = edge_calls() + lm_edge_calls() + lm_geometry_edge_calls()
+    edges = (edge_calls() + lm_edge_calls() + lm_geometry_edge_calls()
+             + block_edge_calls())
     for c in edges:
         r = check_and_time(c, gen, timing=False)
         plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
         print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<40} err "
               f"{r['max_abs_err']:.1e}{plan}")
     print(f"[kernels] all kernels agree with their plain versions "
-          f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes, "
+          f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes (phase "
+          f"10's {len(block_calls())} among them), "
           f"{len(geometry)} head geometries and {len(edges)} edge cases")
     mark("2")
 
@@ -3363,7 +3941,12 @@ def main() -> int:
     design = design_path()
     mark("9")
 
-    # 10. report ----------------------------------------------------------
+    # 10. blocks ----------------------------------------------------------
+    blocks = blocks_path(rows)
+    paths += blocks
+    mark("10")
+
+    # 11. report ----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -3386,7 +3969,8 @@ def main() -> int:
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
         former_decode_rows=list(former.values()),
         paths=paths, granite=granite, split=split, workers=workers,
-        control=control, design=design, phase_s=phase_s, kernels=kernels),
+        control=control, design=design, blocks=blocks, phase_s=phase_s,
+        kernels=kernels),
         indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")
@@ -3401,10 +3985,11 @@ def main() -> int:
     print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
           f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
           f"the kernel (an LM request: its prefill and its share of its "
-          f"decode group's steps), ms on all of the card's SMs, "
+          f"decode group's steps; Whisper's and Qwen2-VL's whole phase-10 "
+          f"run), ms on all of the card's SMs, "
           f"partition_ms each call on its core's partition of the split at "
           f"theta {SPLIT_THETA} (the fuse=True forward's on the whole "
-          f"card); launches are phases 3-5's counted runs; "
+          f"card); launches are phases 3-5's and 10's counted runs; "
           f"{time.perf_counter() - t_start:.1f} s total (phases "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + " s)")
     print(json.dumps({"kernels": kernels}))
@@ -3418,11 +4003,11 @@ def main() -> int:
 def path_call_list() -> list[dict]:
     """Every kernel call of one request of each path, in path order: the
     CNN paths' (``cnn_path_calls``), then the LM's at each planned decode
-    group size."""
+    group size, then phase 10's (``block_calls``)."""
     calls = cnn_path_calls()
     for size in sorted(set(lm_group_sizes())):
         calls += [c for c, _ in lm_request_calls(size)]
-    return calls
+    return calls + block_calls()
 
 
 def cnn_path_calls() -> list[dict]:

@@ -100,7 +100,8 @@
 //     scratch in device memory, no atomics, the same bits on every stream.
 // `kv_len` (per batch row, may be NULL) is clamped to [0, Sk]; tiles past
 // it are not loaded, and a row with no visible key is written as 0.
-// Limits: G <= 48, D a power of two from 4 (8 where G > 8) to 128.
+// Limits: G <= 48, D up to 128: a power of two from 4 (8 where G > 8),
+// or a multiple of 8 (Zamba2's 80).
 //
 // No atomics: the result does not depend on the stream or the launch.
 #include <math.h>
@@ -492,15 +493,18 @@ int smem_floats(int G, int D, int slots, int cl, bool tc) {
 }
 
 // Stage tile `key0` .. + TK of K and V into dst ([2 TK][KS]: K rows, then
-// V rows) with `n` threads, thread `t`; rows at or past nk are zero.
-// quads = D / 4 divides n.
+// V rows) with `n` threads, thread `t`; rows at or past nk are zero.  A
+// thread copies quad t % quads of rows t / quads + k n / quads, quads = D /
+// 4 <= n; where quads does not divide n (D = 80: 20 quads), the last n %
+// quads threads copy nothing.
 __device__ __forceinline__ void stage_tile(float* dst, const float* kb,
                                            const float* vb, int key0, int nk,
                                            int D, int KS, int t, int n,
                                            bool vec) {
   const int quads = D / 4;
-  const int qd = t & (quads - 1);
   const int rstep = n / quads;
+  if (t >= rstep * quads) return;
+  const int qd = t % quads;
   for (int r = t / quads; r < 2 * TK; r += rstep) {
     const int half = r >= TK;
     const int rr = r - half * TK;
@@ -1010,7 +1014,8 @@ extern "C" int repro_decode_attention(const float* q, const float* k,
                                       int cl, int slots, int smem, int vec,
                                       float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || D < 4 ||
-      D > MAX_D || (D & (D - 1)) != 0 || kv_cap < Sk || cl < 1 ||
+      D > MAX_D || ((D & (D - 1)) != 0 && D % 8 != 0) || kv_cap < Sk ||
+      cl < 1 ||
       cl > (Sk > 0 ? repro_cdiv(Sk, dec::TK) : 1) || B * Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;

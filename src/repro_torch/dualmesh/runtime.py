@@ -17,10 +17,14 @@ p-core may still read them.  Each decode group records its own ready
 event after its last step or eviction; completions wait on that one
 event, never on the whole device.
 
-The KV cache is written in place (no copy per step): prefill writes a
+The cache is written in place (no copy per step): prefill writes a
 stream's cache on the c-core; the fuse copies the members' caches and
 tokens into a :class:`DecodeLane` on the p-core, and from then on only the
-p-core writes it.  No buffer is written by both streams.
+p-core writes it.  No buffer is written by both streams.  A lane holds
+every row field of the family's cache (``lm/model.py``'s ``ROW_FIELDS``:
+the KV cache, the SSM states and convolution tails, Zamba2's shared
+block's KV caches), and the fuse and the eviction move each along its
+batch axis, as the reference's ``_concat_caches`` and ``_take_rows`` do.
 
 Compiled decode (``jit_groups``, the reference's ``jax.jit`` of
 ``decode_fn``): a decode group runs on a lane, the static buffers of its
@@ -29,7 +33,8 @@ every generated token, at its position) and the device position.  One
 fused step (embed, every layer, the final norm, the LM head, the argmax
 written into the token buffer, the position advanced) reads and writes
 only those, at the same shapes at every position (``lm/model.py``'s
-shape-static decode), so on the card it is captured once per lane into a
+shape-static decode; an SSM layer steps its state in place), so on the
+card it is captured once per lane into a
 CUDA graph, on the p-core's capture stream so that its kernels run on
 the p-core's SMs, and replayed once a step.  Lanes are pooled per key: the fuse
 and the eviction copy into a free lane of their width (a new capture when
@@ -41,7 +46,8 @@ CPU, the same step runs eagerly on the same lanes.  Prefill stays eager.
 Streams fuse only at equal cache position, because a group's position is
 one host int (and one device scalar); equal-length prompts always align.
 ``run_two_streams`` is the N=2, group_size=1 case, the paper's two-image
-interleave.
+interleave.  An encoder-decoder model is refused: serving has no encoder
+input for its cache (the reference's ``init_cache`` asserts on it).
 """
 from __future__ import annotations
 
@@ -59,8 +65,8 @@ from repro_torch.dualmesh.partition import DualStreams
 from repro_torch.dualmesh.schedule import plan_admission
 from repro_torch.kernels.util import CountedGraph, capture_graph
 from repro_torch.lm.config import ArchConfig
-from repro_torch.lm.model import (DecodeCache, check_supported, decode_step,
-                                  init_cache)
+from repro_torch.lm.model import (DecodeCache, cache_rows, check_supported,
+                                  decode_step, init_cache, rows_cache)
 
 
 @dataclasses.dataclass
@@ -81,8 +87,7 @@ class DecodeLane:
     cache capacity), and the graph of one step over them (on the card)."""
 
     key: tuple[int, int]
-    kv_k: torch.Tensor         # (L, rows, Hkv, capacity, Dh)
-    kv_v: torch.Tensor
+    cache: dict[str, torch.Tensor]   # the cache's row fields, by name
     seq: torch.Tensor          # (rows, capacity + 1) int64: every token
     pos: torch.Tensor          # () int32: positions cached
     logits: torch.Tensor | None = None   # the last step's (rows, 1, V)
@@ -125,6 +130,17 @@ class ServeResult:
     stats: dict
 
 
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise unless the runtime can serve ``cfg``: ``check_supported``'s
+    architectures but the encoder-decoder ones, whose cache needs the
+    encoder's output, which a serving request does not carry."""
+    check_supported(cfg)
+    if cfg.encoder_decoder:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model is not "
+                         f"served: serving has no encoder input for its "
+                         f"cross-attention cache")
+
+
 class DualMeshRunner:
     """Runs chunked prefills on the c-core and fused decode batches on the
     p-core of one device, N request streams interleaved.
@@ -142,7 +158,7 @@ class DualMeshRunner:
 
     def __init__(self, cfg: ArchConfig, params: dict, dual: DualStreams,
                  max_len: int = 256, jit_groups: bool = True):
-        check_supported(cfg)
+        check_servable(cfg)
         self.cfg = cfg
         self.dual = dual
         self.device = dual.device
@@ -248,14 +264,12 @@ class DualMeshRunner:
         of one step over them, after one eager step if the key is new."""
         rows, cap = key
         cfg, dev = self.cfg, self.device
-        shape = (cfg.n_layers, rows, cfg.n_kv_heads, cap, cfg.d_head)
         lane = DecodeLane(
-            key=key, kv_k=torch.zeros(shape, device=dev),
-            kv_v=torch.zeros(shape, device=dev),
+            key=key, cache=cache_rows(init_cache(cfg, rows, cap, dev)),
             seq=torch.zeros((rows, cap + 1), dtype=torch.int64, device=dev),
             pos=torch.zeros((), dtype=torch.int32, device=dev))
         lane.nbytes = sum(t.numel() * t.element_size()
-                          for t in (lane.kv_k, lane.kv_v, lane.seq, lane.pos))
+                          for t in (*lane.cache.values(), lane.seq, lane.pos))
         if not self._compiled:
             return lane
         if not self.lanes.lanes.get(key):
@@ -282,9 +296,8 @@ class DualMeshRunner:
         caller's to check, on the host."""
         at = lane.pos.reshape(1).long()
         tok = lane.seq.index_select(1, at)
-        logits, cache = decode_step(
-            self.params, self.cfg, tok,
-            DecodeCache(lane.kv_k, lane.kv_v, 0, lane.pos))
+        logits, cache = decode_step(self.params, self.cfg, tok,
+                                    rows_cache(lane.cache, 0, lane.pos))
         nxt = torch.argmax(logits[:, -1, :self.cfg.vocab], dim=-1)
         lane.seq.index_copy_(1, cache.pos_dev.reshape(1).long(),
                              nxt[:, None])
@@ -316,15 +329,15 @@ class DualMeshRunner:
                 if p is not None:
                     if s.ready is not None:
                         p.wait_event(s.ready)
-                    for t in (s.tokens, s.cache.kv_k, s.cache.kv_v):
+                    for t in (s.tokens, *cache_rows(s.cache).values()):
                         t.record_stream(p)
                 b = s.tokens.shape[0]
                 members.append(_Member(rid=s.rid, row0=row, batch=b,
                                        remaining=s.gen_target))
                 row += b
             lane = self._take_lane(row)
-            torch.cat([s.cache.kv_k for s in streams], 1, out=lane.kv_k)
-            torch.cat([s.cache.kv_v for s in streams], 1, out=lane.kv_v)
+            for f, buf in lane.cache.items():
+                torch.cat([getattr(s.cache, f) for s in streams], 1, out=buf)
             for m, s in zip(members, streams):
                 lane.seq[m.row0:m.row0 + m.batch, :pos + 1].copy_(s.tokens)
             lane.pos.fill_(pos)
@@ -370,10 +383,9 @@ class DualMeshRunner:
             if alive:
                 rows = [(m.row0, m.row0 + m.batch) for m in alive]
                 new = self._take_lane(sum(b - a for a, b in rows))
-                torch.cat([old.kv_k[:, a:b] for a, b in rows], 1,
-                          out=new.kv_k)
-                torch.cat([old.kv_v[:, a:b] for a, b in rows], 1,
-                          out=new.kv_v)
+                for f, buf in new.cache.items():
+                    torch.cat([old.cache[f][:, a:b] for a, b in rows], 1,
+                              out=buf)
                 new.seq[:, :end].copy_(torch.cat(
                     [old.seq[a:b, :end] for a, b in rows], 0))
                 new.pos.copy_(old.pos)

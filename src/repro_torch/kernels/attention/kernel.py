@@ -20,7 +20,8 @@ shared memory, so no scratch is allocated and the bits do not depend on
 the stream.  GQA groups above 8 run their two products on the tensor
 cores in 3xTF32, smaller ones on the CUDA cores; ``plan.py``'s
 ``plan_decode`` chooses that, the cluster and the slots from the shape.
-Its limits: G <= 48, D a power of two from 4 (8 where G > 8) to 128.
+Its limits: G <= 48, D up to 128: a power of two from 4 (8 where G > 8),
+or a multiple of 8 (Zamba2's 80).
 
 k and v may be the first Sk rows of a longer cache (a view cut along the
 sequence axis): the kernels read the cache in place.  q must be

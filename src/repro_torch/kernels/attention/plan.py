@@ -168,10 +168,11 @@ def _check(b: int, hq: int, hkv: int, sk: int, d: int) -> None:
     if b < 1 or hkv < 1 or hq % hkv or sk < 0:
         raise ValueError(f"decode: shape B={b} Hq={hq} Hkv={hkv} Sk={sk}")
     g = hq // hkv
-    if g > MAX_G or d > MAX_D or d < 4 or d & (d - 1) or (g > GM and d < 8):
+    if (g > MAX_G or d > MAX_D or d < 4 or (d & (d - 1) and d % 8)
+            or (g > GM and d < 8)):
         raise ValueError(f"decode: G={g}, D={d} is past the kernel: G <= "
-                         f"{MAX_G}, D a power of two from 4 (8 where G > "
-                         f"{GM}) to {MAX_D}")
+                         f"{MAX_G}, D up to {MAX_D}, a power of two from 4 "
+                         f"(8 where G > {GM}) or a multiple of 8")
     if b * hkv > 65535:
         raise ValueError(f"decode: B * Hkv = {b * hkv} is past the grid")
 

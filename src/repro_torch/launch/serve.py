@@ -12,7 +12,10 @@ serves the published configuration (``--smoke``: the reduced one) with
 seeded random weights through a ``DualMeshEngine``: chunked prefills on
 the c-core, fused decode groups on the p-core, the two cores two green
 contexts on disjoint SMs of the card split at ``--theta``; every RMSNorm
-launches K6 and every attention K7.  With ``--search`` the §V-B design
+launches K6 and every attention K7.  Every registered architecture serves
+but Whisper (``whisper_small``: serving has no encoder input, a
+``ValueError``); xLSTM and Zamba2 carry their SSM states in the decode
+lanes, and Qwen2-VL serves text on RoPE, as the reference does.  With ``--search`` the §V-B design
 flow picks theta first: a branch and bound over the card's SMs
 (``dualmesh/search.py``; with ``--plan-chips N`` over N abstract cards,
 as the reference plans), and the design-flow line prints the theta, both
@@ -96,7 +99,8 @@ from repro_torch.core.scheduler import best_schedule, build_schedule
 from repro_torch.core.simulator import simulate_dual_core
 from repro_torch.dualcore.runtime import DualCoreRunner
 from repro_torch.dualmesh.partition import split_streams
-from repro_torch.dualmesh.runtime import DualMeshRunner, random_prompts
+from repro_torch.dualmesh.runtime import (DualMeshRunner, check_servable,
+                                          random_prompts)
 from repro_torch.dualmesh.schedule import plan_admission, request_stages
 from repro_torch.dualmesh.search import card_model, search
 from repro_torch.fleet import (POLICY_NAMES, ControlLoop, FaultInjector,
@@ -144,6 +148,7 @@ def serve_lm(args) -> int:
         _fail("--plan-chips N takes --search and N >= 2")
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    check_servable(cfg)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # full f32, as XLA
         print(f"[serve] kernels built and loaded in {timed_build():.1f} s")

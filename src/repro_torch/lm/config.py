@@ -3,7 +3,7 @@
 Port of ``repro/lm/config.py``, copied with its derived properties: one
 frozen dataclass covers all five families (dense / moe / hybrid / enc-dec /
 recurrent); family-specific fields are zero/None when unused.  The port
-runs the dense transformer only; its instances live in
+runs every family; its instances live in
 ``repro_torch.configs.<arch_id>`` and are registered in
 ``repro_torch.configs.registry``.
 """

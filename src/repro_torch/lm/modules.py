@@ -1,9 +1,9 @@
-"""Transformer building blocks of the dense and MoE LMs.
+"""Transformer building blocks of the LMs.
 
-Port of the transformer part of ``repro/lm/modules.py``: RoPE, the KV
-cache, GQA attention, the SwiGLU MLP and the MoE block (shared experts and
-routed top-k experts), over plain dictionaries of tensors with weights in
-the reference's (d_in, d_out) layout.  The
+Port of ``repro/lm/modules.py``: RoPE and Qwen2-VL's M-RoPE, the KV cache,
+GQA attention, Whisper's cross-attention, the SwiGLU MLP and the MoE block
+(shared experts and routed top-k experts), over plain dictionaries of
+tensors with weights in the reference's (d_in, d_out) layout.  The
 reference's ``rms_norm`` has no counterpart here: ``lm/model.py`` calls
 K6's wrapper ``rmsnorm`` itself.
 
@@ -64,6 +64,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+def mrope_freqs(d_head: int, theta: float, positions3: torch.Tensor,
+                sections: tuple[int, ...]
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's M-RoPE: positions3 (B, 3, S) int (t/h/w); the d_head//2
+    rotary frequencies are split into ``sections`` bands, each driven by
+    one position stream -> cos/sin (B, S, d_head//2) f32.  With three
+    equal streams it gives :func:`rope_freqs`'s values, bit for bit."""
+    half = d_head // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope_freqs: sections {sections} do not sum to "
+                         f"{half}")
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=positions3.device) / half))
+    cos_parts, sin_parts = [], []
+    start = 0
+    for band, sec in enumerate(sections):
+        pos = positions3[:, band].to(torch.float32)             # (B, S)
+        ang = pos[..., None] * inv[start:start + sec]           # (B, S, sec)
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        start += sec
+    return torch.cat(cos_parts, -1), torch.cat(sin_parts, -1)
+
+
+def rotary(cfg, positions: torch.Tensor,
+           positions3: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (cos, sin) a block of ``cfg`` rotates q and k by: M-RoPE of
+    ``positions3`` where ``cfg.mrope`` and they are given, else RoPE of
+    ``positions`` (the reference's choice in ``gqa_attention``)."""
+    if cfg.mrope and positions3 is not None:
+        return mrope_freqs(cfg.d_head, cfg.rope_theta, positions3,
+                           cfg.mrope_sections)
+    return rope_freqs(cfg.d_head, cfg.rope_theta, positions)
+
+
 # --------------------------------------------------------------------------
 # Attention (GQA, optional bias, optional KV cache)
 # --------------------------------------------------------------------------
@@ -112,16 +148,18 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg,
                   cache: KVCache | None = None,
                   cache_pos: int | DecodePosition | None = None,
                   causal: bool = True,
-                  rope: tuple[torch.Tensor, torch.Tensor] | None = None):
+                  rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  positions3: torch.Tensor | None = None):
     """Full attention block: qkv proj -> rope -> attention -> out proj.
 
     Returns (out, cache).  With a cache, the block's k/v are written in
     place at ``cache_pos``: a host int, and attention runs over the cache
     cut to ``cache_pos + S``; or, for one token, a
     :class:`DecodePosition`, and attention runs over the whole cache
-    masked to its ``kv_len`` (module docstring).  ``rope`` passes the
-    (cos, sin) of ``positions`` when the caller has them already (one per
-    forward, not per layer)."""
+    masked to its ``kv_len`` (module docstring).  q and k rotate by
+    :func:`rotary` of ``positions`` and ``positions3``; ``rope`` passes
+    that (cos, sin) when the caller has it already (one per forward, not
+    per layer)."""
     b, s, _ = x.shape
     q = torch.matmul(x, params["wq"])
     k = torch.matmul(x, params["wk"])
@@ -133,8 +171,8 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg,
     q = q.reshape(b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    cos, sin = rope if rope is not None else rope_freqs(
-        cfg.d_head, cfg.rope_theta, positions)
+    cos, sin = rope if rope is not None else rotary(cfg, positions,
+                                                    positions3)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -159,6 +197,38 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg,
                                causal=causal, q_offset=0)
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return torch.matmul(out, params["wo"]), cache
+
+
+def cross_kv(params: dict, memory: torch.Tensor, cfg
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whisper's cross-attention keys and values of the encoder output
+    ``memory`` (B, M, D): k and v (B, H, M, Dh)."""
+    b, m, _ = memory.shape
+    k = torch.matmul(memory, params["wk"]).reshape(
+        b, m, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    v = torch.matmul(memory, params["wv"]).reshape(
+        b, m, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    return k, v
+
+
+def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, cfg) -> torch.Tensor:
+    """The queries of x (B, S, D) against cross keys and values k, v (B, H,
+    M, Dh), no mask (K7: flash, or decode for one query row), then the
+    output projection."""
+    b, s, _ = x.shape
+    q = torch.matmul(x, params["wq"]).reshape(
+        b, s, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    out = attention_scores(q, k, v, causal=False, q_offset=0)
+    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return torch.matmul(out, params["wo"])
+
+
+def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """Whisper decoder cross-attention (memory = encoder output)."""
+    k, v = cross_kv(params, memory, cfg)
+    return cross_attend(params, x, k.contiguous(), v.contiguous(), cfg)
 
 
 # --------------------------------------------------------------------------

@@ -796,6 +796,70 @@ def test_moe_decode_graph_bit_equal_eager_on_card(width, card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 16], ids=["G1", "G16"])
+@pytest.mark.parametrize("lens", [None, [576, 0, 1, 300]],
+                         ids=["full", "ragged"])
+def test_k7_decode_at_d80_on_card(g, lens, card):
+    """K7 decode at Zamba2's head width, 80 (no power of two), on the CUDA
+    cores (G 1) and the tensor cores (G 16), whole or ragged down to
+    ``kv_len`` 0 and 1: one launch a call, within 1e-4 of the plain
+    version, the same bits on two other streams."""
+    call = dict(kernel="decode_attention", b=4, hq=2 * g, hkv=2, sk=576,
+                d=80, cap=600, kv_len=lens)
+    case = chip_smoke.make_case(call, np.random.default_rng(17))
+    before = decode_attention.launches
+    got = case["kernel"]()
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = case["plain"]()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    if lens is not None:
+        assert not got[1].any()                 # kv_len 0: written as 0
+    first, outs = _on_two_streams(case)
+    assert torch.equal(first, got) and all(torch.equal(got, o)
+                                           for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xlstm_350m", "zamba2_2_7b"])
+def test_ssm_decode_graph_bit_equal_eager_on_card(name, card):
+    """xLSTM and Zamba2 at smoke width: a fused decode group of two
+    streams (their SSM states, convolution tails and shared-block KV
+    caches in the lane) captured as a graph and replayed, bit-equal to the
+    same steps run eagerly, step by step; then an eviction moves every
+    field's rows and the graph of the narrower lane goes on bit-equal."""
+    cfg = get_smoke(name)
+    params = params_from_numpy(init_params(cfg, seed=0), card)
+    prompts = random_prompts(cfg, 2, 2, 8, seed=4, device=card)
+    runs = []
+    for jit in (True, False):
+        r = DualMeshRunner(cfg, params, split_streams(card), max_len=24,
+                           jit_groups=jit)
+        streams = [r.run_prefill(r.new_stream(p, gen, rid=i))
+                   for i, (p, gen) in enumerate(zip(prompts, (3, 8)))]
+        g = r._fuse(streams)
+        assert set(g.lane.cache) == ({"ssm"} if name == "xlstm_350m" else
+                                     {"ssm", "conv", "shared_k", "shared_v"})
+        logits, outs = [], {}
+        for _ in range(6):
+            r._decode_group(g, 1)
+            r.dual.cores.synchronize()
+            logits.append(g.lane.logits.clone())
+            if min(m.remaining for m in g.members) <= 0:
+                g = r._evict(g, outs)
+        assert (g.lane.graph is not None) == jit
+        r.dual.cores.synchronize()
+        runs.append((logits, {k: v[0].clone() for k, v in outs.items()},
+                     g.lane.seq[:, :g.pos + 1].clone()))
+    (la, oa, sa), (lb, ob, sb) = runs
+    assert [x.shape[0] for x in la] == [4] * 3 + [2] * 3
+    for a, b in zip(la, lb):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert oa.keys() == ob.keys() == {0}
+    assert torch.equal(oa[0], ob[0]) and torch.equal(sa, sb)
+
+
+@pytest.mark.cuda
 def test_search_on_card_makes_no_green_context(card):
     """The design-flow search plans on the card's SM counts alone: the
     number of green contexts is the same before and after, and the plan

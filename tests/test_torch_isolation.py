@@ -135,7 +135,8 @@ def test_fleet_modules_are_the_ports_own(name):
     assert (ROOT / "src" / "repro" / f"{name}.py").is_file()
 
 
-#: the LM slices' modules, the design flow and the MoE configs among them:
+#: the LM slices' modules, the design flow, the MoE configs and the SSM,
+#: hybrid, encoder-decoder and M-RoPE families among them:
 #: each a copy of the reference module at the same path, importing neither
 #: JAX nor ``repro``
 LM_MODULES = ("lm/config", "lm/modules", "lm/model", "dualmesh/__init__",
@@ -143,7 +144,9 @@ LM_MODULES = ("lm/config", "lm/modules", "lm/model", "dualmesh/__init__",
               "dualmesh/search", "dualmesh/runtime", "serving/lm",
               "configs/registry", "configs/qwen2_0_5b", "configs/qwen2_5_14b",
               "configs/granite_20b", "configs/command_r_plus_104b",
-              "configs/qwen2_moe_a2_7b", "configs/granite_moe_3b_a800m")
+              "configs/qwen2_moe_a2_7b", "configs/granite_moe_3b_a800m",
+              "lm/ssm", "configs/xlstm_350m", "configs/zamba2_2_7b",
+              "configs/whisper_small", "configs/qwen2_vl_72b")
 
 
 @pytest.mark.parametrize("name", LM_MODULES)

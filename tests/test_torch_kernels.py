@@ -475,7 +475,8 @@ def test_k3_planner_covers_the_call_once(call):
 DECODE_CASES = [(16, 14, 2, sk, 64) for sk in (513, 544, 575)] + [
     (16, 40, 8, 576, 128), (16, 48, 1, 576, 128), (16, 96, 8, 576, 128),
     (4, 14, 2, 576, 64), (3, 14, 2, 100, 8), (1, 14, 2, 0, 64),
-    (2, 6, 1, 9000, 16)]
+    (2, 6, 1, 9000, 16), (16, 32, 32, 576, 80), (4, 32, 2, 300, 80),
+    (2, 12, 12, 1500, 64)]
 
 
 @pytest.mark.parametrize("call", DECODE_CASES, ids=[
@@ -511,7 +512,7 @@ def test_k3_decode_planners_are_deterministic_and_refuse_what_cannot_fit():
     with pytest.raises(ValueError, match="no tiling fits"):
         gplan.plan_k3(1, 3, 3, 4, 9_000_000, 3, 3, 1, 1, True)
     for bad in [(1, 49, 1, 64, 128), (1, 14, 2, 64, 256), (1, 14, 2, 64, 12),
-                (1, 32, 2, 64, 4)]:
+                (1, 32, 2, 64, 4), (1, 14, 2, 64, 20), (1, 14, 2, 64, 136)]:
         with pytest.raises(ValueError, match="past the kernel"):
             aplan.plan_decode(*bad)
 

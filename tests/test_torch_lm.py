@@ -27,6 +27,7 @@ import torch
 
 from repro.configs.registry import get_arch as ref_get_arch
 from repro.configs.registry import get_smoke as ref_get_smoke
+from repro.configs import registry as ref_registry
 from repro.dualmesh import DualMeshRunner as RefRunner
 from repro.dualmesh import TpuModel
 from repro.dualmesh import cost as ref_cost
@@ -73,9 +74,9 @@ REF_HW = CardModel(peak_flops=197e12, mem_bw=819e9, link_bw=50e9,
                    mem_bytes=16 * 1024 ** 3)
 # the registered MoE configs
 MOE = ("qwen2_moe_a2_7b", "granite_moe_3b_a800m")
-# the reference's architectures whose blocks the port lacks (ROADMAP queue
-# 1 item 6.4): SSM, hybrid, encoder-decoder and M-RoPE
-LACKING = ("xlstm_350m", "zamba2_2_7b", "whisper_small", "qwen2_vl_72b")
+# the SSM, hybrid, encoder-decoder and M-RoPE architectures (their parity
+# with the reference is tests/test_torch_blocks.py's)
+BLOCKS = ("xlstm_350m", "zamba2_2_7b", "whisper_small", "qwen2_vl_72b")
 
 
 def _arrays(seed, *shapes, scale=1.0):
@@ -112,9 +113,12 @@ def test_configs_match_reference():
 
 
 def test_registry_refuses_an_architecture_the_port_lacks():
+    """The registry lists the reference's ten architectures and refuses
+    any other name, naming the ones it has."""
     with pytest.raises(KeyError, match="qwen2_0_5b"):
-        get_arch("xlstm_350m")
-    assert ARCH_IDS == (ARCH, *DENSE, *MOE)
+        get_arch("no_such_arch")
+    assert ARCH_IDS == (ARCH, *DENSE, *MOE, *BLOCKS)
+    assert sorted(ARCH_IDS) == sorted(ref_registry.ARCH_IDS)
 
 
 @pytest.mark.parametrize("name", DENSE)
@@ -163,20 +167,23 @@ def test_init_params_has_the_reference_shapes(smoke):
     assert abs(float(mine["embed"].std()) - model.INIT_SCALE) < 1e-3
     again = model.init_params(cfg, seed=0)
     assert np.array_equal(again["lm_head"], mine["lm_head"])
-    ssm = ref_get_arch("xlstm_350m")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 6.4"):
-        model.init_params(dataclasses.replace(
-            get_smoke(ARCH), family=ssm.family, block_type=ssm.block_type))
+    ssm = ref_get_smoke("xlstm_350m")
+    ref_ssm = ref_model.init_params(ssm, jax.random.PRNGKey(0))
+    assert jax.tree.map(lambda a: tuple(a.shape), model.init_params(ssm)) \
+        == jax.tree.map(lambda a: tuple(a.shape), ref_ssm)
+    assert model.init_params(ssm)["blocks"]["wq"].shape == (
+        ssm.n_layers, ssm.d_model, ssm.d_inner)
 
 
-@pytest.mark.parametrize("name", LACKING)
+@pytest.mark.parametrize("name", BLOCKS)
 def test_check_supported_refuses_the_blocks_the_port_lacks(name):
-    """SSM, hybrid, encoder-decoder and M-RoPE: refused, naming item 6.4;
-    the registry does not list them."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 6.4"):
-        model.check_supported(ref_get_smoke(name))
-    assert name not in ARCH_IDS
+    """SSM, hybrid, encoder-decoder and M-RoPE: accepted, and the registry
+    lists them; a block type the reference has not is refused."""
+    model.check_supported(ref_get_smoke(name))
+    assert name in ARCH_IDS
+    with pytest.raises(NotImplementedError, match="not an architecture"):
+        model.check_supported(dataclasses.replace(ref_get_smoke(name),
+                                                  block_type="slstm"))
 
 
 # --------------------------------------------------------------------------
