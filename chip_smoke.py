@@ -246,7 +246,30 @@ any failure raises and the script exits non-zero:
             forward on RoPE; for (c) and (d) walls, tokens/s, the prefill's
             device time and a decode step's graph replay.  Each run's
             launches are counted from 0 and count in the kernels line;
-11. report  one ``[report]`` line for each path and kernel (launches,
+11. train   training on the card, every earlier phase's tensors freed
+            first: (a) the port's backward kernels (K6's ``rmsnorm_bwd``,
+            K7 flash's ``flash_attention_bwd``) and the forwards as
+            training launches them (K6 the plain way, K7 flash with its
+            log-sum-exp) against their plain versions at the path's
+            shapes (K6 4096 x 896; K7 B 8, Hq 14, Hkv 2, S 512, D 64,
+            causal) and at edges (non-causal, a chunk, ``sk_valid`` < Sk,
+            Sq != Sk, G 1 and 7, D 64, 80 and 128, rows that see no key),
+            rtol = atol = 1e-4, each run twice for the same bits, timed
+            beside their bounds and the library's backward (autograd of
+            ``F.rms_norm``, SDPA's backward); K7 flash's output bit-equal
+            with and without the log-sum-exp under every plan; (b)
+            Qwen2-0.5B at full width and depth through
+            ``launch/train.py``: 8 steps of 8 x 512 tokens, checkpoints
+            at steps 0 and 8 into a temporary directory, losses finite
+            and falling, launches a step as planned (K6 97, K7 flash 48,
+            K6 backward 49, K7 flash backward 24), the step-8 checkpoint
+            restored bit-equal to the live state; walls, tokens/s, peak
+            memory, each save's seconds and bytes; (c) the run's first
+            step against the plain versions on the card (loss 1e-5,
+            gradient norm 1e-4, each leaf within 1e-3 of its largest
+            magnitude); (d) recovery at the smoke config, a fault at step
+            6, against a clean run;
+12. report  one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line; the host seconds of each phase.
@@ -260,6 +283,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -359,6 +383,8 @@ FUSED_KERNELS = ("fused_dw_pw_conv", "fused_pw_dw_pw_conv")  # K4, K5
 # their products in 3xTF32 on the tensor cores, K7 decode where G > 8
 PLANNED = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
            *FUSED_KERNELS, "flash_attention", "decode_attention")
+# the backward kernels, which only training (phase 11) launches
+TRAINING_ONLY = ("rmsnorm_bwd", "flash_attention_bwd")
 # the sources whose -Xptxas -v report setup prints
 PTXAS_SOURCES = ("matmul_bias_act", "depthwise_conv2d",
                  "conv2d_implicit_gemm", *FUSED_KERNELS, "flash_attention",
@@ -412,8 +438,10 @@ def kernel_table():
                                                       flash_attention)
     from repro_torch.kernels.attention.ref import (decode_attention_ref,
                                                    flash_attention_ref)
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.attention.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
     return {
         "matmul_bias_act": dict(
             fn=matmul_bias_act, plain=matmul_bias_act_ref,
@@ -447,6 +475,17 @@ def kernel_table():
             fn=decode_attention, plain=decode_attention_ref,
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/attention/kernel.py:133"),
+        # the port's backward kernels: no TPU kernel is a backward (the
+        # reference trains through rmsnorm_ref, XLA's attention and
+        # jax.grad); "replaces" names the TPU forward each differentiates
+        "rmsnorm_bwd": dict(
+            fn=rmsnorm_bwd, plain=rmsnorm_bwd_ref,
+            source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm/kernel.py:28"),
+        "flash_attention_bwd": dict(
+            fn=flash_attention_bwd, plain=flash_attention_bwd_ref,
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/attention/kernel.py:74"),
     }
 
 
@@ -2288,7 +2327,8 @@ def split_path(served: dict, lm_keep: dict) -> dict:
     fleet = split_fleet(served)
     lm = split_lm(lm_keep)
     launches = launch_counts()
-    idle = [k for k, n in launches.items() if n == 0]
+    idle = [k for k, n in launches.items()
+            if n == 0 and k not in TRAINING_ONLY]
     if idle:
         raise AssertionError(f"split: {idle} never launched in the phase")
     print(f"[split] launches over the phase {launches} (not in the "
@@ -3812,6 +3852,434 @@ def blocks_path(rows: dict) -> list[dict]:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: training
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "qwen2_0_5b"
+TRAIN_STEPS = 8
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+# the backward kernels against their plain versions: both f32; the
+# kernels sum in another order (K7's recomputed P from the forward's
+# 3xTF32 log-sum-exp, dK and dV over the G heads' 512 rows), which moves
+# the last bits of sums of up to G x Sq terms
+BWD_TOL = 1e-4
+# (c): the step's loss and gradient norm, kernels against plain versions
+# on the card, and each leaf's gradient within this share of its largest
+# magnitude: 24 layers of f32 backward, each kernel summing in another
+# order than its plain version, compound the last bits
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_GRAD_SHARE = 1e-3
+RECOVERY = dict(fail_at=6, ckpt_every=4, steps=8)      # 11(d), smoke
+
+
+def train_per_step(cfg) -> dict[str, int]:
+    """Each kernel's launches in one train step of ``cfg`` with remat:
+    K6 forward 2L + 1 and again 2L in the recomputed layers, K7 flash L
+    and again L, K6's backward 2L + 1, K7 flash's backward L."""
+    L = cfg.n_layers
+    return {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L,
+            "rmsnorm_bwd": 2 * L + 1, "flash_attention_bwd": L}
+
+
+def train_calls() -> list[dict]:
+    """The training path's kernel calls: K6 at the step's 4096 x 896 rows
+    and K7 flash at B 8, Hq 14, Hkv 2, S 512, D 64, causal, each forward
+    as training launches it (K6 the plain way, K7 with its log-sum-exp)
+    and backward."""
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    flash = dict(b=TRAIN_BATCH, hq=14, hkv=2, sq=TRAIN_SEQ, sk=TRAIN_SEQ,
+                 d=64, causal=True, q_offset=0, sk_valid=None)
+    return [dict(kernel="rmsnorm", rows=rows, d=896, train=True),
+            dict(kernel="rmsnorm_bwd", rows=rows, d=896),
+            dict(flash, kernel="flash_attention", train=True),
+            dict(flash, kernel="flash_attention_bwd")]
+
+
+def train_edge_calls() -> list[dict]:
+    """The backward kernels at small edge cases: K6 at one row and odd or
+    wide widths; K7 flash non-causal, a chunk (q_offset > 0), sk_valid <
+    Sk, Sq != Sk, G 1 and 7, D 64, 80 and 128, rows that see no key."""
+    def fl(b, hq, hkv, sq, sk, d, causal=True, q_offset=0, sk_valid=None):
+        return dict(kernel="flash_attention_bwd", b=b, hq=hq, hkv=hkv,
+                    sq=sq, sk=sk, d=d, causal=causal, q_offset=q_offset,
+                    sk_valid=sk_valid)
+    return [dict(kernel="rmsnorm_bwd", rows=1, d=896),
+            dict(kernel="rmsnorm_bwd", rows=37, d=1023),
+            dict(kernel="rmsnorm_bwd", rows=300, d=2560),
+            dict(kernel="rmsnorm_bwd", rows=9, d=8192),
+            fl(2, 14, 2, 130, 130, 64), fl(1, 7, 7, 77, 77, 64),
+            fl(1, 7, 1, 64, 64, 64), fl(2, 4, 2, 100, 100, 64, causal=False),
+            fl(1, 4, 2, 37, 200, 64, q_offset=163),
+            fl(1, 4, 2, 70, 70, 64, sk_valid=40),
+            fl(1, 4, 2, 40, 90, 64, causal=False),
+            fl(1, 4, 2, 70, 70, 80), fl(1, 8, 1, 65, 65, 128),
+            fl(1, 4, 2, 20, 30, 64, sk_valid=0)]
+
+
+def _train_case(call: dict, gen) -> dict:
+    """Inputs and thunks of a training-path call (see make_case)."""
+    from repro_torch.kernels.attention import kernel as k7
+    from repro_torch.kernels.attention.ref import (flash_attention_bwd_ref,
+                                                   flash_attention_ref,
+                                                   visible)
+    from repro_torch.kernels.rmsnorm import kernel as k6
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+    kind = call["kernel"]
+    if kind in ("rmsnorm", "rmsnorm_bwd"):
+        rows, d = call["rows"], call["d"]
+        x = rand(gen, (rows, d))
+        w = rand(gen, (d,), 0.5) + 1.0
+        if kind == "rmsnorm":
+            return dict(kernel=lambda: k6._forward(x, w, 1e-6, pdl=False),
+                        plain=lambda: rmsnorm_ref(x, w, 1e-6),
+                        library=lambda: F.rms_norm(x, (d,), w, 1e-6),
+                        nbytes=4 * (2 * rows * d + d), flops=4 * rows * d)
+        dy = rand(gen, (rows, d))
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        with torch.enable_grad():
+            y = F.rms_norm(xl, (d,), wl, 1e-6)
+        return dict(kernel=lambda: k6.rmsnorm_bwd(x, w, dy, eps=1e-6),
+                    plain=lambda: rmsnorm_bwd_ref(x, w, dy, 1e-6),
+                    library=lambda: torch.autograd.grad(
+                        y, (xl, wl), dy, retain_graph=True),
+                    nbytes=4 * (3 * rows * d + 2 * d),
+                    flops=11 * rows * d)
+    b, hq, hkv, sq, sk, d = (call[k] for k in ("b", "hq", "hkv", "sq", "sk",
+                                               "d"))
+    causal, off, skv = call["causal"], call["q_offset"], call["sk_valid"]
+    kw = dict(causal=causal, q_offset=off, sk_valid=skv)
+    q = rand(gen, (b, hq, sq, d))
+    k = rand(gen, (b, hkv, sk, d))
+    v = rand(gen, (b, hkv, sk, d))
+    vis = visible(sq, sk, causal, off, skv, DEV)
+    pairs = int(vis.sum().item()) * b * hq
+    kv_end = sk if skv is None else max(0, min(sk, skv))
+    keys = min(kv_end, off + sq) if causal else kv_end
+    plain_causal = causal and off == 0 and sq == sk and skv is None
+    if kind == "flash_attention":
+        flops = 4 * d * pairs
+        return dict(
+            kernel=lambda: k7._flash_forward(q, k, v, causal, off, skv,
+                                             True),
+            plain=lambda: flash_attention_ref(q, k, v, **kw, with_lse=True),
+            library=_sdpa(q, k, v, None if plain_causal else vis,
+                          plain_causal, hq // hkv),
+            nbytes=4 * (2 * b * hq * sq * d + 2 * b * hkv * keys * d
+                        + b * hq * sq), flops=flops, tc_flops=flops)
+    out, lse = k7._flash_forward(q, k, v, causal, off, skv, True)
+    dout = rand(gen, (b, hq, sq, d))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        mask = None if plain_causal else vis
+        if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+            o = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, is_causal=plain_causal,
+                enable_gqa=True)
+        else:
+            g = hq // hkv
+            o = F.scaled_dot_product_attention(
+                ql, kl.repeat_interleave(g, 1), vl.repeat_interleave(g, 1),
+                attn_mask=mask, is_causal=plain_causal)
+    # the gradient's own products, each once a visible pair: S = QK^T,
+    # dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K (2 D flops each;
+    # the kernel's two passes recompute S and dP, which is its cost, not
+    # the work's), all of them f32 products the tensor cores can carry in
+    # 3xTF32, as the forward's bound counts them
+    flops = 10 * d * pairs
+    return dict(
+        kernel=lambda: k7.flash_attention_bwd(q, k, v, out, dout, lse, **kw),
+        plain=lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw),
+        library=lambda: torch.autograd.grad(o, (ql, kl, vl), dout,
+                                            retain_graph=True),
+        nbytes=4 * (3 * b * hq * sq * d + 2 * 2 * b * hkv * keys * d
+                    + b * hq * sq), flops=flops, tc_flops=flops)
+
+
+def _outs(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_train_call(call: dict, gen, timing: bool) -> dict:
+    """Hold a training-path call against its plain version (each output at
+    ``BWD_TOL``), run it twice for the same bits, and time it if asked.
+    A flash forward also runs without the log-sum-exp: the same output
+    bits."""
+    from repro_torch.kernels.util import cuda_time_ms
+    case = _train_case(call, gen)
+    got, again = _outs(case["kernel"]()), _outs(case["kernel"]())
+    want = _outs(case["plain"]())
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for a, b, c in zip(got, want, again):
+        if a.shape != b.shape or not torch.equal(a, c):
+            raise AssertionError(f"{call}: shapes {tuple(a.shape)} vs "
+                                 f"{tuple(b.shape)}, or two runs differ")
+        fin = torch.isfinite(b)
+        if not torch.equal(fin, torch.isfinite(a)):
+            raise AssertionError(f"{call}: the kernel's infinities differ")
+        e = (a - b)[fin].abs().max().item() if fin.any() else 0.0
+        scale = b[fin].abs().max().item() if fin.any() else 0.0
+        err = max(err, e)
+        rel = max(rel, e / scale if scale else e)
+        if not torch.allclose(a[fin], b[fin], rtol=BWD_TOL, atol=BWD_TOL):
+            raise AssertionError(f"{call}: kernel disagrees with its plain "
+                                 f"version, max |err| {e:.3e} (rtol = atol "
+                                 f"= {BWD_TOL})")
+    row = dict(call, max_abs_err=err, max_rel_err=rel)
+    if timing:
+        tc = case.get("tc_flops", 0)
+        b_ms, b_by = bound_ms(case["nbytes"], case["flops"], tc)
+        row.update(ms=cuda_time_ms(case["kernel"]),
+                   plain_ms=cuda_time_ms(case["plain"]),
+                   library_ms=cuda_time_ms(case["library"]),
+                   bound_ms=b_ms, bound_by=b_by, bytes=case["nbytes"],
+                   flops=case["flops"], tc_flops=tc)
+    return row
+
+
+def lse_bits(gen) -> int:
+    """K7 flash's output with and without the log-sum-exp pointer, bit
+    for bit, under every plan ``plan_flash`` weighs at the training path's
+    shape and at edge shapes (a key split among them); returns the number
+    of (shape, plan) pairs checked."""
+    from repro_torch.kernels.attention import kernel as k7
+    from repro_torch.kernels.attention.plan import flash_candidates
+    shapes = [(TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64, True, 0, None),
+              (2, 14, 2, 130, 130, 64, True, 0, None),
+              (1, 4, 2, 37, 200, 64, True, 163, None),
+              (1, 4, 2, 70, 70, 80, True, 0, 40),
+              (2, 4, 2, 100, 100, 128, False, 0, None)]
+    n = 0
+    saved = k7.plan_flash
+    try:
+        for b, hq, hkv, sq, sk, d, causal, off, skv in shapes:
+            q = rand(gen, (b, hq, sq, d))
+            k = rand(gen, (b, hkv, sk, d))
+            v = rand(gen, (b, hkv, sk, d))
+            for _key, plan in flash_candidates(b, hq, hkv, sq, sk, d, causal,
+                                               off, skv):
+                k7.plan_flash = lambda *a, p=plan: p
+                bare = k7._flash_forward(q, k, v, causal, off, skv, False)
+                out, _ = k7._flash_forward(q, k, v, causal, off, skv, True)
+                torch.cuda.synchronize()
+                if not torch.equal(bare, out):
+                    raise AssertionError(
+                        f"K7 flash {(b, hq, hkv, sq, sk, d, causal, off, skv)}"
+                        f" plan {plan}: the output differs with the "
+                        f"log-sum-exp pointer")
+                n += 1
+    finally:
+        k7.plan_flash = saved
+    return n
+
+
+def _finite_nonzero(grads) -> tuple[bool, bool]:
+    from repro_torch.train.tree import leaves
+    ls = leaves(grads)
+    return (all(bool(torch.isfinite(g).all()) for g in ls),
+            all(bool(g.any()) for g in ls))
+
+
+def train_kernels(gen) -> dict:
+    """11(a): the backward kernels (and the forward as training launches
+    it) against their plain versions, at the path's shapes (timed) and the
+    edges; the forward's output with and without its log-sum-exp."""
+    from repro_torch.kernels.util import ptxas_report
+    rows = {}
+    for c in train_calls():
+        r = rows[c["kernel"]] = check_train_call(c, gen, timing=True)
+        print(f"[train] {r['kernel']:<21} {_shape_str(c):<40} ms "
+              f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library "
+              f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})  err {r['max_abs_err']:.1e}")
+    for c in train_edge_calls():
+        r = check_train_call(c, gen, timing=False)
+        print(f"[train] edge {r['kernel']:<21} {_shape_str(c):<40} err "
+              f"{r['max_abs_err']:.1e}")
+    n = lse_bits(gen)
+    print(f"[train] the backward kernels agree with their plain versions "
+          f"(rtol = atol = {BWD_TOL}) at {len(rows)} path calls and "
+          f"{len(train_edge_calls())} edges, the same bits run twice; K7 "
+          f"flash's output bit-equal with and without the log-sum-exp "
+          f"under {n} (shape, plan) pairs")
+    for name in ("rmsnorm", "flash_attention_bwd"):
+        for line in ptxas_report(name):
+            print(f"[train] ptxas {name}: {line}")
+    return rows
+
+
+def train_cli_run(cfg) -> dict:
+    """11(b): ``launch/train.py`` (its ``run``, all of ``main`` but the
+    exit code) at full width and depth, into a temporary directory."""
+    import tempfile
+    from repro_torch.launch import train as train_cli
+    from repro_torch.lm.steps import state_shapes
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import leaves
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.run([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--ckpt-every", str(TRAIN_STEPS), "--ckpt-dir", tmp,
+            "--device", DEV])
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_step = train_per_step(cfg)
+        check_counts("train run", launches, per_step, TRAIN_STEPS)
+        losses = [m["loss"] for m in runner.metrics_log]
+        walls = [m["step_time_s"] for m in runner.metrics_log]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train run: losses {losses}")
+        back = ckpt.restore(tmp, state_shapes(cfg), device=DEV)
+        same = all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                     leaves(runner.state)))
+        if not same:
+            raise AssertionError("train run: the step-8 checkpoint differs "
+                                 "from the live state")
+        del back
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        steady = float(np.median(walls[1:]))
+        for i, (l, w) in enumerate(zip(losses, walls)):
+            print(f"[train] step {i + 1}: loss {l:.5f}  wall {w * 1e3:.1f} "
+                  f"ms")
+        for sv in runner.saves:
+            print(f"[train] checkpoint at step {sv['step']}: "
+                  f"{sv['bytes'] / 1e9:.3f} GB in {sv['seconds']:.2f} s of "
+                  f"host")
+        print(f"[train] {cfg.name} full width and depth, {TRAIN_STEPS} "
+              f"steps of {TRAIN_BATCH} x {TRAIN_SEQ}: {tokens / steady:.0f} "
+              f"tokens/s at the median step ({steady * 1e3:.1f} ms; "
+              f"{tokens * len(walls) / sum(walls):.0f} over all steps), "
+              f"peak {peak / 1e9:.2f} GB allocated, the run {wall:.1f} s; "
+              f"launches a step {per_step} as planned; the step-8 "
+              f"checkpoint restored bit-equal to the live state")
+        return dict(losses=losses, step_s=walls, tokens_per_s=tokens / steady,
+                    peak_bytes=peak, saves=runner.saves, wall_s=wall,
+                    launches=launches, per_step=per_step)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_vs_plain(cfg) -> dict:
+    """11(c): the run's first step (seed-0 state, the step-0 batch) with
+    the kernels and with the plain versions on the card (autograd through
+    them): loss, gradient norm and every leaf's gradient."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.lm.model import load_params
+    from repro_torch.lm.steps import batch_to, loss_and_grads
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.tree import leaves
+    params = load_params(cfg, 0, DEV)
+    batch = batch_to(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH)).batch_at(0), torch.device(DEV))
+    loss, grads = loss_and_grads(params, cfg, batch)
+    finite, nonzero = _finite_nonzero(grads)
+    if not (finite and nonzero):
+        raise AssertionError(f"train step: gradients finite {finite}, "
+                             f"every leaf nonzero {nonzero}")
+    with plain_kernels():
+        ploss, pgrads = loss_and_grads(params, cfg, batch)
+    gn, pgn = float(global_norm(grads)), float(global_norm(pgrads))
+    worst = max((g - p).abs().max().item() / p.abs().max().item()
+                for g, p in zip(leaves(grads), leaves(pgrads)))
+    rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    print(f"[train] first step on the card, kernels against plain versions: "
+          f"loss {float(loss):.7f} vs {float(ploss):.7f} (rel {rel:.1e}), "
+          f"grad norm {gn:.6f} vs {pgn:.6f} (rel {abs(gn - pgn) / pgn:.1e}),"
+          f" worst leaf |diff| / max|grad| {worst:.1e}; every leaf's "
+          f"gradient finite and nonzero")
+    if rel > TRAIN_LOSS_RTOL or abs(gn - pgn) > TRAIN_GNORM_RTOL * pgn \
+            or worst > TRAIN_GRAD_SHARE:
+        raise AssertionError(f"train step: kernels against plain versions "
+                             f"past loss rtol {TRAIN_LOSS_RTOL}, grad norm "
+                             f"rtol {TRAIN_GNORM_RTOL} or leaf share "
+                             f"{TRAIN_GRAD_SHARE}")
+    return dict(loss=float(loss), plain_loss=float(ploss), grad_norm=gn,
+                plain_grad_norm=pgn, worst_share=worst)
+
+
+def train_recovery() -> dict:
+    """11(d): recovery on the card at the smoke config: a clean run and
+    one that faults at step 6 (checkpoints every 4, 8 steps)."""
+    import tempfile
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.train.runner import (FaultInjector, RunnerConfig,
+                                          TrainRunner)
+    from repro_torch.train.tree import leaves
+    cfg = get_smoke(TRAIN_ARCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_recovery_", dir=ROOT / "build")
+    try:
+        outs, runners = [], []
+        for name, fault in (("clean", None), ("faulted", FaultInjector(
+                fail_at=(RECOVERY["fail_at"],)))):
+            r = TrainRunner(cfg, RunnerConfig(
+                ckpt_dir=f"{tmp}/{name}", ckpt_every=RECOVERY["ckpt_every"],
+                max_steps=RECOVERY["steps"]), fault_injector=fault,
+                device=DEV)
+            outs.append(r.run())
+            runners.append(r)
+        clean, faulted = outs
+        if faulted["recoveries"] != 1 or not np.isclose(
+                faulted["final_loss"], clean["final_loss"], rtol=1e-6,
+                atol=0):
+            raise AssertionError(f"recovery: {faulted['recoveries']} "
+                                 f"recoveries, final loss "
+                                 f"{faulted['final_loss']} vs "
+                                 f"{clean['final_loss']}")
+        bits = faulted["final_loss"] == clean["final_loss"] and all(
+            torch.equal(a, b) for a, b in zip(leaves(runners[0].state),
+                                              leaves(runners[1].state)))
+        print(f"[train] recovery at {cfg.name}: a fault at step "
+              f"{RECOVERY['fail_at']}, 1 recovery, final loss "
+              f"{faulted['final_loss']:.7f} vs {clean['final_loss']:.7f} "
+              f"clean (rtol 1e-6); the final state and loss bit-equal: "
+              f"{bits}")
+        return dict(final_loss=faulted["final_loss"],
+                    clean_loss=clean["final_loss"], bits_equal=bits)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_path() -> dict:
+    """Phase 11: training, every earlier phase's tensors freed first."""
+    from repro_torch.configs.registry import get_arch
+    t0 = time.perf_counter()
+    free_card("before phase 11")
+    gen = np.random.default_rng(11)
+    cfg = get_arch(TRAIN_ARCH)
+    rows = train_kernels(gen)
+    free_card("after 11(a)")
+    run = train_cli_run(cfg)
+    free_card("after 11(b)")
+    plain = train_vs_plain(cfg)
+    free_card("after 11(c)")
+    recovery = train_recovery()
+    free_card("after phase 11")
+    per_step = run["per_step"]
+    kernels = {}
+    for name, r in rows.items():
+        n = per_step[name]
+        kernels[name] = dict(
+            calls=n, max_abs_err=r["max_abs_err"],
+            **{k: n * r[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bytes", "flops", "tc_flops")},
+            partition_ms=n * r["ms"])
+    print(f"[train] {time.perf_counter() - t0:.1f} s")
+    return dict(model=f"{TRAIN_ARCH} train", launches=run.pop("launches"),
+                kernels=kernels, run=run, plain=plain, recovery=recovery,
+                rows=list(rows.values()))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3946,7 +4414,12 @@ def main() -> int:
     paths += blocks
     mark("10")
 
-    # 11. report ----------------------------------------------------------
+    # 11. train -----------------------------------------------------------
+    train = train_path()
+    paths.append(train)
+    mark("11")
+
+    # 12. report ----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -3955,7 +4428,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=kt["source"],
             replaces=kt["replaces"],
-            launches=sum(p["launches"][name] for p in paths),
+            launches=sum(p["launches"].get(name, 0) for p in paths),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine),
             partition_ms=sum(r["partition_ms"] for r in mine),
@@ -3969,7 +4442,9 @@ def main() -> int:
         rows=list(rows.values()), geometry_rows=list(geometry.values()),
         former_decode_rows=list(former.values()),
         paths=paths, granite=granite, split=split, workers=workers,
-        control=control, design=design, blocks=blocks, phase_s=phase_s,
+        control=control, design=design, blocks=blocks,
+        train={k: v for k, v in train.items() if k != "kernels"},
+        phase_s=phase_s,
         kernels=kernels),
         indent=1))
     for p in paths:
@@ -3986,10 +4461,12 @@ def main() -> int:
           f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
           f"the kernel (an LM request: its prefill and its share of its "
           f"decode group's steps; Whisper's and Qwen2-VL's whole phase-10 "
-          f"run), ms on all of the card's SMs, "
+          f"run; training: one step of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens), ms on all of the card's SMs, "
           f"partition_ms each call on its core's partition of the split at "
-          f"theta {SPLIT_THETA} (the fuse=True forward's on the whole "
-          f"card); launches are phases 3-5's and 10's counted runs; "
+          f"theta {SPLIT_THETA} (the fuse=True forward's and training's "
+          f"on the whole card); launches are phases 3-5's, 10's and 11's "
+          f"counted runs; "
           f"{time.perf_counter() - t_start:.1f} s total (phases "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + " s)")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,9 @@
 // bottom-right alignment of `attention_ref` and of the LM modules' chunked
 // prefill against a cache.  Scores are dot * scale, masked to -inf; a row
 // that sees no key yet keeps p = 0 and alpha = 1, and a row that sees no
-// key at all is written as 0 (the TPU kernel's l == 0 rule).
+// key at all is written as 0 (the TPU kernel's l == 0 rule).  For the
+// backward (flash_attention_bwd.cu) the kernel also writes each row's
+// log-sum-exp when it is given a pointer for it.
 //
 // Flash (prefill), bound on an H100: 4*D FLOPs per visible (query, key)
 // pair against q, k, v and out read or written once: at Sq = Sk = 512,
@@ -149,9 +151,15 @@ __device__ __forceinline__ int row_keys(int r1, int Sq, int kv_end,
 // O / l for the warp's rows r0 + g and r0 + g + 8 (those below Sq) at
 // columns below D; a row with l = 0 (no key seen) is written as 0.  l is
 // the lane's partial sum, added over the 4 lanes of the fragment row here.
+// With lb (the (batch, head)'s rows of the log-sum-exp; null when not
+// asked) also each row's log-sum-exp of its scaled scores in natural
+// units, (m + log2 l) ln 2 (m the row's max in log2 units), -inf for a row
+// that sees no key; O's arithmetic is the same with or without it.
 template <int ND>
 __device__ __forceinline__ void store_rows(float* __restrict__ ob,
+                                           float* __restrict__ lb,
                                            const float (&o)[ND][4],
+                                           const float (&m)[2],
                                            const float (&l)[2], int r0,
                                            int Sq, int D) {
   const int lane = threadIdx.x & 31;
@@ -163,6 +171,9 @@ __device__ __forceinline__ void store_rows(float* __restrict__ ob,
     const float inv = s == 0.f ? 0.f : 1.f / s;
     const int row = r0 + g + 8 * h;
     if (row >= Sq) continue;
+    if (lb != nullptr && t4 == 0)
+      lb[row] = s == 0.f ? -INFINITY
+                         : (m[h] + log2f(s)) * 0.6931471805599453f;
     float* orow = ob + (size_t)row * D;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
@@ -195,7 +206,8 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                       float* __restrict__ lse, int B, int Hq, int Hkv,
+                       int Sq, int Sk, int D,
                        int kv_cap, int causal, int q_offset, int sk_valid,
                        float scale_log2, int ring, int kvs, int vec) {
   constexpr int BK = DM > 64 ? 32 : 64;
@@ -219,6 +231,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int hk = h / (Hq / Hkv);
   const float* qb = q + (size_t)bh * Sq * D;
   float* ob = out + (size_t)bh * Sq * D;
+  float* lb = lse == nullptr ? nullptr : lse + (size_t)bh * Sq;
   const float* kb = k + ((size_t)b * Hkv + hk) * kv_cap * D;
   const float* vb = v + ((size_t)b * Hkv + hk) * kv_cap * D;
   const int kv_end = min(Sk, max(sk_valid, 0));
@@ -230,6 +243,9 @@ flash_attention_kernel(const float* __restrict__ q,
     const int rows = min(BQ, Sq - qt * BQ);
     for (int e = threadIdx.x; e < rows * D; e += blockDim.x)
       ob[(size_t)qt * BQ * D + e] = 0.f;
+    if (lb != nullptr)
+      for (int e = threadIdx.x; e < rows; e += blockDim.x)
+        lb[qt * BQ + e] = -INFINITY;
     return;
   }
   // group gg takes key tiles [gg * steps, (gg + 1) * steps), one a step
@@ -425,6 +441,7 @@ flash_attention_kernel(const float* __restrict__ q,
       const float fa = m[hh] == -INFINITY ? 0.f : fast_exp2(m[hh] - mn);
       const float fb = mo == -INFINITY ? 0.f : fast_exp2(mo - mn);
       l[hh] = l[hh] * fa + mb[4 * ND + 2 + hh] * fb;
+      m[hh] = mn;                      // (l, O) are now relative to mn
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
@@ -432,7 +449,7 @@ flash_attention_kernel(const float* __restrict__ q,
           o[nd][e] = o[nd][e] * fa + mb[4 * nd + e] * fb;
     }
   }
-  store_rows(ob, o, l, r0, Sq, D);
+  store_rows(ob, lb, o, m, l, r0, Sq, D);
 }
 
 using Kernel = decltype(&flash_attention_kernel<64>);
@@ -979,9 +996,11 @@ Kernel pick(bool tc, int G, int D) {
 // warps (4 or 8 a group), ring (2 or 3), kvs (1 or 2 groups splitting
 // the keys; 8 warps at most) and smem come from plan_flash;
 // smem must equal fl::smem_floats's bytes.  vec: k and v are 16-byte
-// aligned (their rows too where D % 4 == 0).
+// aligned (their rows too where D % 4 == 0).  lse: (B, Hq, Sq), each
+// row's log-sum-exp for the backward, or null (serving).
 extern "C" int repro_flash_attention(const float* q, const float* k,
-                                     const float* v, float* out, int B,
+                                     const float* v, float* out, float* lse,
+                                     int B,
                                      int Hq, int Hkv, int Sq, int Sk, int D,
                                      int kv_cap, int causal, int q_offset,
                                      int sk_valid, float scale, int warps,
@@ -1001,7 +1020,7 @@ extern "C" int repro_flash_attention(const float* q, const float* k,
   if (rc != 0) return rc;
   kernel<<<(unsigned)blocks, 32 * warps * kvs, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, B, Hq, Hkv, Sq, Sk, D, kv_cap, causal, q_offset,
+      q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, D, kv_cap, causal, q_offset,
       sk_valid, scale * 1.4426950408889634f, ring, kvs,
       vec != 0 && D % 4 == 0);
   return static_cast<int>(cudaGetLastError());

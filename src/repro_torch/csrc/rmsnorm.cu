@@ -18,13 +18,35 @@
 //     memory once.
 //   * w is read into registers first, beside x, so a call waits on one
 //     memory round trip, not on x's and then w's.
-//   * The launch is programmatic dependent (tc::launch_pdl): the kernel may
-//     begin while the kernel before it in the stream drains.  It loads w
-//     (weights, which no kernel on the path writes) and sets up, runs
-//     griddepcontrol.wait before its first read of x, and runs
-//     griddepcontrol.launch_dependents once x is in registers.  A kernel
-//     after it that reads its output either is launched the plain way (the
-//     stream orders it) or runs griddepcontrol.wait itself (K1).
+//   * The launch is programmatic dependent (tc::launch_pdl) when the
+//     caller says w is a weight no kernel writes (pdl = 1, serving): the
+//     kernel may begin while the kernel before it in the stream drains.
+//     It loads w and sets up, runs griddepcontrol.wait before its first
+//     read of x, and runs griddepcontrol.launch_dependents once x is in
+//     registers.  A kernel after it that reads its output either is
+//     launched the plain way (the stream orders it) or runs
+//     griddepcontrol.wait itself (K1).  In training the optimizer writes
+//     every w, and the kernel before a K6 launch could be the one that
+//     wrote it; so there (pdl = 0, the wrapper's choice wherever w
+//     requires grad) the launch is plain and starts after every earlier
+//     kernel of the stream, and the backward below is always launched
+//     the plain way: no K6 launch reads a w that the kernel it overlaps
+//     may write.
+//
+// Backward (repro_rmsnorm_bwd; no TPU counterpart: the reference trains
+// through rmsnorm_ref and jax.grad).  With r = rsqrt(mean(x^2) + eps) and
+// g = dy * w: dx = r g - x r^3 mean(g x), and dw = sum over rows of
+// dy x r.  It reads x and dy once and writes dx: bytes bound, like the
+// forward (the path's (4096, 896) moves 44 MB).  Design:
+//   * A block of 256 threads takes a contiguous run of rows; for each row
+//     it sums x^2 and g x in one pass (the row's first 1024 elements kept
+//     in registers), reduces both across the block in a fixed order,
+//     writes dx, and adds the row's dy x r into its own partial dw, held
+//     in shared memory (each column belongs to one thread: no race).
+//   * dw is a reduction across blocks: each block writes its partial row
+//     to scratch, then a second kernel sums the partials of each column in
+//     block order.  No float atomics, so the bits do not depend on
+//     scheduling.
 //   * A call of up to 132 rows (a decode step's 16) takes a block a row, so
 //     its rows spread over as many SMs; a longer one (a prefill's 1024)
 //     takes 4 rows a block.
@@ -148,19 +170,141 @@ rmsnorm_general_kernel(const float* __restrict__ x,
     out[row * d + j] = xr[j] * r * w[j];
 }
 
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_REG = 4;          // elements a thread keeps: d <= 1024
+
+// Rows [blockIdx.x * per, +per) of dx, and the block's partial dw (the sum
+// of dy x r over those rows) into part[blockIdx.x][:].
+__global__ void __launch_bounds__(BWD_THREADS)
+rmsnorm_bwd_rows_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ dy, float* __restrict__ dx,
+                        float* __restrict__ part, int rows, int d, int per,
+                        float eps) {
+  extern __shared__ float acc[];               // [d] the block's dw
+  __shared__ float red[2][BWD_THREADS / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  for (int j = threadIdx.x; j < d; j += BWD_THREADS) acc[j] = 0.f;
+  for (int row = r0; row < r1; ++row) {
+    const float* xr = x + (size_t)row * d;
+    const float* dyr = dy + (size_t)row * d;
+    float xv[BWD_REG], dv[BWD_REG];
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < BWD_REG; ++i) {
+      const int j = threadIdx.x + BWD_THREADS * i;
+      xv[i] = j < d ? xr[j] : 0.f;
+      dv[i] = j < d ? dyr[j] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < BWD_REG; ++i) {
+      const int j = threadIdx.x + BWD_THREADS * i;
+      const float g = j < d ? dv[i] * w[j] : 0.f;
+      ss = fmaf(xv[i], xv[i], ss);
+      dot = fmaf(g, xv[i], dot);
+    }
+    for (int j = threadIdx.x + BWD_THREADS * BWD_REG; j < d;
+         j += BWD_THREADS) {
+      const float xx = xr[j];
+      ss = fmaf(xx, xx, ss);
+      dot = fmaf(dyr[j] * w[j], xx, dot);
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = dot;
+    }
+    __syncthreads();
+    float tss = 0.f, tdot = 0.f;
+#pragma unroll
+    for (int i = 0; i < BWD_THREADS / 32; ++i) {
+      tss += red[0][i];
+      tdot += red[1][i];
+    }
+    __syncthreads();                           // red is free for the next row
+    const float r = rsqrtf(tss / (float)d + eps);
+    const float c = r * r * r * (tdot / (float)d);
+    float* dxr = dx + (size_t)row * d;
+#pragma unroll
+    for (int i = 0; i < BWD_REG; ++i) {
+      const int j = threadIdx.x + BWD_THREADS * i;
+      if (j < d) {
+        dxr[j] = dv[i] * w[j] * r - xv[i] * c;
+        acc[j] = fmaf(dv[i] * xv[i], r, acc[j]);
+      }
+    }
+    for (int j = threadIdx.x + BWD_THREADS * BWD_REG; j < d;
+         j += BWD_THREADS) {
+      const float xx = xr[j], dd = dyr[j];
+      dxr[j] = dd * w[j] * r - xx * c;
+      acc[j] = fmaf(dd * xx, r, acc[j]);
+    }
+  }
+  for (int j = threadIdx.x; j < d; j += BWD_THREADS)
+    part[(size_t)blockIdx.x * d + j] = acc[j];
+}
+
+// dw[j] = the blocks' partials of column j, summed in block order.
+__global__ void __launch_bounds__(BWD_THREADS)
+rmsnorm_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                  int blocks, int d) {
+  const int j = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (j >= d) return;
+  float s = 0.f;
+#pragma unroll 8
+  for (int b = 0; b < blocks; ++b) s += part[(size_t)b * d + j];
+  dw[j] = s;
+}
+
 }  // namespace
 
+// pdl: w is a weight that no kernel writes, so the launch may overlap the
+// kernel before it (see the header); 0 launches the plain way.
 extern "C" int repro_rmsnorm(const float* x, const float* w, float* out,
-                             int rows, int d, float eps, void* stream) {
+                             int rows, int d, float eps, int pdl,
+                             void* stream) {
   if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned =
       ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w) |
         reinterpret_cast<size_t>(out)) & 15) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d % 4 == 0 && d <= 32 * 4 * MAX_VEC && aligned) {
     const int per = rows <= SPREAD ? 1 : WIDE_ROWS;
-    return tc::launch_pdl(rmsnorm_vec_kernel, repro_cdiv(rows, per),
-                          32 * per, 0, stream, x, w, out, rows, d, eps);
+    if (pdl)
+      return tc::launch_pdl(rmsnorm_vec_kernel, repro_cdiv(rows, per),
+                            32 * per, 0, stream, x, w, out, rows, d, eps);
+    rmsnorm_vec_kernel<<<repro_cdiv(rows, per), 32 * per, 0, s>>>(
+        x, w, out, rows, d, eps);
+    return static_cast<int>(cudaGetLastError());
   }
-  return tc::launch_pdl(rmsnorm_general_kernel, rows, GEN_THREADS, 0, stream,
-                        x, w, out, d, eps);
+  if (pdl)
+    return tc::launch_pdl(rmsnorm_general_kernel, rows, GEN_THREADS, 0,
+                          stream, x, w, out, d, eps);
+  rmsnorm_general_kernel<<<rows, GEN_THREADS, 0, s>>>(x, w, out, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks: row blocks (kernel.py's bwd_blocks), each cdiv(rows, blocks)
+// rows; part: [blocks][d] scratch for their partial dw.
+extern "C" int repro_rmsnorm_bwd(const float* x, const float* w,
+                                 const float* dy, float* dx, float* part,
+                                 float* dw, int rows, int d, int blocks,
+                                 float eps, void* stream) {
+  if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * (size_t)d;
+  if (smem > REPRO_MAX_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = tc::opt_in(rmsnorm_bwd_rows_kernel, smem, false);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rmsnorm_bwd_rows_kernel<<<blocks, BWD_THREADS, smem, s>>>(
+      x, w, dy, dx, part, rows, d, repro_cdiv(rows, blocks), eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dw_kernel<<<repro_cdiv(d, BWD_THREADS), BWD_THREADS, 0, s>>>(
+      part, dw, blocks, d);
+  return static_cast<int>(cudaGetLastError());
 }

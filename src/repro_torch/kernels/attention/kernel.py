@@ -23,12 +23,27 @@ cores in 3xTF32, smaller ones on the CUDA cores; ``plan.py``'s
 Its limits: G <= 48, D up to 128: a power of two from 4 (8 where G > 8),
 or a multiple of 8 (Zamba2's 80).
 
+Flash is differentiable.  Where autograd records (grad mode on and q, k
+or v requiring grad) ``flash_attention`` goes through
+``_FlashAttention``, a ``torch.autograd.Function`` over its whole
+signature (``causal``, ``q_offset``, ``sk_valid``, GQA): its forward asks
+the kernel for each row's log-sum-exp as well (a pointer the kernel
+writes only when given; serving passes none, and the output's bits are
+the same either way), and its backward is ``flash_attention_bwd``, the
+port's own kernels in ``csrc/flash_attention_bwd.cu`` (the reference
+trains through XLA's attention, so no TPU kernel is replaced): one pass
+per (batch, KV head, key tile) for dK and dV, one per (batch, query head,
+query tile) for dQ, f32 on the CUDA cores, no atomics.  Decode has no
+backward (no training path sends it one-row queries) and raises where
+autograd records an input that requires grad.
+
 k and v may be the first Sk rows of a longer cache (a view cut along the
 sequence axis): the kernels read the cache in place.  q must be
 contiguous.  A CUDA tensor launches the kernel on the current stream (or
 raises); a CPU tensor runs the plain version from ``ref.py``.
-``flash_attention.launches`` and ``decode_attention.launches`` count the
-launches.
+``flash_attention.launches``, ``flash_attention_bwd.launches`` (a call:
+one launch of its entry, the dK/dV and the dQ kernels) and
+``decode_attention.launches`` count the launches.
 """
 from __future__ import annotations
 
@@ -38,6 +53,7 @@ import torch
 
 from repro_torch.kernels.attention.plan import plan_decode, plan_flash
 from repro_torch.kernels.attention.ref import (decode_attention_ref,
+                                               flash_attention_bwd_ref,
                                                flash_attention_ref)
 from repro_torch.kernels.util import check_cuda_operands, counted, launch
 
@@ -75,6 +91,50 @@ def _kv_capacity(name: str, q: torch.Tensor, k: torch.Tensor,
     return k.stride(1) // d
 
 
+def _records(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _flash_forward(q, k, v, causal, q_offset, sk_valid, with_lse: bool):
+    """The forward: out, or (out, lse (B, Hq, Sq)) with ``with_lse``."""
+    b, hq, hkv, sq, sk, d = _shapes("flash_attention", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   sk_valid=sk_valid, with_lse=with_lse)
+    check_cuda_operands("flash_attention", q.device, q=q)
+    plan = plan_flash(b, hq, hkv, sq, sk, d, bool(causal), int(q_offset),
+                      None if sk_valid is None else int(sk_valid))
+    kv_cap = _kv_capacity("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    vec = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    launch("repro_flash_attention", q.device, q, k, v, out, lse, b, hq, hkv,
+           sq, sk, d, kv_cap, int(causal), int(q_offset),
+           sk if sk_valid is None else int(sk_valid), 1.0 / math.sqrt(d),
+           plan.warps, plan.ring, plan.kv_split, plan.smem_bytes, vec)
+    flash_attention.launches += 1
+    return (out, lse) if with_lse else out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, sk_valid):
+        out, lse = _flash_forward(q, k, v, causal, q_offset, sk_valid, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, q_offset, sk_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, sk_valid = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), lse, causal=causal,
+            q_offset=q_offset, sk_valid=sk_valid)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     sk_valid: int | None = None) -> torch.Tensor:
@@ -82,24 +142,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Query row i sits at key position ``q_offset + i``; keys at or past
     ``sk_valid`` (default Sk) are masked.  Returns (B, Hq, Sq, D)."""
-    b, hq, hkv, sq, sk, d = _shapes("flash_attention", q, k, v)
+    _shapes("flash_attention", q, k, v)
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if _records(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, sk_valid)
+    return _flash_forward(q, k, v, causal, q_offset, sk_valid, False)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0, sk_valid: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)``
+    given its output ``out``, the output's gradient ``dout`` and the rows'
+    log-sum-exp ``lse`` (B, Hq, Sq) its forward wrote.  dk and dv are
+    contiguous (B, Hkv, Sk, D), zero at keys no row sees."""
+    b, hq, hkv, sq, sk, d = _shapes("flash_attention_bwd", q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (b, hq, sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
+                         f"for q {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                                   sk_valid=sk_valid)
-    check_cuda_operands("flash_attention", q.device, q=q)
-    plan = plan_flash(b, hq, hkv, sq, sk, d, bool(causal), int(q_offset),
-                      None if sk_valid is None else int(sk_valid))
-    kv_cap = _kv_capacity("flash_attention", q, k, v)
-    out = torch.empty_like(q)
-    vec = int(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
-    launch("repro_flash_attention", q.device, q, k, v, out, b, hq, hkv, sq,
-           sk, d, kv_cap, int(causal), int(q_offset),
-           sk if sk_valid is None else int(sk_valid), 1.0 / math.sqrt(d),
-           plan.warps, plan.ring, plan.kv_split, plan.smem_bytes, vec)
-    flash_attention.launches += 1
-    return out
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       causal=causal, q_offset=q_offset,
+                                       sk_valid=sk_valid)
+    check_cuda_operands("flash_attention_bwd", q.device, q=q, out=out,
+                        dout=dout, lse=lse)
+    if d > 128:
+        raise ValueError(f"flash_attention_bwd: D {d} > 128")
+    kv_cap = _kv_capacity("flash_attention_bwd", q, k, v)
+    dq = torch.empty_like(q)
+    dk = torch.empty((b, hkv, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    launch("repro_flash_attention_bwd", q.device, q, k, v, out, dout, lse,
+           dq, dk, dv, b, hq, hkv, sq, sk, d, kv_cap, int(causal),
+           int(q_offset), sk if sk_valid is None else int(sk_valid),
+           1.0 / math.sqrt(d))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,6 +192,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_len`` (B,) int32, optional, masks each row's cache to its first
     ``kv_len[b]`` positions (ragged decode)."""
     b, hq, hkv, sq, sk, d = _shapes("decode_attention", q, k, v)
+    if _records(q, k, v):
+        raise RuntimeError("decode_attention has no backward: an input "
+                           "requires grad while autograd records")
     if sq != 1:
         raise ValueError(f"decode_attention: Sq {sq} != 1")
     if kv_len is not None and tuple(kv_len.shape) != (b,):
@@ -134,4 +220,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 counted(flash_attention)
+counted(flash_attention_bwd)
 counted(decode_attention)

@@ -10,6 +10,8 @@ Counterpart of ``repro/kernels/attention/ref.py`` and of the jnp
   semantics (query row i sits at key position ``q_offset + i``); at
   ``q_offset = 0`` it computes what the TPU kernel computes, at
   ``q_offset = sk - sq`` what ``attention_ref`` computes;
+- ``flash_attention_bwd_ref``: the plain version of the port's backward
+  kernels of flash (dq, dk, dv from the forward's log-sum-exp);
 - ``masked_decode_ref``: the reference's ragged-decode fallback;
 - ``decode_attention_ref``: the plain version of the decode kernel, the
   mask built from the per-row ``kv_len``.
@@ -42,30 +44,39 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32, or f64 for f64 inputs (the tests' exact gradients)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
-                        sk_valid: int | None = None) -> torch.Tensor:
+                        sk_valid: int | None = None, with_lse: bool = False):
     """Online-softmax GQA attention over 64-key tiles.
 
     q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D).  Key position kp is visible to
     query row i when kp < min(Sk, sk_valid) and, if causal,
-    kp <= q_offset + i.  A row that sees no key is 0."""
+    kp <= q_offset + i.  A row that sees no key is 0.  ``with_lse`` also
+    returns each row's log-sum-exp of its visible scaled scores (B, Hq,
+    Sq), -inf for a row that sees no key: what the backward reads."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
     kv_end = sk if sk_valid is None else max(0, min(sk, sk_valid))
     n_keys = min(kv_end, max(q_offset + sq, 0)) if causal else kv_end
+    ct = _compute_dtype(q)
     # the group's heads stacked as rows: (B, Hkv, G*Sq, D), no KV copies
-    qg = q.float().reshape(b, hkv, g * sq, d)
+    qg = q.to(ct).reshape(b, hkv, g * sq, d)
     qpos = q_offset + torch.arange(sq, device=q.device).repeat(g)
-    m = torch.full((b, hkv, g * sq, 1), float("-inf"), device=q.device)
-    l = torch.zeros((b, hkv, g * sq, 1), device=q.device)
-    acc = torch.zeros((b, hkv, g * sq, d), device=q.device)
+    m = torch.full((b, hkv, g * sq, 1), float("-inf"), dtype=ct,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g * sq, 1), dtype=ct, device=q.device)
+    acc = torch.zeros((b, hkv, g * sq, d), dtype=ct, device=q.device)
     for k0 in range(0, n_keys, BLOCK_K):
         k1 = min(k0 + BLOCK_K, kv_end)
-        kt = k[:, :, k0:k1].float()
-        vt = v[:, :, k0:k1].float()
+        kt = k[:, :, k0:k1].to(ct)
+        vt = v[:, :, k0:k1].to(ct)
         s = torch.matmul(qg, kt.transpose(-1, -2)) * scale
         if causal:
             kpos = torch.arange(k0, k1, device=q.device)
@@ -78,7 +89,58 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha + torch.matmul(p, vt)
         m = m_new
     out = torch.where(l == 0, 0.0, acc / torch.where(l == 0, 1.0, l))
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(l == 0, float("-inf"), m + torch.log(l))
+    return out, lse.reshape(b, hq, sq).to(q.dtype)
+
+
+def visible(sq: int, sk: int, causal: bool, q_offset: int,
+            sk_valid: int | None, device) -> torch.Tensor:
+    """(Sq, Sk) bool: key kp is visible to query row i (the flash
+    kernel's mask)."""
+    kv_end = sk if sk_valid is None else max(0, min(sk, sk_valid))
+    kpos = torch.arange(sk, device=device)[None, :]
+    vis = (kpos < kv_end).expand(sq, sk)
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=device)[:, None]
+        vis = vis & (kpos <= qpos)
+    return vis
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True, q_offset: int = 0,
+                            sk_valid: int | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention_ref`` given its
+    output ``out``, the output's gradient ``dout`` and the rows' ``lse``
+    (``with_lse``): P = exp(s - lse) on the visible keys, D = rowsum(dout
+    * out), dS = P (dout V^T - D); dq = scale dS K, dk = scale dS^T q and
+    dv = P^T dout, each summed over the query heads of a KV head's group.
+    The plain version of the port's backward kernels (the reference
+    trains through XLA's attention and has no backward kernel)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    kr = k.repeat_interleave(g, dim=1)
+    vr = v.repeat_interleave(g, dim=1)
+    s = torch.matmul(q, kr.transpose(-1, -2)) * scale
+    vis = visible(sq, sk, causal, q_offset, sk_valid, q.device)
+    p = torch.where(vis, torch.exp(s - torch.where(
+        torch.isinf(lse), 0.0, lse)[..., None]), 0.0)
+    dp = torch.matmul(dout, vr.transpose(-1, -2))
+    ds = p * (dp - torch.sum(dout * out, dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kr) * scale
+    dk = (torch.matmul(ds.transpose(-1, -2), q) * scale).reshape(
+        b, hkv, g, sk, d).sum(dim=2)
+    dv = torch.matmul(p.transpose(-1, -2), dout).reshape(
+        b, hkv, g, sk, d).sum(dim=2)
+    return dq, dk, dv
 
 
 def masked_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

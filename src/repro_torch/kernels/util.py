@@ -209,8 +209,10 @@ SIGNATURES = {
     "repro_depthwise_conv2d": "p" * 4 + "i" * 17 + "s",
     "repro_fused_dw_pw_conv": "p" * 7 + "i" * 19 + "s",
     "repro_fused_pw_dw_pw_conv": "p" * 9 + "i" * 23 + "s",
-    "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "s",
-    "repro_flash_attention": "p" * 4 + "i" * 10 + "f" + "i" * 5 + "s",
+    "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "i" + "s",
+    "repro_rmsnorm_bwd": "p" * 6 + "i" * 3 + "f" + "s",
+    "repro_flash_attention": "p" * 5 + "i" * 10 + "f" + "i" * 5 + "s",
+    "repro_flash_attention_bwd": "p" * 9 + "i" * 10 + "f" + "s",
     "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
     "repro_sm_probe": "p" + "i" * 2 + "l" + "s",
     "repro_sm_probe_clusters": "i" + "p" + "s",
@@ -276,11 +278,24 @@ def launch(entry: str, device: torch.device, *args) -> None:
     Tensors pass as device pointers, None as NULL; raises on a tensor past
     the kernels' 32-bit element indexing, and on a non-zero ``cudaError_t``
     (a refused launch never runs, and no later synchronisation would
-    report it)."""
+    report it).
+
+    Raises, too, where autograd records and a tensor argument requires
+    grad: the C call fills its outputs with no gradient, so a gradient
+    would be lost without a word.  The differentiable wrappers launch
+    from inside a ``torch.autograd.Function``'s forward or backward,
+    where grad mode is off."""
+    grad = torch.is_grad_enabled()
     for a in args:
-        if isinstance(a, torch.Tensor) and a.numel() >= 2 ** 31:
+        if not isinstance(a, torch.Tensor):
+            continue
+        if a.numel() >= 2 ** 31:
             raise ValueError(f"{entry}: a tensor of {a.numel()} elements is "
                              f"past the kernels' 32-bit indexing")
+        if grad and a.requires_grad:
+            raise RuntimeError(f"{entry}: an operand requires grad while "
+                               f"autograd records; the kernel's output "
+                               f"would carry no gradient")
     lib = kernel_library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]

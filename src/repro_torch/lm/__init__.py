@@ -1,3 +1,3 @@
-"""Port of ``repro.lm``: the dense and MoE transformers (config, modules,
-model); SSM, hybrid, encoder-decoder and M-RoPE blocks are not ported
-yet."""
+"""Port of ``repro.lm``: configs, modules, the model of every family
+(dense, MoE, SSM, hybrid, encoder-decoder, M-RoPE) and the train and
+serve step factories."""

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import itertools
 import math
 import os
@@ -28,6 +29,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.util import resolve_device
@@ -246,7 +248,7 @@ def load_params(cfg: ArchConfig, seed: int = 0,
               for _, shape, init in specs]
     for (i, lo, hi), values in _chunks(specs, seed):
         leaves[i].view(-1)[lo:hi].copy_(torch.from_numpy(values))
-    return _with_views(_tree(specs, leaves))
+    return with_views(_tree(specs, leaves))
 
 
 def _to_torch(tree, device: torch.device):
@@ -258,16 +260,25 @@ def _to_torch(tree, device: torch.device):
 
 
 def _layer_views(blocks: dict) -> list[dict]:
-    """Per-layer views into the stacked block parameters."""
+    """Per-layer views into the stacked block parameters: each leaf
+    unbound along its layer axis at once, so that in training its
+    gradient is one stack of the layers' (indexing a layer at a time
+    would add a zero-filled stacked gradient for every layer)."""
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
     def pick(tree, i):
         if isinstance(tree, dict):
             return {k: pick(v, i) for k, v in tree.items()}
         return tree[i]
 
-    first = blocks
+    parts = split(blocks)
+    first = parts
     while isinstance(first, dict):
         first = next(iter(first.values()))
-    return [pick(blocks, i) for i in range(first.shape[0])]
+    return [pick(parts, i) for i in range(len(first))]
 
 
 #: the stacked trees of a parameter tree and the key of their views
@@ -275,7 +286,9 @@ VIEWS = {"blocks": "layers", "enc_blocks": "enc_layers",
          "cross_blocks": "cross_layers"}
 
 
-def _with_views(out: dict) -> dict:
+def with_views(out: dict) -> dict:
+    """``out`` with the per-layer views of each of its stacked trees
+    (``VIEWS``), made now, from the tensors ``out`` holds."""
     for stacked, views in VIEWS.items():
         if stacked in out:
             out[views] = _layer_views(out[stacked])
@@ -293,7 +306,7 @@ def params_from_numpy(params: dict, device: str | torch.device = "cuda"
     dev = resolve_device(device)
     out = {k: _to_torch(v, dev) for k, v in params.items()
            if k not in VIEWS.values()}
-    return _with_views(out)
+    return with_views(out)
 
 
 # ==========================================================================
@@ -343,50 +356,83 @@ def encode(params: dict, cfg: ArchConfig,
     x = enc_input + params["enc_pos"][None, :enc_input.shape[1]]
     positions = torch.arange(x.shape[1], device=x.device)
     rope = rotary(cfg, positions)
-    for lp in params["enc_layers"]:
+    for lp in _layer_views(params["enc_blocks"]):
         x = _transformer_layer(lp, x, cfg, positions, rope, causal=False)
     return rmsnorm(x, params["enc_norm"], eps=cfg.norm_eps)
+
+
+def _remat(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``fn(x)``; with ``remat`` and autograd recording, its activations
+    are not kept but recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant: the counterpart of the
+    reference's ``jax.checkpoint`` around each layer).  A layer draws no
+    random numbers, so the RNG state is not saved."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(x)
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             positions3: torch.Tensor | None = None,
             enc_input: torch.Tensor | None = None,
-            extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+            extra_embeds: torch.Tensor | None = None,
+            remat: bool = True) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, padded_vocab).  ``params`` as
     ``params_from_numpy`` gives them.  ``positions3`` (B, 3, S) drives
     M-RoPE (Qwen2-VL); ``enc_input`` (B, M, D) is Whisper's frame
     embeddings, which it needs; ``extra_embeds`` (B, n, D) is added to the
     first n token embeddings (the reference's stub of the vision front
-    end's patches)."""
+    end's patches).
+
+    The per-layer views are made here, from the stacked leaves as they
+    are now, so a gradient reaches the stacked leaves (the views in
+    ``params`` may predate the leaves' ``requires_grad``).  ``remat``
+    recomputes each layer (Zamba2: with the shared block after it) in the
+    backward pass instead of keeping its activations; it changes nothing
+    where autograd is not recording.  The reference's two-level scan keeps
+    fewer carries but computes the same numbers."""
     check_supported(cfg)
     _, s = tokens.shape
-    x = params["embed"][tokens]
+    # F.embedding: the same gather, with a backward that sums each row's
+    # gradient in a fixed order (indexing's accumulates in any order)
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     if extra_embeds is not None:
         x[:, :extra_embeds.shape[1]] += extra_embeds.to(x.dtype)
     positions = torch.arange(s, device=x.device)
     rope = rotary(cfg, positions, positions3)
+    layers = _layer_views(params["blocks"])
     if cfg.encoder_decoder:
         if enc_input is None:
             raise ValueError(f"{cfg.name}: the encoder-decoder forward "
                              f"needs enc_input")
         memory = encode(params, cfg, enc_input)
         eps = cfg.norm_eps
-        for lp, cp in zip(params["layers"], params["cross_layers"]):
-            att, _ = gqa_attention(lp["attn"], rmsnorm(x, lp["ln1"], eps=eps),
+
+        def dec_layer(lp, cp, h):
+            att, _ = gqa_attention(lp["attn"], rmsnorm(h, lp["ln1"], eps=eps),
                                    cfg, positions, rope=rope)
-            x = x + att
-            x = x + cross_attention(cp["attn"], rmsnorm(x, cp["ln"], eps=eps),
+            h = h + att
+            h = h + cross_attention(cp["attn"], rmsnorm(h, cp["ln"], eps=eps),
                                     memory, cfg)
-            x = x + swiglu_mlp(lp["mlp"], rmsnorm(x, lp["ln2"], eps=eps))
+            return h + swiglu_mlp(lp["mlp"], rmsnorm(h, lp["ln2"], eps=eps))
+
+        for lp, cp in zip(layers, _layer_views(params["cross_blocks"])):
+            x = _remat(functools.partial(dec_layer, lp, cp), x, remat)
     elif cfg.block_type == "transformer":
-        for lp in params["layers"]:
-            x = _transformer_layer(lp, x, cfg, positions, rope)
+        for lp in layers:
+            x = _remat(lambda h, lp=lp: _transformer_layer(
+                lp, h, cfg, positions, rope), x, remat)
     else:                                     # mamba2 / mlstm / hybrid
-        for li, lp in enumerate(params["layers"]):
-            x, _ = _ssm_layer(lp, x, cfg)
+        def ssm_layer(li, lp, h):
+            h, _ = _ssm_layer(lp, h, cfg)
             if _shared_after(cfg, li):
-                x = _shared_attn_apply(params["shared_attn"], x, cfg,
+                h = _shared_attn_apply(params["shared_attn"], h, cfg,
                                        positions, rope)
+            return h
+
+        for li, lp in enumerate(layers):
+            x = _remat(functools.partial(ssm_layer, li, lp), x, remat)
     x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     return torch.matmul(x, params["lm_head"])
 

@@ -306,3 +306,17 @@ def moe_block(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         sh = params["shared"]
         out = out + _experts(xt, sh["wg"], sh["wu"], sh["wd"]).sum(dim=0)
     return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_aux_loss(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Load-balance auxiliary loss (Switch-style): the experts' count times
+    the sum over experts of the share of tokens whose top-1 choice it is
+    and its mean router probability.  No caller in the reference uses it;
+    it is ported so that the module is whole."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    probs = torch.softmax(torch.matmul(xt, params["router"]).float(), dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.nn.functional.one_hot(top1, cfg.moe_experts).float().mean(0)
+    imp = probs.mean(0)
+    return cfg.moe_experts * torch.sum(frac * imp)

@@ -1236,3 +1236,71 @@ def test_retune_mid_run_draws_on_captured_lanes_on_card(card):
     assert runner.lanes.count == captured
     for a, b in zip(rep.outputs, res.outputs):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# Training: the backward kernels and a train step on the card
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", chip_smoke.train_calls()
+                         + chip_smoke.train_edge_calls(),
+                         ids=lambda c: f"{c['kernel']}-"
+                         + chip_smoke._shape_str(c).replace(" ", "-"))
+def test_train_kernel_matches_plain_on_card(call, card):
+    """K6's and K7 flash's backward kernels (and the forwards as training
+    launches them) against their plain versions at rtol = atol = 1e-4,
+    the same bits when run twice (``chip_smoke.check_train_call``); each
+    output's largest error within 1e-4 of its largest magnitude (K6's dw
+    sums 4096 rows to magnitudes near 64, so an absolute 1e-4 on the
+    error alone would hold it tighter than f32 sums in another order)."""
+    from repro_torch.kernels.util import COUNTED
+    fn = COUNTED[call["kernel"]]
+    before = fn.launches
+    row = chip_smoke.check_train_call(call, np.random.default_rng(0),
+                                      timing=False)
+    assert fn.launches == before + 2
+    assert np.isfinite(row["max_abs_err"])
+    assert row["max_rel_err"] <= chip_smoke.BWD_TOL
+
+
+@pytest.mark.cuda
+def test_flash_output_bits_without_lse_on_card(card):
+    """K7 flash's output is the same with and without the log-sum-exp
+    pointer under every plan, a key split among them."""
+    assert chip_smoke.lse_bits(np.random.default_rng(1)) > 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "zamba2_2_7b",
+                                  "whisper_small"])
+def test_train_step_on_card_matches_plain(arch, card):
+    """One step's loss and gradients at the smoke config on the card: the
+    kernels (forward and backward) against autograd through the plain
+    versions on the card; the launches as the step runs them."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.util import launch_counts
+    from repro_torch.lm.model import load_params
+    from repro_torch.lm.steps import batch_to, loss_and_grads
+    from repro_torch.train.tree import leaves
+    cfg = get_smoke(arch)
+    params = load_params(cfg, 0, card)
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=24,
+                                 global_batch=2)).batch_at(0)
+    if cfg.encoder_decoder:
+        raw["enc_input"] = np.random.default_rng(0).standard_normal(
+            (2, cfg.enc_positions, cfg.d_model)).astype(np.float32) * 0.1
+    batch = batch_to(raw, card)
+    before = launch_counts()
+    loss, grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in launch_counts().items()
+           if v != before[k]}
+    assert ran["rmsnorm_bwd"] > 0 and ran.get("flash_attention_bwd", 0) > 0
+    assert ran["rmsnorm"] > ran["rmsnorm_bwd"]          # remat recomputes
+    with chip_smoke.plain_kernels():
+        ploss, pgrads = loss_and_grads(params, cfg, batch)
+    np.testing.assert_allclose(float(loss), float(ploss), rtol=1e-5)
+    for g, p in zip(leaves(grads), leaves(pgrads)):
+        assert bool(torch.isfinite(g).all())
+        top = p.abs().max().item()
+        assert (g - p).abs().max().item() <= 1e-3 * top
