@@ -3898,9 +3898,12 @@ def train_calls() -> list[dict]:
 
 
 def train_edge_calls() -> list[dict]:
-    """The backward kernels at small edge cases: K6 at one row and odd or
-    wide widths; K7 flash non-causal, a chunk (q_offset > 0), sk_valid <
-    Sk, Sq != Sk, G 1 and 7, D 64, 80 and 128, rows that see no key."""
+    """The backward kernels at small edge cases: K6 at one row, odd or
+    wide widths, rows that are no multiple of a block's warps and more
+    blocks than SMs would take; K7 flash non-causal, a chunk (q_offset >
+    0), sk_valid < Sk, Sq != Sk, G 1, 7, 8 and 14, D 32, 64, 80 and 128,
+    keys that are no multiple of a key tile, fewer blocks than SMs, rows
+    that see no key."""
     def fl(b, hq, hkv, sq, sk, d, causal=True, q_offset=0, sk_valid=None):
         return dict(kernel="flash_attention_bwd", b=b, hq=hq, hkv=hkv,
                     sq=sq, sk=sk, d=d, causal=causal, q_offset=q_offset,
@@ -3909,13 +3912,18 @@ def train_edge_calls() -> list[dict]:
             dict(kernel="rmsnorm_bwd", rows=37, d=1023),
             dict(kernel="rmsnorm_bwd", rows=300, d=2560),
             dict(kernel="rmsnorm_bwd", rows=9, d=8192),
+            dict(kernel="rmsnorm_bwd", rows=1037, d=896),
+            dict(kernel="rmsnorm_bwd", rows=133, d=1024),
             fl(2, 14, 2, 130, 130, 64), fl(1, 7, 7, 77, 77, 64),
             fl(1, 7, 1, 64, 64, 64), fl(2, 4, 2, 100, 100, 64, causal=False),
             fl(1, 4, 2, 37, 200, 64, q_offset=163),
             fl(1, 4, 2, 70, 70, 64, sk_valid=40),
             fl(1, 4, 2, 40, 90, 64, causal=False),
             fl(1, 4, 2, 70, 70, 80), fl(1, 8, 1, 65, 65, 128),
-            fl(1, 4, 2, 20, 30, 64, sk_valid=0)]
+            fl(1, 4, 2, 20, 30, 64, sk_valid=0),
+            fl(1, 4, 2, 100, 100, 64), fl(1, 2, 1, 48, 48, 64),
+            fl(2, 8, 2, 96, 96, 32), fl(1, 8, 1, 150, 150, 64),
+            fl(1, 14, 1, 90, 90, 64)]
 
 
 def _train_case(call: dict, gen) -> dict:
@@ -4082,9 +4090,45 @@ def _finite_nonzero(grads) -> tuple[bool, bool]:
             all(bool(g.any()) for g in ls))
 
 
+def pass_ms(fn, reps: int = 20) -> dict[str, float]:
+    """Device ms a call of each kernel that ``fn`` launches, by the
+    kernel's name (``torch.profiler`` over ``reps`` calls after one
+    warm-up): the passes of a wrapper that launches more than one."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        m = re.search(r"(\w+)(<\d+>)?\(", e.key)
+        name = (m.group(1) + (m.group(2) or "")) if m else e.key
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def bwd_plan(call: dict) -> dict:
+    """The plan a backward call at the path's shape runs."""
+    from repro_torch.kernels.attention.plan import plan_flash_bwd
+    from repro_torch.kernels.rmsnorm.kernel import bwd_blocks, bwd_vec
+    if call["kernel"] == "rmsnorm_bwd":
+        return dict(vec=bwd_vec(call["d"]),
+                    blocks=bwd_blocks(call["rows"], call["d"]))
+    return dataclasses.asdict(plan_flash_bwd(
+        call["b"], call["hq"], call["hkv"], call["sq"], call["sk"],
+        call["d"], call["causal"], call["q_offset"], call["sk_valid"]))
+
+
 def train_kernels(gen) -> dict:
     """11(a): the backward kernels (and the forward as training launches
-    it) against their plain versions, at the path's shapes (timed) and the
+    it) against their plain versions, at the path's shapes (timed, each
+    backward's passes apart under the profiler, with its plan) and the
     edges; the forward's output with and without its log-sum-exp."""
     from repro_torch.kernels.util import ptxas_report
     rows = {}
@@ -4094,6 +4138,13 @@ def train_kernels(gen) -> dict:
               f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library "
               f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
               f"({r['bound_by']})  err {r['max_abs_err']:.1e}")
+        if c["kernel"] in ("rmsnorm_bwd", "flash_attention_bwd"):
+            r["passes_ms"] = pass_ms(_train_case(c, gen)["kernel"])
+            r["plan"] = bwd_plan(c)
+            print(f"[train]   {c['kernel']} passes (profiler, ms a call): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in
+                              r["passes_ms"].items()))
+            print(f"[train]   {c['kernel']} plan: {r['plan']}")
     for c in train_edge_calls():
         r = check_train_call(c, gen, timing=False)
         print(f"[train] edge {r['kernel']:<21} {_shape_str(c):<40} err "

@@ -29,31 +29,43 @@
 //     every w, and the kernel before a K6 launch could be the one that
 //     wrote it; so there (pdl = 0, the wrapper's choice wherever w
 //     requires grad) the launch is plain and starts after every earlier
-//     kernel of the stream, and the backward below is always launched
-//     the plain way: no K6 launch reads a w that the kernel it overlaps
-//     may write.
+//     kernel of the stream; the backward below launches its rows pass
+//     the plain way, and its dw pass reads only what the rows pass wrote,
+//     after griddepcontrol.wait: no K6 launch reads a w that the kernel
+//     it overlaps may write.
 //
 // Backward (repro_rmsnorm_bwd; no TPU counterpart: the reference trains
 // through rmsnorm_ref and jax.grad).  With r = rsqrt(mean(x^2) + eps) and
 // g = dy * w: dx = r g - x r^3 mean(g x), and dw = sum over rows of
 // dy x r.  It reads x and dy once and writes dx: bytes bound, like the
-// forward (the path's (4096, 896) moves 44 MB).  Design:
-//   * A block of 256 threads takes a contiguous run of rows; for each row
-//     it sums x^2 and g x in one pass (the row's first 1024 elements kept
-//     in registers), reduces both across the block in a fixed order,
-//     writes dx, and adds the row's dy x r into its own partial dw, held
-//     in shared memory (each column belongs to one thread: no race).
-//   * dw is a reduction across blocks: each block writes its partial row
-//     to scratch, then a second kernel sums the partials of each column in
-//     block order.  No float atomics, so the bits do not depend on
-//     scheduling.
-//   * A call of up to 132 rows (a decode step's 16) takes a block a row, so
-//     its rows spread over as many SMs; a longer one (a prefill's 1024)
-//     takes 4 rows a block.
-//   * Any other d (odd, or wider) takes the general kernel: one 256-thread
-//     block a row, a shared-memory reduction; each thread keeps up to 8 of
-//     its elements of x and w in registers (d <= 2048) and reads the rest
-//     again, from L2, for the scale.
+// forward (the path's (4096, 896) moves 44 MB: 0.013 ms at 3.35 TB/s).
+// Design, the forward's layout:
+//   * A warp owns a row where d % 4 == 0 and d <= 1024 (the path's 896):
+//     each lane keeps its float4s of x and dy in registers (7 each at
+//     d = 896); w is read into registers once a warp, not once a row;
+//     both sums (x^2 and g x) are shuffle reductions, with no block
+//     barrier; each lane adds its columns' dy x r into registers across
+//     the warp's rows.  A block's 8 warps take a contiguous run of rows,
+//     at most one block an SM (kernel.py's bwd_blocks: 128 blocks of 32
+//     rows on the path), and sum their partials in warp order through
+//     shared memory into one partial row of dw a block.
+//   * The cross-block sum of dw is a second kernel spread over the card:
+//     a block takes 32 columns, its 8 warps contiguous runs of the
+//     partial rows, each summed in order, then the runs in warp order (28
+//     blocks at d = 896, about 16 partials a warp).  It is a programmatic
+//     dependent launch (tc::launch_pdl) behind the rows pass and runs
+//     griddepcontrol.wait before its first read; the rows pass itself is
+//     launched the plain way.  No float atomics, so the bits repeat.
+//   * Any other d (odd, or wider; 1023, 2560 and 8192 on the edges) takes
+//     the general rows pass: a 256-thread block a row at a time, a
+//     shared-memory reduction, each thread keeping up to 4 elements of x
+//     and dy in registers and reading the rest again; up to 264 blocks.
+// The forward's calls of up to 132 rows (a decode step's 16) take a block
+// a row, so their rows spread over as many SMs; a longer one (a prefill's
+// 1024) takes 4 rows a block; any other d takes one 256-thread block a
+// row, a shared-memory reduction, each thread keeping up to 8 of its
+// elements of x and w in registers (d <= 2048) and reading the rest
+// again, from L2, for the scale.
 // The sum runs in a fixed order per lane and per shuffle tree, so the
 // result does not depend on the stream or the launch.
 #include "tc_common.cuh"
@@ -171,10 +183,105 @@ rmsnorm_general_kernel(const float* __restrict__ x,
 }
 
 constexpr int BWD_THREADS = 256;
-constexpr int BWD_REG = 4;          // elements a thread keeps: d <= 1024
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_REG = 4;          // the general path: elements a thread
+                                    // keeps, d <= 1024
+constexpr int DW_COLS = 32;         // the dw pass: columns a block, a lane
+constexpr int DW_WARPS = 8;         // ... each; its warps split the partials
 
-// Rows [blockIdx.x * per, +per) of dx, and the block's partial dw (the sum
-// of dy x r over those rows) into part[blockIdx.x][:].
+// The warp-per-row rows pass (d % 4 == 0, d <= 1024, 16-byte aligned):
+// rows [blockIdx.x * per, +per), warp w taking rows w, w + 8, ... of them.
+// A lane keeps its float4s of w (read once), x and dy in registers and
+// its columns' dw partial across the warp's rows; both row sums are
+// shuffle reductions.  The block's partial dw, its warps' summed in warp
+// order through shared memory, goes to part[blockIdx.x][:].
+__global__ void __launch_bounds__(BWD_THREADS)
+rmsnorm_bwd_vec_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const float* __restrict__ dy, float* __restrict__ dx,
+                       float* __restrict__ part, int rows, int d, int per,
+                       float eps) {
+  extern __shared__ float4 acc_s[];            // [BWD_WARPS][d / 4]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = d >> 2;
+  const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float4 wv[MAX_VEC], acc[MAX_VEC];
+#pragma unroll
+  for (int i = 0; i < MAX_VEC; ++i) {
+    const int j = lane + 32 * i;
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < nv) wv[i] = w4[j];
+  }
+  for (int row = r0 + warp; row < r1; row += BWD_WARPS) {
+    const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * d);
+    const float4* gr = reinterpret_cast<const float4*>(dy + (size_t)row * d);
+    float4 xv[MAX_VEC], gv[MAX_VEC];
+#pragma unroll
+    for (int i = 0; i < MAX_VEC; ++i) {
+      const int j = lane + 32 * i;
+      if (j < nv) {
+        xv[i] = xr[j];
+        gv[i] = gr[j];
+      }
+    }
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_VEC; ++i) {
+      if (lane + 32 * i < nv) {
+        ss = fmaf(xv[i].x, xv[i].x, ss);
+        ss = fmaf(xv[i].y, xv[i].y, ss);
+        ss = fmaf(xv[i].z, xv[i].z, ss);
+        ss = fmaf(xv[i].w, xv[i].w, ss);
+        dot = fmaf(gv[i].x * wv[i].x, xv[i].x, dot);
+        dot = fmaf(gv[i].y * wv[i].y, xv[i].y, dot);
+        dot = fmaf(gv[i].z * wv[i].z, xv[i].z, dot);
+        dot = fmaf(gv[i].w * wv[i].w, xv[i].w, dot);
+      }
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    const float r = rsqrtf(ss / (float)d + eps);
+    const float c = r * r * r * (dot / (float)d);
+    float4* dxr = reinterpret_cast<float4*>(dx + (size_t)row * d);
+#pragma unroll
+    for (int i = 0; i < MAX_VEC; ++i) {
+      const int j = lane + 32 * i;
+      if (j < nv) {
+        const float4 a = xv[i], g = gv[i], ww = wv[i];
+        dxr[j] = make_float4(g.x * ww.x * r - a.x * c,
+                             g.y * ww.y * r - a.y * c,
+                             g.z * ww.z * r - a.z * c,
+                             g.w * ww.w * r - a.w * c);
+        acc[i].x = fmaf(g.x * a.x, r, acc[i].x);
+        acc[i].y = fmaf(g.y * a.y, r, acc[i].y);
+        acc[i].z = fmaf(g.z * a.z, r, acc[i].z);
+        acc[i].w = fmaf(g.w * a.w, r, acc[i].w);
+      }
+    }
+  }
+  release_dependents();
+#pragma unroll
+  for (int i = 0; i < MAX_VEC; ++i) {
+    const int j = lane + 32 * i;
+    if (j < nv) acc_s[warp * nv + j] = acc[i];
+  }
+  __syncthreads();
+  float4* p4 = reinterpret_cast<float4*>(part + (size_t)blockIdx.x * d);
+  for (int j = threadIdx.x; j < nv; j += BWD_THREADS) {
+    float4 t = acc_s[j];
+#pragma unroll
+    for (int q = 1; q < BWD_WARPS; ++q) {
+      const float4 u = acc_s[q * nv + j];
+      t.x += u.x, t.y += u.y, t.z += u.z, t.w += u.w;
+    }
+    p4[j] = t;
+  }
+}
+
+// The general rows pass (any other d): rows [blockIdx.x * per, +per) of
+// dx, one row at a time across the block, and the block's partial dw (the
+// sum of dy x r over those rows) into part[blockIdx.x][:].
 __global__ void __launch_bounds__(BWD_THREADS)
 rmsnorm_bwd_rows_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
@@ -182,7 +289,7 @@ rmsnorm_bwd_rows_kernel(const float* __restrict__ x,
                         float* __restrict__ part, int rows, int d, int per,
                         float eps) {
   extern __shared__ float acc[];               // [d] the block's dw
-  __shared__ float red[2][BWD_THREADS / 32];
+  __shared__ float red[2][BWD_WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * per, r1 = min(rows, r0 + per);
   for (int j = threadIdx.x; j < d; j += BWD_THREADS) acc[j] = 0.f;
@@ -219,7 +326,7 @@ rmsnorm_bwd_rows_kernel(const float* __restrict__ x,
     __syncthreads();
     float tss = 0.f, tdot = 0.f;
 #pragma unroll
-    for (int i = 0; i < BWD_THREADS / 32; ++i) {
+    for (int i = 0; i < BWD_WARPS; ++i) {
       tss += red[0][i];
       tdot += red[1][i];
     }
@@ -242,20 +349,38 @@ rmsnorm_bwd_rows_kernel(const float* __restrict__ x,
       acc[j] = fmaf(dd * xx, r, acc[j]);
     }
   }
+  release_dependents();
   for (int j = threadIdx.x; j < d; j += BWD_THREADS)
     part[(size_t)blockIdx.x * d + j] = acc[j];
 }
 
-// dw[j] = the blocks' partials of column j, summed in block order.
-__global__ void __launch_bounds__(BWD_THREADS)
+// The dw pass: dw[j] = the blocks' partials of column j.  A block takes
+// DW_COLS columns, a lane each; its warps take contiguous runs of the
+// partial rows (tc::rank_range), each summed in row order, then warp 0
+// sums the runs in warp order: a fixed tree.  Launched as a programmatic
+// dependent of the rows pass: it waits for it before its first read.
+__global__ void __launch_bounds__(32 * DW_WARPS)
 rmsnorm_dw_kernel(const float* __restrict__ part, float* __restrict__ dw,
                   int blocks, int d) {
-  const int j = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (j >= d) return;
+  __shared__ float red[DW_WARPS][DW_COLS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * DW_COLS + lane;
+  int b0, b1;
+  tc::rank_range(blocks, DW_WARPS, warp, b0, b1);
+  wait_for_producer();
   float s = 0.f;
-#pragma unroll 8
-  for (int b = 0; b < blocks; ++b) s += part[(size_t)b * d + j];
-  dw[j] = s;
+  if (j < d) {
+#pragma unroll 4
+    for (int b = b0; b < b1; ++b) s += part[(size_t)b * d + j];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < d) {
+    float t = red[0][lane];
+#pragma unroll
+    for (int q = 1; q < DW_WARPS; ++q) t += red[q][lane];
+    dw[j] = t;
+  }
 }
 
 }  // namespace
@@ -287,24 +412,34 @@ extern "C" int repro_rmsnorm(const float* x, const float* w, float* out,
 }
 
 // blocks: row blocks (kernel.py's bwd_blocks), each cdiv(rows, blocks)
-// rows; part: [blocks][d] scratch for their partial dw.
+// rows; part: [blocks][d] scratch for their partial dw.  Two launches on
+// `stream`: the rows pass, the plain way (it starts after every earlier
+// kernel), then the dw pass, a programmatic dependent that waits for it.
 extern "C" int repro_rmsnorm_bwd(const float* x, const float* w,
                                  const float* dy, float* dx, float* part,
                                  float* dw, int rows, int d, int blocks,
                                  float eps, void* stream) {
   if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (size_t)d;
+  const bool vec =
+      d % 4 == 0 && d <= 32 * 4 * MAX_VEC &&
+      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w) |
+        reinterpret_cast<size_t>(dy) | reinterpret_cast<size_t>(dx) |
+        reinterpret_cast<size_t>(part)) & 15) == 0;
+  const size_t smem =
+      vec ? sizeof(float) * (size_t)BWD_WARPS * d : sizeof(float) * (size_t)d;
   if (smem > REPRO_MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = tc::opt_in(rmsnorm_bwd_rows_kernel, smem, false);
+  const auto rows_kernel =
+      vec ? rmsnorm_bwd_vec_kernel : rmsnorm_bwd_rows_kernel;
+  const int rc = tc::opt_in(rows_kernel, smem, false);
   if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rmsnorm_bwd_rows_kernel<<<blocks, BWD_THREADS, smem, s>>>(
+  rows_kernel<<<blocks, BWD_THREADS, smem, s>>>(
       x, w, dy, dx, part, rows, d, repro_cdiv(rows, blocks), eps);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dw_kernel<<<repro_cdiv(d, BWD_THREADS), BWD_THREADS, 0, s>>>(
-      part, dw, blocks, d);
-  return static_cast<int>(cudaGetLastError());
+  return tc::launch_pdl(rmsnorm_dw_kernel, repro_cdiv(d, DW_COLS),
+                        32 * DW_WARPS, 0, stream, (const float*)part, dw,
+                        blocks, d);
 }

@@ -31,9 +31,13 @@ the kernel for each row's log-sum-exp as well (a pointer the kernel
 writes only when given; serving passes none, and the output's bits are
 the same either way), and its backward is ``flash_attention_bwd``, the
 port's own kernels in ``csrc/flash_attention_bwd.cu`` (the reference
-trains through XLA's attention, so no TPU kernel is replaced): one pass
-per (batch, KV head, key tile) for dK and dV, one per (batch, query head,
-query tile) for dQ, f32 on the CUDA cores, no atomics.  Decode has no
+trains through XLA's attention, so no TPU kernel is replaced): a dQ
+pass per (batch, query head, query tile) that also writes each row's D =
+rowsum(dO O) and log-sum-exp to a scratch, then a dK/dV pass per (batch,
+KV head, key tile) whose thread-block cluster may split the GQA group's
+heads, both on the tensor cores in 3xTF32 with cp.async rings, no
+atomics; ``plan.py``'s ``plan_flash_bwd`` chooses each pass's warps and
+ring and the dK/dV pass's pairing of key tiles and cluster.  Decode has no
 backward (no training path sends it one-row queries) and raises where
 autograd records an input that requires grad.
 
@@ -42,7 +46,7 @@ sequence axis): the kernels read the cache in place.  q must be
 contiguous.  A CUDA tensor launches the kernel on the current stream (or
 raises); a CPU tensor runs the plain version from ``ref.py``.
 ``flash_attention.launches``, ``flash_attention_bwd.launches`` (a call:
-one launch of its entry, the dK/dV and the dQ kernels) and
+one launch of its entry, the dQ and the dK/dV kernels) and
 ``decode_attention.launches`` count the launches.
 """
 from __future__ import annotations
@@ -51,7 +55,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.attention.plan import plan_decode, plan_flash
+from repro_torch.kernels.attention.plan import (plan_decode, plan_flash,
+                                                plan_flash_bwd)
 from repro_torch.kernels.attention.ref import (decode_attention_ref,
                                                flash_attention_bwd_ref,
                                                flash_attention_ref)
@@ -174,13 +179,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > 128:
         raise ValueError(f"flash_attention_bwd: D {d} > 128")
     kv_cap = _kv_capacity("flash_attention_bwd", q, k, v)
+    plan = plan_flash_bwd(b, hq, hkv, sq, sk, d, bool(causal), int(q_offset),
+                          None if sk_valid is None else int(sk_valid))
     dq = torch.empty_like(q)
     dk = torch.empty((b, hkv, sk, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
+    rows = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
     launch("repro_flash_attention_bwd", q.device, q, k, v, out, dout, lse,
-           dq, dk, dv, b, hq, hkv, sq, sk, d, kv_cap, int(causal),
+           dq, dk, dv, rows, b, hq, hkv, sq, sk, d, kv_cap, int(causal),
            int(q_offset), sk if sk_valid is None else int(sk_valid),
-           1.0 / math.sqrt(d))
+           1.0 / math.sqrt(d), plan.q_warps, plan.q_ring, plan.kv_warps,
+           plan.kv_ring, int(plan.pair), plan.cluster, plan.q_smem_bytes,
+           plan.kv_smem_bytes)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -48,6 +48,20 @@ deeper ring.  A sweep of every plan on an H100
 plans this way at the LM paths' shapes.  One block serves one query head:
 the heads of a GQA group each stage the group's K / V tiles themselves
 (from L2), which keeps the kernel's work items small enough to balance.
+
+``plan_flash_bwd`` chooses, for the flash backward's two kernels, each
+pass's warps and ring (the dQ pass: 64 or 128 query rows a block, heaviest
+q tiles first, as the forward) and the dK/dV pass's balance: 16 keys a
+warp (2, 4 or 8 warps), whether a block takes key tiles p and nkt - 1 - p
+in turn (``pair``), and a thread-block cluster of up to 8 ranks that
+splits a GQA group's heads, their partial dK and dV summed in rank order.
+Under a causal mask key tile 0 is seen by every q tile and the last by
+one; the model prices each dK/dV block at its serial (head, q tile) steps
+plus one a key tile, places the blocks heaviest first on the earliest free
+slot of 132 SMs (``_makespan``), and takes the least makespan, then the
+smaller cluster, fewer warps, no pairing and the deeper ring.  The two
+passes are planned independently.  A sweep of every plan on an H100
+(``tools/bwd_sweep.py``) ranks them at the training path's call.
 """
 from __future__ import annotations
 
@@ -351,3 +365,272 @@ def plan_flash(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
     d)."""
     return min(flash_candidates(b, hq, hkv, sq, sk, d, causal, q_offset,
                                 sk_valid), key=lambda kp: kp[0])[1]
+
+
+# --------------------------------------------------------------------------
+# the flash backward kernels
+# --------------------------------------------------------------------------
+BWD_Q_WARPS = (4, 8)        # the dQ pass: 64 or 128 query rows a block
+BWD_KV_WARPS = (2, 4, 8)    # the dK/dV pass: 32, 64 or 128 keys a block
+BWD_KEY_ROWS = 16           # keys a dK/dV warp: one m16 tile
+BWD_RINGS = (2, 3)          # stages of either pass's cp.async ring
+BWD_BQ = 32                 # query rows a dK/dV ring stage
+BWD_CLUSTERS = (1, 2, 4, 8)     # ... and G itself, where G <= 8
+BWD_MAX_CLUSTER = 8
+BWD_MERGE_COST = 0.5        # a cluster's merge of dK / dV, in steps
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    """One flash backward call's plan.
+
+    The dQ pass (first): ``q_blocks`` blocks of ``q_warps`` warps (16 query
+    rows each), a ring of ``q_ring`` stages of K / V tiles of ``q_bk``
+    keys, q tiles heaviest first (``flash_items``' decoding).  It also
+    writes each row's D = rowsum(dO O) and log2-unit log-sum-exp to a
+    scratch of 2 (B, Hq, Sq) floats.
+
+    The dK/dV pass: a block of ``kv_warps`` warps owns a key tile of 16
+    keys a warp (``kv_keys``); with ``pair`` it takes key tiles ``p`` and
+    ``nkt - 1 - p`` in turn (evening out causal work), else tile ``p``;
+    ``cluster`` blocks share an item and split the GQA group's heads in
+    contiguous runs, summing dK and dV over distributed shared memory in
+    rank order; items run heaviest first.  Query tiles of ``kv_bq`` (32)
+    rows (Q, dO, and their rows' D and log-sum-exp) stream through a ring
+    of ``kv_ring`` stages.  ``*_per_sm`` blocks fit an SM; ``*_makespan`` is
+    the model's, in serial steps over a warp's speed."""
+    q_warps: int
+    q_ring: int
+    q_bk: int
+    q_tiles: int
+    q_blocks: int
+    q_per_sm: int
+    q_smem_bytes: int
+    q_makespan: float
+    kv_warps: int
+    kv_ring: int
+    kv_bq: int
+    pair: bool
+    cluster: int
+    key_tiles: int
+    kv_items: int
+    kv_blocks: int
+    kv_per_sm: int
+    kv_smem_bytes: int
+    kv_makespan: float
+
+    @property
+    def q_rows(self) -> int:
+        return WARP_ROWS * self.q_warps
+
+    @property
+    def kv_keys(self) -> int:
+        return BWD_KEY_ROWS * self.kv_warps
+
+
+def flash_bwd_q_smem_floats(d: int, warps: int, ring: int) -> int:
+    """Shared memory of the dQ pass in floats (``fb::q_smem_floats``): the
+    block's Q and dO rows [2][16 warps][D' + 4], then ``ring`` stages of K
+    and V tiles [2 bk][D' + 4], D' = ``flash_d_pad(d)``."""
+    return ((2 * WARP_ROWS * warps + ring * 2 * flash_bk(d))
+            * (flash_d_pad(d) + 4))
+
+
+def flash_bwd_kv_smem_floats(d: int, warps: int, ring: int) -> int:
+    """Shared memory of the dK/dV pass in floats (``fb::kv_smem_floats``):
+    the block's K and V tiles [2][16 warps][D' + 4], the warps' dK and dV
+    totals [2][16 warps][D' + 8], then ``ring`` stages of Q and dO tiles
+    [2][32][D' + 4] with their rows' log-sum-exp and D [2][32]."""
+    s = flash_d_pad(d) + 4
+    return (2 * BWD_KEY_ROWS * warps * (s + flash_d_pad(d) + 8)
+            + ring * (2 * BWD_BQ * s + 2 * BWD_BQ))
+
+
+def _key_tile_rows(k0: int, sq: int, bq: int, causal: bool, q_offset: int,
+                   kv_end: int) -> tuple[int, int]:
+    """The q tiles [lo, n) of ``bq`` rows whose rows see a key in the tile
+    that starts at key ``k0`` (``fb::kv_q_tiles``)."""
+    n = _cdiv(sq, bq)
+    if k0 >= kv_end:
+        return 0, 0
+    lo = max(0, k0 - q_offset) // bq if causal else 0
+    return min(lo, n), n
+
+
+def flash_bwd_pair_tiles(plan: FlashBwdPlan, p: int) -> tuple[int, ...]:
+    """The key tiles of item slot ``p``: ``p`` and, paired, ``nkt - 1 -
+    p`` where that is another tile."""
+    other = plan.key_tiles - 1 - p
+    return (p, other) if plan.pair and other != p else (p,)
+
+
+def flash_bwd_kv_items(plan: FlashBwdPlan, b: int, hkv: int, g: int
+                       ) -> list[list[tuple[int, int, int, int]]]:
+    """Each dK/dV block's (batch, KV head, key tile, query head) items, in
+    launch order: the kernel's decoding of ``blockIdx.x`` (item x // cluster
+    heaviest first: slot x // cluster // (B Hkv) of (batch, KV head)
+    x // cluster % (B Hkv); the rank x % cluster takes its contiguous run
+    of the group's heads, ``tc::rank_range``)."""
+    bhk_n = b * hkv
+    out = []
+    for x in range(plan.kv_blocks):
+        item, rank = divmod(x, plan.cluster)
+        p, bhk = divmod(item, bhk_n)
+        bb, hk = divmod(bhk, hkv)
+        h0, h1 = rank * g // plan.cluster, (rank + 1) * g // plan.cluster
+        out.append([(bb, hk, kt, hk * g + h)
+                    for kt in flash_bwd_pair_tiles(plan, p)
+                    for h in range(h0, h1)])
+    return out
+
+
+def flash_bwd_q_items(plan: FlashBwdPlan, b: int, hq: int
+                      ) -> list[tuple[int, int, int]]:
+    """Each dQ block's (batch, head, q tile), in launch order: heaviest
+    first, as the forward (``flash_items``)."""
+    bh_n = b * hq
+    return [((x % bh_n) // hq, x % hq, plan.q_tiles - 1 - x // bh_n)
+            for x in range(plan.q_blocks)]
+
+
+def flash_bwd_kv_costs(plan: FlashBwdPlan, b: int, hq: int, hkv: int,
+                       sq: int, sk: int, causal: bool, q_offset: int,
+                       sk_valid: int | None) -> list[float]:
+    """Each dK/dV block's modelled cost in launch order: its serial (head,
+    q tile) steps, plus one a key tile (its K / V load and its store) and
+    ``BWD_MERGE_COST`` a key tile in a cluster."""
+    kv_end = sk if sk_valid is None else max(0, min(sk, sk_valid))
+    g = hq // hkv
+    out = []
+    for x in range(plan.kv_blocks):
+        item, rank = divmod(x, plan.cluster)
+        p = item // (b * hkv)
+        heads = ((rank + 1) * g // plan.cluster
+                 - rank * g // plan.cluster)
+        cost = 0.0
+        for kt in flash_bwd_pair_tiles(plan, p):
+            lo, n = _key_tile_rows(kt * plan.kv_keys, sq, plan.kv_bq, causal,
+                                   q_offset, kv_end)
+            cost += heads * (n - lo) + 1 + (BWD_MERGE_COST
+                                            if plan.cluster > 1 else 0)
+        out.append(cost)
+    return out
+
+
+def flash_bwd_plain_costs(plan: FlashBwdPlan, b: int, hq: int, hkv: int,
+                          sq: int, sk: int, causal: bool, q_offset: int,
+                          sk_valid: int | None) -> list[float]:
+    """The dK/dV blocks' costs in plain order (a block a (batch, KV head,
+    key tile), its whole group, key tiles inner, as the kernel ran before
+    its planner) at ``plan``'s key tile: the baseline the planner's
+    balance is held against."""
+    kv_end = sk if sk_valid is None else max(0, min(sk, sk_valid))
+    g = hq // hkv
+    costs = []
+    for _bhk in range(b * hkv):
+        for kt in range(plan.key_tiles):
+            lo, n = _key_tile_rows(kt * plan.kv_keys, sq, plan.kv_bq, causal,
+                                   q_offset, kv_end)
+            costs.append(g * (n - lo) + 1.0)
+    return costs
+
+
+def _bwd_clusters(g: int) -> list[int]:
+    return sorted({c for c in (*BWD_CLUSTERS, g) if c <= min(
+        g, BWD_MAX_CLUSTER)})
+
+
+def _flash_bwd_check(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+                     q_offset: int) -> None:
+    if b < 1 or hkv < 1 or hq % hkv or sq < 1 or sk < 0 or q_offset < 0:
+        raise ValueError(f"flash backward: shape B={b} Hq={hq} Hkv={hkv} "
+                         f"Sq={sq} Sk={sk} q_offset={q_offset}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"flash backward: D={d} is past the kernel: D "
+                         f"from 1 to {MAX_D}")
+
+
+def flash_bwd_candidates(b: int, hq: int, hkv: int, sq: int, sk: int,
+                         d: int, causal: bool, q_offset: int,
+                         sk_valid: int | None
+                         ) -> list[tuple[tuple, FlashBwdPlan]]:
+    """Every option of each pass, each with its sort key (the plan is the
+    least key).  The two passes are independent, so each dQ option is
+    weighed beside the best dK/dV option and each dK/dV option beside the
+    best dQ option: every option either pass offers is a candidate."""
+    _flash_bwd_check(b, hq, hkv, sq, sk, d, q_offset)
+    g = hq // hkv
+    bk = flash_bk(d)
+    qs = []
+    for warps in BWD_Q_WARPS:
+        rows = WARP_ROWS * warps
+        n = _cdiv(sq, rows)
+        tiles = [_cdiv(flash_tile_keys(t, rows, sq, sk, causal, q_offset,
+                                       sk_valid), bk) for t in range(n)]
+        for ring in BWD_RINGS:
+            smem = 4 * flash_bwd_q_smem_floats(d, warps, ring)
+            per_sm = flash_blocks_per_sm(warps, smem)
+            blocks = b * hq * n
+            if smem > MAX_SMEM or per_sm < 1 or blocks > MAX_GRID:
+                continue
+            cost = [tiles[t] + 1 for t in reversed(range(n))]
+            span = _makespan([c for c in cost for _ in range(b * hq)],
+                             per_sm, warps)
+            qs.append(((span, warps, -ring), dict(
+                q_warps=warps, q_ring=ring, q_bk=bk, q_tiles=n,
+                q_blocks=blocks, q_per_sm=per_sm, q_smem_bytes=smem,
+                q_makespan=span)))
+    kvs = []
+    for warps in BWD_KV_WARPS:
+        nkt = _cdiv(sk, BWD_KEY_ROWS * warps)
+        for pair in (False, True):
+            if pair and nkt < 3:
+                continue                # no tile has another to pair with
+            slots = _cdiv(nkt, 2) if pair else nkt
+            for cl in _bwd_clusters(g):
+                for ring in BWD_RINGS:
+                    smem = 4 * flash_bwd_kv_smem_floats(d, warps, ring)
+                    per_sm = flash_blocks_per_sm(warps, smem)
+                    items = b * hkv * slots
+                    if (smem > MAX_SMEM or per_sm < 1
+                            or items * cl > MAX_GRID):
+                        continue
+                    part = dict(kv_warps=warps, kv_ring=ring, kv_bq=BWD_BQ,
+                                pair=pair, cluster=cl, key_tiles=nkt,
+                                kv_items=items, kv_blocks=items * cl,
+                                kv_per_sm=per_sm, kv_smem_bytes=smem,
+                                kv_makespan=0.0)
+                    kvs.append(part)
+    if not qs or not kvs:
+        raise ValueError(f"flash backward: no plan fits D={d}")
+    keyed_kv = []
+    for part in kvs:
+        probe = FlashBwdPlan(**qs[0][1], **part)
+        span = _makespan(flash_bwd_kv_costs(probe, b, hq, hkv, sq, sk,
+                                            causal, q_offset, sk_valid),
+                         probe.kv_per_sm, probe.kv_warps)
+        part = dict(part, kv_makespan=span)
+        keyed_kv.append(((span, part["cluster"], part["kv_warps"],
+                          part["pair"], -part["kv_ring"]), part))
+    best_q = min(qs, key=lambda kp: kp[0])
+    best_kv = min(keyed_kv, key=lambda kp: kp[0])
+    out = []
+    for qk, qp in qs:
+        out.append(((qk[0] + best_kv[0][0], qk, best_kv[0]),
+                    FlashBwdPlan(**qp, **best_kv[1])))
+    for kk, kp in keyed_kv:
+        if kp is best_kv[1]:
+            continue
+        out.append(((best_q[0][0] + kk[0], best_q[0], kk),
+                    FlashBwdPlan(**best_q[1], **kp)))
+    return out
+
+
+@functools.cache
+def plan_flash_bwd(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+                   causal: bool = True, q_offset: int = 0,
+                   sk_valid: int | None = None) -> FlashBwdPlan:
+    """The flash backward kernels' plan for q (b, hq, sq, d) against (b,
+    hkv, sk, d)."""
+    return min(flash_bwd_candidates(b, hq, hkv, sq, sk, d, causal, q_offset,
+                                    sk_valid), key=lambda kp: kp[0])[1]

@@ -212,7 +212,7 @@ SIGNATURES = {
     "repro_rmsnorm": "p" * 3 + "i" * 2 + "f" + "i" + "s",
     "repro_rmsnorm_bwd": "p" * 6 + "i" * 3 + "f" + "s",
     "repro_flash_attention": "p" * 5 + "i" * 10 + "f" + "i" * 5 + "s",
-    "repro_flash_attention_bwd": "p" * 9 + "i" * 10 + "f" + "s",
+    "repro_flash_attention_bwd": "p" * 10 + "i" * 10 + "f" + "i" * 8 + "s",
     "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
     "repro_sm_probe": "p" + "i" * 2 + "l" + "s",
     "repro_sm_probe_clusters": "i" + "p" + "s",

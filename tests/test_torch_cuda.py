@@ -1263,6 +1263,73 @@ def test_train_kernel_matches_plain_on_card(call, card):
     assert row["max_rel_err"] <= chip_smoke.BWD_TOL
 
 
+# K7 flash's backward at the planner's edges: (b, hq, hkv, sq, sk, d,
+# causal, q_offset, sk_valid, cap)
+FLASH_BWD_EDGES = {
+    "sq130": (2, 14, 2, 130, 130, 64, True, 0, None, 130),
+    "keys-past-a-tile": (1, 4, 2, 100, 100, 64, True, 0, None, 100),
+    "few-blocks": (1, 2, 1, 48, 48, 64, True, 0, None, 64),
+    "chunk": (2, 14, 2, 20, 50, 64, True, 30, None, 80),
+    "sk_valid": (1, 6, 3, 40, 100, 64, False, 0, 71, 100),
+    "causal-sk_valid": (1, 14, 2, 96, 96, 64, True, 0, 70, 120),
+    "d32": (2, 8, 2, 96, 96, 32, True, 0, None, 96),
+    "d37": (1, 4, 1, 45, 60, 37, True, 15, None, 64),
+    "d80": (1, 4, 2, 70, 70, 80, True, 0, None, 70),
+    "g8-d128": (1, 8, 1, 65, 65, 128, True, 0, None, 65),
+    "g14": (1, 14, 1, 90, 90, 64, True, 0, None, 90),
+    "noncausal-sq40-sk90": (1, 4, 2, 40, 90, 64, False, 0, None, 90),
+    "no-key": (1, 4, 2, 20, 30, 64, True, 0, 0, 30),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_EDGES))
+def test_k7_flash_bwd_every_plan_at_the_edges_on_card(case, card,
+                                                      monkeypatch):
+    """K7 flash's backward under every plan ``plan_flash_bwd`` weighs
+    (each pass's warps and ring; the dK/dV pass's pairing of key tiles and
+    the cluster that splits the group's heads) at keys that are no
+    multiple of a key tile, fewer blocks than SMs, a chunk against a cut
+    cache, ``sk_valid`` (0 too), D = 32, 37, 80 and 128, G = 8 and 14:
+    two launches a call (its dQ and dK/dV passes, counted once), each
+    output within rtol = atol = 1e-4 (``chip_smoke.BWD_TOL``) of the plain
+    version on the card, the same bits when run twice; the planner's pick
+    gives the same bits on two other streams."""
+    import repro_torch.kernels.attention.kernel as k7mod
+    from repro_torch.kernels.attention.plan import (flash_bwd_candidates,
+                                                    plan_flash_bwd)
+    from repro_torch.kernels.attention.ref import flash_attention_bwd_ref
+    b, hq, hkv, sq, sk, d, causal, off, valid, cap = FLASH_BWD_EDGES[case]
+    q, k, v, dout = _arrays(23, (b, hq, sq, d), (b, hkv, cap, d),
+                            (b, hkv, cap, d), (b, hq, sq, d), scale=0.5)
+    q, dout = q.to(card), dout.to(card)
+    k, v = k.to(card)[:, :, :sk], v.to(card)[:, :, :sk]
+    kw = dict(causal=causal, q_offset=off, sk_valid=valid)
+    out, lse = k7mod._flash_forward(q, k, v, causal, off, valid, True)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+    fn = k7mod.flash_attention_bwd
+    plans = flash_bwd_candidates(b, hq, hkv, sq, sk, d, causal, off, valid)
+    for _key, plan in plans:
+        monkeypatch.setattr(k7mod, "plan_flash_bwd", lambda *a, p=plan: p)
+        before = fn.launches
+        got = fn(q, k, v, out, dout, lse, **kw)
+        again = fn(q, k, v, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert torch.equal(g, a), f"{name} differs run to run: {plan}"
+            torch.testing.assert_close(
+                g, w, rtol=chip_smoke.BWD_TOL, atol=chip_smoke.BWD_TOL,
+                msg=lambda m, n=name, p=plan: f"{n} {p}: {m}")
+    monkeypatch.setattr(k7mod, "plan_flash_bwd", plan_flash_bwd)
+    first, outs = _on_two_streams(dict(
+        kernel=lambda: torch.cat([t.flatten() for t in fn(
+            q, k, v, out, dout, lse, **kw)])))
+    assert all(torch.equal(first, o) for o in outs)
+    if valid == 0:
+        assert not first.any()                  # no key: every gradient 0
+
+
 @pytest.mark.cuda
 def test_flash_output_bits_without_lse_on_card(card):
     """K7 flash's output is the same with and without the log-sum-exp

@@ -598,6 +598,155 @@ def test_flash_planner_is_deterministic_and_refuses_what_the_kernel_does():
         aplan.plan_flash(1, 4, 2, 8, 8, 64, True, -1)
 
 
+# --------------------------------------------------------------------------
+# The backward kernels' splits: K7 flash's planner and K6's row blocks
+# --------------------------------------------------------------------------
+def _train_bwd_cases(kind: str) -> list[dict]:
+    """The training path's ``kind`` call and its edges in ``chip_smoke.py``
+    (``train_calls``, ``train_edge_calls``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return [c for c in [*chip_smoke.train_calls(),
+                        *chip_smoke.train_edge_calls()]
+            if c["kernel"] == kind]
+
+
+FLASH_BWD_CASES = [tuple(c[k] for k in ("b", "hq", "hkv", "sq", "sk", "d",
+                                        "causal", "q_offset", "sk_valid"))
+                   for c in _train_bwd_cases("flash_attention_bwd")] + [
+    (2, 14, 2, 4096, 4096, 64, True, 0, None),
+    (1, 48, 1, 300, 300, 128, True, 0, None),
+    (2, 14, 2, 100, 612, 64, True, 512, None),
+]
+FLASH_BWD_IDS = ["b{}-hq{}-hkv{}-sq{}-sk{}-d{}-c{:d}-off{}-v{}".format(*c)
+                 for c in FLASH_BWD_CASES]
+RMS_BWD_CASES = [(c["rows"], c["d"])
+                 for c in _train_bwd_cases("rmsnorm_bwd")] + [(16, 896),
+                                                               (4097, 64)]
+
+
+@pytest.mark.parametrize("call", FLASH_BWD_CASES, ids=FLASH_BWD_IDS)
+def test_flash_bwd_planner_covers_every_item_once(call):
+    """Under every plan ``plan_flash_bwd`` weighs, the dK/dV blocks take
+    each (batch, KV head, key tile, query head) exactly once (a pair's two
+    key tiles in one block, a cluster's heads split between its ranks),
+    the key tiles cover Sk, and the dQ blocks take each (batch, head, q
+    tile) exactly once."""
+    b, hq, hkv, sq, sk, d = call[:6]
+    g = hq // hkv
+    for _key, p in aplan.flash_bwd_candidates(*call):
+        items = [it for blk in aplan.flash_bwd_kv_items(p, b, hkv, g)
+                 for it in blk]
+        assert len(items) == len(set(items)) == b * hq * p.key_tiles
+        assert set(items) == {(i, hk, kt, hk * g + h) for i in range(b)
+                              for hk in range(hkv)
+                              for kt in range(p.key_tiles)
+                              for h in range(g)}
+        assert (p.key_tiles - 1) * p.kv_keys < sk <= p.key_tiles * p.kv_keys
+        assert p.kv_blocks == p.kv_items * p.cluster
+        seen = aplan.flash_bwd_q_items(p, b, hq)
+        assert len(seen) == len(set(seen)) == b * hq * p.q_tiles == p.q_blocks
+        assert set(seen) == {(i, h, t) for i in range(b) for h in range(hq)
+                             for t in range(p.q_tiles)}
+        assert (p.q_tiles - 1) * p.q_rows < sq <= p.q_tiles * p.q_rows
+
+
+@pytest.mark.parametrize("call", FLASH_BWD_CASES, ids=FLASH_BWD_IDS)
+def test_flash_bwd_planner_balances_no_worse_than_plain_order(call):
+    """The chosen plan's dK/dV blocks, placed by the planner's model, end
+    no later than the same key tile's blocks in plain order (a block a
+    (batch, KV head, key tile) with its whole group, the order before
+    the planner), and its heaviest block is no heavier; the dQ blocks run
+    heaviest first."""
+    b, hq, hkv = call[:3]
+    p = aplan.plan_flash_bwd(*call)
+    plain = aplan.flash_bwd_plain_costs(p, *call[:5], *call[6:])
+    mine = aplan.flash_bwd_kv_costs(p, *call[:5], *call[6:])
+    assert p.kv_makespan == aplan._makespan(mine, p.kv_per_sm, p.kv_warps)
+    assert p.kv_makespan <= aplan._makespan(plain, p.kv_per_sm, p.kv_warps)
+    assert max(mine, default=0) <= max(plain, default=0)
+    qt = [t for _b, _h, t in aplan.flash_bwd_q_items(p, b, hq)]
+    assert qt == sorted(qt, reverse=True)
+
+
+def test_flash_bwd_planner_evens_out_the_training_call():
+    """At the training path's call (B 8, Hq 14, Hkv 2, S 512, D 64,
+    causal) the model puts the dK/dV pass at most 3/4 of plain order's
+    makespan, with at least as many blocks as the card has SMs."""
+    call = FLASH_BWD_CASES[0]
+    assert call == (8, 14, 2, 512, 512, 64, True, 0, None)
+    p = aplan.plan_flash_bwd(*call)
+    plain = aplan.flash_bwd_plain_costs(p, *call[:5], *call[6:])
+    assert p.kv_makespan <= 0.75 * aplan._makespan(plain, p.kv_per_sm,
+                                                   p.kv_warps)
+    assert p.kv_blocks >= aplan.SMS and p.q_blocks >= aplan.SMS
+
+
+@pytest.mark.parametrize("call", FLASH_BWD_CASES, ids=FLASH_BWD_IDS)
+def test_flash_bwd_planner_fits_an_h100(call):
+    """Every plan's shared memory is each kernel's carve-up and fits 227
+    KB, at least one block of either pass fits an SM, the grids fit
+    (items over y and z, ranks over x), and a cluster is at most 8 ranks
+    and no more than the group's heads."""
+    d, g = call[5], call[1] // call[2]
+    for _key, p in aplan.flash_bwd_candidates(*call):
+        assert p.q_smem_bytes == 4 * aplan.flash_bwd_q_smem_floats(
+            d, p.q_warps, p.q_ring) <= 232_448
+        assert p.kv_smem_bytes == 4 * aplan.flash_bwd_kv_smem_floats(
+            d, p.kv_warps, p.kv_ring) <= 232_448
+        assert p.q_per_sm >= 1 and p.kv_per_sm >= 1
+        assert p.q_blocks <= 2 ** 31 - 1 and p.kv_items <= 65535 ** 2
+        assert 1 <= p.cluster <= min(g, 8)
+        assert p.q_warps in aplan.BWD_Q_WARPS
+        assert p.kv_warps in aplan.BWD_KV_WARPS
+        assert p.q_ring in aplan.BWD_RINGS and p.kv_ring in aplan.BWD_RINGS
+        assert p.q_bk == (32 if d > 64 else 64) and p.kv_bq == 32
+        assert not p.pair or p.key_tiles >= 3
+
+
+def test_flash_bwd_planner_is_deterministic_and_refuses_what_the_kernel_does():
+    call = (8, 14, 2, 512, 512, 64, True, 0, None)
+    assert aplan.plan_flash_bwd(*call) == min(
+        aplan.flash_bwd_candidates(*call), key=lambda kp: kp[0])[1]
+    assert aplan.plan_flash_bwd(*call) == aplan.plan_flash_bwd.__wrapped__(
+        *call)
+    assert aplan.flash_bwd_candidates(*call) == \
+        aplan.flash_bwd_candidates(*call)
+    for bad in [(1, 4, 2, 8, 8, 129), (1, 4, 2, 8, 8, 0), (1, 5, 2, 8, 8, 64),
+                (1, 4, 2, 0, 8, 64), (1, 4, 2, 8, -1, 64)]:
+        with pytest.raises(ValueError, match="flash backward"):
+            aplan.plan_flash_bwd(*bad)
+    with pytest.raises(ValueError, match="q_offset"):
+        aplan.plan_flash_bwd(1, 4, 2, 8, 8, 64, True, -1)
+
+
+@pytest.mark.parametrize("rows,d", RMS_BWD_CASES,
+                         ids=[f"rows{r}-d{d}" for r, d in RMS_BWD_CASES])
+def test_rmsnorm_bwd_split_covers_every_row_and_partial_once(rows, d):
+    """K6's backward: the rows pass's blocks (``bwd_blocks``; a warp a row
+    where d % 4 == 0 and d <= 1024) take every row exactly once, none of
+    them empty, at most one block an SM of the H100 on the warp-per-row
+    path; the dw pass takes each (column, block partial) exactly once,
+    every warp's run contiguous and in order."""
+    from repro_torch.kernels.rmsnorm import kernel as k6
+    blocks = k6.bwd_blocks(rows, d)
+    split = k6.bwd_row_split(rows, d)
+    assert len(split) == blocks <= min(rows, 132 if k6.bwd_vec(d) else 264)
+    flat = [r for blk in split for warp in blk for r in warp]
+    assert sorted(flat) == list(range(rows)) and len(set(flat)) == rows
+    assert all(any(warp for warp in blk) for blk in split)
+    assert all(len(blk) == (8 if k6.bwd_vec(d) else 1) for blk in split)
+    taken = [(c, part) for blk in k6.dw_split(blocks, d)
+             for c, run in blk for part in run]
+    assert len(taken) == len(set(taken)) == d * blocks
+    for blk in k6.dw_split(blocks, d):
+        for _c, run in blk:
+            assert run == sorted(run) == list(range(min(run, default=0),
+                                                    max(run, default=-1) + 1))
+    if (rows, d) == (4096, 896):
+        assert blocks == 128 and k6.bwd_vec(d)
+
+
 def _flash_state(qw, rows, ks, vs, tiles, bk, limit, c):
     """One warp's (m, l, acc) over key ``tiles`` (those below ``limit``),
     the kernel's arithmetic: S and P V in 3xTF32, the softmax in base 2."""

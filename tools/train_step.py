@@ -49,7 +49,11 @@ from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.optimizer import AdamW  # noqa: E402
 from repro_torch.train.tree import leaves, tree_map, unflatten  # noqa: E402
 
-#: kernel kinds by a piece of the kernel's name, first match wins
+#: kernel kinds by a piece of the kernel's name, first match wins: K6's
+#: backward is its rows pass (``rmsnorm_bwd_vec_kernel`` a warp a row, or
+#: ``rmsnorm_bwd_rows_kernel``) and its dw pass (``rmsnorm_dw_kernel``);
+#: K7 flash's backward its dQ and dK/dV passes (``flash_bwd_q_kernel``,
+#: ``flash_bwd_kv_kernel``)
 KINDS = (("K6 backward", ("rmsnorm_bwd", "rmsnorm_dw")),
          ("K6 forward", ("rmsnorm",)),
          ("K7 flash backward", ("flash_bwd",)),
@@ -125,6 +129,11 @@ def main(argv=None) -> int:
         by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) + ms
         by_name[e.key] = by_name.get(e.key, 0.0) + ms
     busy = sum(by_kind.values())
+    stray = [n for n in by_name if kind(n) == "other"
+             and any(key in n for key in ("rmsnorm", "flash", "fb::"))]
+    if stray:
+        raise SystemExit(f"train_step: port kernels left unattributed: "
+                         f"{stray}")
     tokens = args.batch * args.seq_len
     print(f"[train_step] {torch.cuda.get_device_name(0)}; {cfg.name}, "
           f"{args.batch} x {args.seq_len} tokens, remat: a step {wall_ms:.1f} "
