@@ -57,7 +57,21 @@ any failure raises and the script exits non-zero:
             Whisper's one query row against 1500 memory keys and its self
             cache, Qwen2-VL's cache; edge cases at D 80 (ragged ``kv_len``
             down to 0 and 1 on the CUDA and the tensor cores, flash at 37
-            rows and as a chunk) and Whisper's ragged cross decode;
+            rows and as a chunk) and Whisper's ragged cross decode.  Then
+            the int8 KV cache's kernels (``flash_attention_int8``,
+            ``decode_attention_int8``; ``csrc/flash_attention_int8.cu``)
+            against their plain versions at 9(b)'s shapes (Qwen2.5-14B,
+            B 2, Hq 40, Hkv 8, D 128: the 2 x 512 prefill into a cache of
+            576, and the decode at kv_len 513..576 over the whole cache),
+            timed beside the plain version, a ``torch._int_mm`` chain
+            (the prefill; the decode's G rows are past its shapes) and
+            their bound (the bytes, or the operations at the int8 tensor
+            cores' 1,979 TOP/s), and at edges (G 1, 7, 12 and 48; D 64;
+            ragged kv_len down to 0 and 1; chunks at q_offset > 0 and
+            past sk_valid; cut caches; a cluster of 16): every element
+            within rtol = atol = 1e-5 but on the rows a probability's
+            rounding tie flips, each such row explained by its ties, and
+            those held under 0.1% of the rows;
 3. paths    for each of MobileNet v2, MobileNet v1 and SqueezeNet under
             ``balanced`` (``fuse="group"`` exec plans): the eager
             sequential kernel forward (``jit_groups=False``) against the
@@ -218,7 +232,26 @@ any failure raises and the script exits non-zero:
             layers on the card against the CPU's plain versions: the
             16-token prompt (the dense branch) and one 2 x 512 prefill
             (the scatter branch) at 1e-3.  The phase's launches are
-            printed apart from the kernels line's;
+            printed apart from the kernels line's, but those of (b)'s
+            int8 run: the 14B's ``make_generate(cfg, 64)`` from a seeded
+            2 x 512 prompt over an f32 cache and over an int8 cache (576
+            positions), launches counted from 0 around each (K6 97 a
+            forward; K7 flash 48 in the prefill and K7 decode 48 a step,
+            or the int8 kernels in their place and no f32 K7); the int8
+            run again with each of its int8 calls held against its plain
+            version on the model's own inputs (flips counted, under 0.1%
+            of the rows; the same tokens); its tokens equal to a replay
+            that launches no int8 kernel (the plain versions, K6 kept)
+            and takes the kernel's values on the rows not bit-equal; the
+            tokens' agreement with the f32 cache's and with both caches'
+            generates through the plain versions, printed and not held
+            (the reference's criterion of half does not hold at a
+            512-token prompt for the reference either:
+            ``tools/int8_agreement.py``); the caches' bytes (a quarter)
+            and a decode step's ms on each, and the int8 run's own bytes
+            (its peak less the weights, cache and prompt it is given)
+            within 10% of the dry run's (``launch/dryrun.py`` on
+            ``meta``) at its shapes, the whole peaks printed beside;
 10. blocks  the SSM, hybrid, encoder-decoder and M-RoPE families at their
             published widths, every earlier phase's tensors freed first:
             (a) xLSTM-350M (24 mLSTM layers) and (b) Zamba2-2.7B (54
@@ -264,7 +297,9 @@ any failure raises and the script exits non-zero:
             and falling, launches a step as planned (K6 97, K7 flash 48,
             K6 backward 49, K7 flash backward 24), the step-8 checkpoint
             restored bit-equal to the live state; walls, tokens/s, peak
-            memory, each save's seconds and bytes; (c) the run's first
+            memory, each save's seconds and bytes; the run's peak within
+            10% of the dry run's tracked peak for the same step on
+            ``meta``; (c) the run's first
             step against the plain versions on the card (loss 1e-5,
             gradient norm 1e-4, each leaf within 1e-3 of its largest
             magnitude); (d) recovery at the smoke config, a fault at step
@@ -388,7 +423,7 @@ TRAINING_ONLY = ("rmsnorm_bwd", "flash_attention_bwd")
 # the sources whose -Xptxas -v report setup prints
 PTXAS_SOURCES = ("matmul_bias_act", "depthwise_conv2d",
                  "conv2d_implicit_gemm", *FUSED_KERNELS, "flash_attention",
-                 "rmsnorm")
+                 "rmsnorm", "flash_attention_int8")
 
 
 def card_line() -> str:
@@ -435,8 +470,12 @@ def kernel_table():
     from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
                                                      fused_pw_dw_pw_ref)
     from repro_torch.kernels.attention.kernel import (decode_attention,
-                                                      flash_attention)
-    from repro_torch.kernels.attention.ref import (decode_attention_ref,
+                                                      decode_attention_int8,
+                                                      flash_attention,
+                                                      flash_attention_int8)
+    from repro_torch.kernels.attention.ref import (decode_attention_int8_ref,
+                                                   decode_attention_ref,
+                                                   flash_attention_int8_ref,
                                                    flash_attention_ref)
     from repro_torch.kernels.attention.kernel import flash_attention_bwd
     from repro_torch.kernels.attention.ref import flash_attention_bwd_ref
@@ -475,6 +514,16 @@ def kernel_table():
             fn=decode_attention, plain=decode_attention_ref,
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/attention/kernel.py:133"),
+        # the int8 cache's kernels: no TPU kernel (the reference's int8
+        # attention is jnp); "replaces" names the function they compute
+        "flash_attention_int8": dict(
+            fn=flash_attention_int8, plain=flash_attention_int8_ref,
+            source="src/repro_torch/csrc/flash_attention_int8.cu",
+            replaces="src/repro/lm/modules.py:109"),
+        "decode_attention_int8": dict(
+            fn=decode_attention_int8, plain=decode_attention_int8_ref,
+            source="src/repro_torch/csrc/flash_attention_int8.cu",
+            replaces="src/repro/lm/modules.py:109"),
         # the port's backward kernels: no TPU kernel is a backward (the
         # reference trains through rmsnorm_ref, XLA's attention and
         # jax.grad); "replaces" names the TPU forward each differentiates
@@ -2327,8 +2376,8 @@ def split_path(served: dict, lm_keep: dict) -> dict:
     fleet = split_fleet(served)
     lm = split_lm(lm_keep)
     launches = launch_counts()
-    idle = [k for k, n in launches.items()
-            if n == 0 and k not in TRAINING_ONLY]
+    idle = [k for k, n in launches.items()   # the int8 kernels: 9(b) only
+            if n == 0 and k not in TRAINING_ONLY + INT8_KERNELS]
     if idle:
         raise AssertionError(f"split: {idle} never launched in the phase")
     print(f"[split] launches over the phase {launches} (not in the "
@@ -3334,10 +3383,13 @@ def path_kernels(cfg, rows_dec: int, gen) -> dict:
     return out
 
 
-def full_depth(name: str, n: int, gen) -> dict:
+def full_depth(name: str, n: int, gen, int8_rows: dict | None = None
+               ) -> dict:
     """9(b)/(c): ``name`` at full depth: the search on the card's SMs and
     its memory check, the weights drawn straight to the card, served at
-    the searched theta, and K6 and K7 at its path's shapes."""
+    the searched theta, and K6 and K7 at its path's shapes; given phase
+    2's ``int8_rows``, also the generate over an f32 and an int8 cache
+    (``int8_generate``, under ``"int8"``)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.lm.model import load_params
     cfg = get_arch(name)
@@ -3360,10 +3412,14 @@ def full_depth(name: str, n: int, gen) -> dict:
           f"limit (the check leaves out the requests in flight, the decode "
           f"lanes and the prefill logits)")
     kernels = path_kernels(cfg, served["rows"], gen)
+    out = dict(search=doc, draw_s=draw_s, served=served, kernels=kernels,
+               peak_over_check_limit=peak - mem["limit"])
+    if int8_rows is not None:
+        free_card(f"{name}: before the int8 generate")
+        out["int8"] = int8_generate(cfg, params, int8_rows)
     del params
     free_card(f"after {name}")
-    return dict(search=doc, draw_s=draw_s, served=served, kernels=kernels,
-                peak_over_check_limit=peak - mem["limit"])
+    return out
 
 
 def moe_card_vs_cpu(name: str) -> dict:
@@ -3419,21 +3475,526 @@ def moe_card_vs_cpu(name: str) -> dict:
                 launches=launches)
 
 
-def design_path() -> dict:
+def design_path(int8_rows: dict) -> dict:
     """Phase 9: (a) the design flow on the card's SMs for the LM path;
-    (b) Qwen2.5-14B at full depth; (c) Qwen-MoE at full depth and both
-    MoE configs at 2 layers of full width against the CPU.  Launches are
-    counted per run and printed apart from the kernels line."""
+    (b) Qwen2.5-14B at full depth, and its generate over an int8 cache;
+    (c) Qwen-MoE at full depth and both MoE configs at 2 layers of full
+    width against the CPU.  Launches are counted per run and printed apart
+    from the kernels line, but the int8 generate's, whose path (``big``'s
+    ``"int8"``) the kernels line reads."""
     from repro_torch.configs.registry import get_arch
     t0 = time.perf_counter()
     free_card("before phase 9 (green contexts stay)")
     gen = np.random.default_rng(9)
     a = design_walls(get_arch(LM_ARCH))
-    b = full_depth(BIG_ARCH, BIG_REQUESTS, gen)
+    b = full_depth(BIG_ARCH, BIG_REQUESTS, gen, int8_rows)
     c = dict(served=full_depth(MOE_ARCH, LM_REQUESTS, gen),
              cut=[moe_card_vs_cpu(name) for name in MOE_ARCHS])
     print(f"[design] {time.perf_counter() - t0:.1f} s")
     return dict(search=a, big=b, moe=c)
+
+
+# --------------------------------------------------------------------------
+# the int8 KV cache: its kernels (phase 2) and the 14B's generate (9(b))
+# --------------------------------------------------------------------------
+INT8_KERNELS = ("flash_attention_int8", "decode_attention_int8")
+INT8_MAX_LEN = LM_PROMPT + LM_GEN       # the generate's cache: 512 + 64
+INT8_TOL = 1e-5
+INT8_FLIP_SHARE = 1e-3                  # rows a rounding tie may flip
+INT8_TIE = 1e-4                         # of max(1, p * 127): a tie
+INT8_SCALE = 127 * 32                   # P_SCALE * KV_SCALE
+# the int8 tensor cores' dense peak (H100 SXM data sheet): the bound of
+# the int8 kernels' operations
+PEAK_INT8_OPS_PER_S = 1979e12
+MEM_TOL = 0.10                          # the dry run's peak against the card
+
+
+def _i8(kernel: str, b: int, hq: int, hkv: int, d: int, sk: int, cap: int,
+        sq: int = 1, q_offset: int = 0, sk_valid=None, causal=True,
+        kv_len=None) -> dict:
+    return dict(kernel=kernel, b=b, hq=hq, hkv=hkv, d=d, sq=sq, sk=sk,
+                cap=cap, q_offset=q_offset, sk_valid=sk_valid, causal=causal,
+                kv_len=kv_len)
+
+
+def int8_path_calls() -> list[tuple[dict, float]]:
+    """The int8 kernels' calls of 9(b)'s generate (Qwen2.5-14B, B 2):
+    the 2 x 512 prefill into the cache of 576, L a forward; then the
+    64 decode steps over the whole cache at kv_len 513 .. 576, L each."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(BIG_ARCH)
+    geo = dict(b=LM_BATCH, hq=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.d_head)
+    L = cfg.n_layers
+    calls = [(_i8("flash_attention_int8", sq=LM_PROMPT, sk=LM_PROMPT,
+                  cap=INT8_MAX_LEN, **geo), L)]
+    calls += [(_i8("decode_attention_int8", sk=INT8_MAX_LEN,
+                   cap=INT8_MAX_LEN, kv_len=[n] * LM_BATCH, **geo), L)
+              for n in range(LM_PROMPT + 1, INT8_MAX_LEN + 1)]
+    return calls
+
+
+def int8_edge_calls() -> list[dict]:
+    """G 1, 7, 12 and 48; D 64 and 128; ragged kv_len down to 0 and 1 (a
+    row that sees one key); chunks at q_offset > 0 and past sk_valid;
+    caches cut to their prefix; a decode cluster of 16 ranks."""
+    f, dec = "flash_attention_int8", "decode_attention_int8"
+    return [
+        _i8(f, 1, 4, 4, 128, 100, 160, sq=37, q_offset=63),
+        _i8(dec, 2, 4, 4, 128, 160, 160, kv_len=[1, 97]),
+        _i8(f, 2, 14, 2, 64, 130, 200, sq=130),
+        _i8(f, 2, 14, 2, 64, 90, 200, sq=16, q_offset=60, sk_valid=70),
+        _i8(dec, 2, 14, 2, 64, 576, 576, kv_len=[0, 77]),
+        _i8(f, 1, 96, 8, 128, 60, 64, sq=20, q_offset=40),
+        _i8(f, 1, 12, 12, 64, 1500, 1500, sq=16, causal=False),
+        _i8(dec, 2, 96, 8, 128, 576, 576, kv_len=[576, 5]),
+        _i8(dec, 1, 48, 1, 128, 576, 600, kv_len=[300]),
+        _i8(dec, 1, 5, 1, 128, 4096, 4096),
+    ]
+
+
+def _int8_tensor(gen, shape) -> torch.Tensor:
+    """What the int8 cache holds: round(N(0, 1) * 32), clipped."""
+    return torch.clamp(torch.round(rand(gen, shape) * 32), -127,
+                       127).to(torch.int8)
+
+
+def _int_mm_attention(q, k, v, vis):
+    """The same function through ``torch._int_mm`` (the library's int8
+    GEMM, here only, never in the port): q quantized as the reference
+    does, S and P V two int8 products a (batch row, kv head), the softmax
+    and the rounding between them."""
+    from repro_torch.kernels.attention.ref import NEG_INF
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q / torch.full((1,), d ** 0.5, device=q.device)
+    qq = torch.clamp(torch.round(qf * 32), -127, 127).to(torch.int8)
+    qq = qq.reshape(b, hkv, g * sq, d)
+    out = torch.empty((b, hkv, g * sq, d), device=q.device)
+    for i in range(b):
+        for h in range(hkv):
+            s = torch._int_mm(qq[i, h], k[i, h].t()).float() / 1024
+            s = torch.where(vis, s.reshape(g, sq, sk), NEG_INF)
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            pq = torch.round(e / e.sum(-1, keepdim=True) * 127)
+            acc = torch._int_mm(pq.to(torch.int8).reshape(g * sq, sk),
+                                v[i, h])
+            out[i, h] = acc.float() / INT8_SCALE
+    return out.reshape(b, hq, sq, d)
+
+
+def int8_case(call: dict, gen) -> dict:
+    """Inputs and thunks of an int8 kernel call: k and v the first ``sk``
+    rows of int8 caches of ``cap`` rows."""
+    from repro_torch.kernels.attention import kernel as k7
+    from repro_torch.kernels.attention.ref import (decode_attention_int8_ref,
+                                                   flash_attention_int8_ref,
+                                                   visible, visible_pairs)
+    b, hq, hkv, d, sq, sk = (call[x] for x in ("b", "hq", "hkv", "d", "sq",
+                                               "sk"))
+    k = _int8_tensor(gen, (b, hkv, call["cap"], d))[:, :, :sk]
+    v = _int8_tensor(gen, (b, hkv, call["cap"], d))[:, :, :sk]
+    q = rand(gen, (b, hq, sq, d))
+    if call["kernel"] == "decode_attention_int8":
+        lens = call["kv_len"]
+        kv_len = (None if lens is None else
+                  torch.tensor(lens, dtype=torch.int32, device=DEV))
+        seen = [min(max(n, 0), sk) for n in (lens or [sk] * b)]
+        pairs = hq * sum(seen)
+        keys = sum(seen)
+        kernel = lambda: k7.decode_attention_int8(q, k, v, kv_len)  # noqa
+        plain = lambda: decode_attention_int8_ref(  # noqa: E731
+            q, k, v, kv_len, with_probs=True)
+        library = None             # G rows a product: past _int_mm's > 16
+    else:
+        kw = dict(causal=call["causal"], q_offset=call["q_offset"],
+                  sk_valid=call["sk_valid"])
+        pairs = b * hq * visible_pairs(sq, sk, **kw)
+        kv_end = sk if kw["sk_valid"] is None else min(sk, kw["sk_valid"])
+        keys = b * (min(kv_end, call["q_offset"] + sq) if call["causal"]
+                    else kv_end)
+        vis = visible(sq, sk, device=DEV, **kw)
+        kernel = lambda: k7.flash_attention_int8(q, k, v, **kw)  # noqa
+        plain = lambda: flash_attention_int8_ref(  # noqa: E731
+            q, k, v, **kw, with_probs=True)
+        kc, vc = k.contiguous(), v.contiguous()
+        library = lambda: _int_mm_attention(q, kc, vc, vis)  # noqa: E731
+    return dict(kernel=kernel, plain=plain, library=library,
+                vmax=int(v.abs().max().item()),
+                nbytes=2 * 4 * b * hq * sq * d + 2 * hkv * keys * d,
+                ops=4 * d * pairs)
+
+
+def int8_compare(what, got, want, p127, vmax: int) -> dict:
+    """An int8 kernel's output ``got`` against its plain version's
+    ``want`` (and p * 127 before rounding, ``p127``): every element within
+    rtol = atol = INT8_TOL but on the rows a rounding tie flips; such a row
+    must have a tie (p * 127 within INT8_TIE of a half) and differ by no
+    more than its ties' value rows can move it (``vmax`` / (127 * 32)
+    each).  Returns the flipped rows, the rows, and the largest error off
+    the flipped rows."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    diff = (got - want).abs()
+    bad = ~(diff <= INT8_TOL + INT8_TOL * want.abs()).all(-1)
+    frac = (p127 - p127.floor() - 0.5).abs()
+    ties = (frac < INT8_TIE * p127.clamp_min(1.0)).sum(-1)
+    worst = diff.amax(-1)
+    if bool((bad & (ties == 0)).any()):
+        raise AssertionError(f"{what}: a row off by {worst.max().item():.3e}"
+                             f" has no rounding tie")
+    reach = ties * vmax / INT8_SCALE + INT8_TOL
+    if bool((bad & (worst > reach)).any()):
+        raise AssertionError(f"{what}: a flipped row is off past its ties' "
+                             f"reach")
+    kept = worst[~bad]
+    return dict(flips=int(bad.sum().item()), rows=bad.numel(),
+                max_abs_err=kept.max().item() if kept.numel() else 0.0)
+
+
+@contextlib.contextmanager
+def _int8_wrapped(wrap):
+    """Inside, the model's two int8 attention calls go through
+    ``wrap(kernel, plain)``; K6 and everything else stay as they are."""
+    import repro_torch.lm.modules as lm_modules
+    from repro_torch.kernels.attention.ref import (decode_attention_int8_ref,
+                                                   flash_attention_int8_ref)
+    saved = (lm_modules.flash_attention_int8,
+             lm_modules.decode_attention_int8)
+    lm_modules.flash_attention_int8 = wrap(saved[0],
+                                           flash_attention_int8_ref)
+    lm_modules.decode_attention_int8 = wrap(saved[1],
+                                            decode_attention_int8_ref)
+    try:
+        yield
+    finally:
+        (lm_modules.flash_attention_int8,
+         lm_modules.decode_attention_int8) = saved
+
+
+@contextlib.contextmanager
+def int8_held():
+    """Inside, every int8 kernel call the model makes is also held against
+    its plain version on the same inputs (``int8_compare``) and the model
+    goes on with the kernel's output; yields the tally: calls, flipped
+    rows, rows, the largest error, and ``patches``: for each call, the
+    (batch, head, query) rows where the kernel's output is not bit-equal to
+    the plain version's, with the kernel's values there."""
+    tally = dict(calls=0, flips=0, rows=0, max_abs_err=0.0, patches=[])
+
+    def held(kernel, plain):
+        def call(q, k, v, *args, **kw):
+            got = kernel(q, k, v, *args, **kw)
+            want, p127 = plain(q, k, v, *args, **kw, with_probs=True)
+            r = int8_compare(kernel.__name__, got, want, p127,
+                             int(v.abs().max().item()))
+            rows = (got != want).any(-1).nonzero(as_tuple=True)
+            tally["patches"].append((rows, got[rows]))
+            tally["calls"] += 1
+            for key in ("flips", "rows"):
+                tally[key] += r[key]
+            tally["max_abs_err"] = max(tally["max_abs_err"],
+                                       r["max_abs_err"])
+            return got
+        return call
+
+    with _int8_wrapped(held):
+        yield tally
+
+
+@contextlib.contextmanager
+def int8_replayed(patches):
+    """Inside, the model's int8 attention calls go to their plain versions
+    alone (no int8 kernel is launched; K6 stays), each call's output taking
+    the kernel's values on the rows ``patches`` (``int8_held``'s, call by
+    call) lists; yields the count of calls."""
+    done = dict(calls=0)
+
+    def replay(kernel, plain):
+        def call(q, k, v, *args, **kw):
+            out = plain(q, k, v, *args, **kw)
+            rows, vals = patches[done["calls"]]
+            out[rows] = vals
+            done["calls"] += 1
+            return out
+        return call
+
+    with _int8_wrapped(replay):
+        yield done
+
+
+def int8_check(call: dict, gen, timing: bool) -> dict:
+    """Hold one int8 call against its plain version (``int8_compare``).
+    Returns the row: flips, rows, the largest error off the flipped rows;
+    times if asked."""
+    from repro_torch.kernels.util import cuda_time_ms
+    case = int8_case(call, gen)
+    got = case["kernel"]()
+    row = dict(call, **int8_compare(call, got, *case["plain"](),
+                                    case["vmax"]))
+    if timing:
+        t_bytes = case["nbytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = case["ops"] / PEAK_INT8_OPS_PER_S * 1e3
+        row.update(ms=cuda_time_ms(case["kernel"]),
+                   plain_ms=cuda_time_ms(case["plain"]),
+                   library_ms=(None if case["library"] is None
+                               else cuda_time_ms(case["library"], reps=5)),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=case["nbytes"], flops=case["ops"])
+    return row
+
+
+def int8_kernels(gen) -> dict:
+    """Phase 2's int8 part: the path calls (checked and timed) and the
+    edges (checked); the flipped rows over all of them held under
+    INT8_FLIP_SHARE.  Returns the path rows by key."""
+    from repro_torch.kernels.attention.plan import (plan_decode_int8,
+                                                    plan_flash_int8)
+    rows, flips, n_rows = {}, 0, 0
+    for c, _ in int8_path_calls():
+        r = rows[json.dumps(c, sort_keys=True)] = int8_check(c, gen, True)
+        flips, n_rows = flips + r["flips"], n_rows + r["rows"]
+    for c in int8_edge_calls():
+        r = int8_check(c, gen, False)
+        flips, n_rows = flips + r["flips"], n_rows + r["rows"]
+        print(f"[kernels] edge {r['kernel']:<21} {_shape_str(c):<40} err "
+              f"{r['max_abs_err']:.1e}  flips {r['flips']}")
+    if flips > INT8_FLIP_SHARE * n_rows:
+        raise AssertionError(f"int8 kernels: {flips} of {n_rows} rows "
+                             f"flipped, past {INT8_FLIP_SHARE:.1%}")
+    call = int8_path_calls()[0][0]
+    first = rows[json.dumps(call, sort_keys=True)]
+    plan = plan_flash_int8(*(call[x] for x in ("b", "hq", "hkv", "sq", "sk",
+                                               "d")))
+    print(f"[kernels] int8 flash {_shape_str(call)}: ms {first['ms']:.4f} "
+          f" plain {first['plain_ms']:.4f}  library (torch._int_mm chain) "
+          f"{first['library_ms']:.4f}  bound {first['bound_ms']:.4f} "
+          f"({first['bound_by']})  err {first['max_abs_err']:.1e}  flips "
+          f"{first['flips']} of {first['rows']} rows  plan {plan}")
+    dec = [r for r in rows.values()
+           if r["kernel"] == "decode_attention_int8"]
+    dplan = plan_decode_int8(*(dec[0][x] for x in ("b", "hq", "hkv", "sk",
+                                                   "d")))
+    print(f"[kernels] int8 decode at kv_len {LM_PROMPT + 1}..{INT8_MAX_LEN}"
+          f" over the whole cache of {INT8_MAX_LEN}: ms "
+          f"{min(r['ms'] for r in dec):.4f}..{max(r['ms'] for r in dec):.4f}"
+          f" a call (sum {sum(r['ms'] for r in dec):.4f}), plain sum "
+          f"{sum(r['plain_ms'] for r in dec):.4f}, bound sum "
+          f"{sum(r['bound_ms'] for r in dec):.5f} ({dec[0]['bound_by']}), "
+          f"no library call (G rows a product: _int_mm needs more than 16)"
+          f", err {max(r['max_abs_err'] for r in dec):.1e}, flips "
+          f"{sum(r['flips'] for r in dec)} of "
+          f"{sum(r['rows'] for r in dec)} rows; plan {dplan}")
+    print(f"[kernels] int8: {flips} of {n_rows} rows flipped by a rounding "
+          f"tie (held under {INT8_FLIP_SHARE:.1%}), every other element "
+          f"within rtol = atol = {INT8_TOL}")
+    return rows
+
+
+def int8_sums(rows: dict) -> dict:
+    """Per int8 kernel, the phase-2 rows summed over the generate's calls
+    (its prefill forward and its 64 decode steps)."""
+    out: dict[str, dict] = {}
+    for c, wgt in int8_path_calls():
+        r = rows[json.dumps(c, sort_keys=True)]
+        acc = out.setdefault(c["kernel"], dict(
+            calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
+            flops=0, tc_flops=0, max_abs_err=0.0, partition_ms=0.0,
+            flips=0, rows=0))
+        acc["calls"] += wgt
+        for k in ("ms", "plain_ms", "bytes", "flops"):
+            acc[k] += wgt * r[k]
+        acc["partition_ms"] += wgt * r["ms"]
+        acc["library_ms"] = (None if r["library_ms"] is None
+                             or acc["library_ms"] is None
+                             else acc["library_ms"] + wgt * r["library_ms"])
+        acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
+        acc["flips"] += r["flips"]
+        acc["rows"] += r["rows"]
+    for v in out.values():
+        t_ops = v["flops"] / PEAK_INT8_OPS_PER_S * 1e3
+        t_bytes = v["bytes"] / PEAK_BYTES_PER_S * 1e3
+        v.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.train.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def dry_vs_card(what: str, dry: int, card: int) -> dict:
+    """Print the dry run's tracked peak beside the card's; raise past
+    MEM_TOL."""
+    off = dry / card - 1
+    print(f"[dryrun] {what}: the dry run's peak {dry / 1e9:.3f} GB, the "
+          f"card's {card / 1e9:.3f} GB ({off:+.1%}; held within "
+          f"{MEM_TOL:.0%})")
+    if abs(off) > MEM_TOL:
+        raise AssertionError(f"{what}: dry run {dry} bytes against the "
+                             f"card's {card}")
+    return dict(dry_bytes=dry, card_bytes=card, off=off)
+
+
+def int8_generate(cfg, params, rows: dict) -> dict:
+    """9(b): ``make_generate(cfg, 64)`` from a seeded 2 x 512 prompt with
+    an f32 cache and with an int8 cache (576 positions each), launches
+    counted from 0 around each run: K6 2L + 1 a forward; on the f32 side
+    K7 flash L in the prefill and K7 decode L a step, on the int8 side the
+    int8 kernels in their place and no f32 K7.  The int8 run's every int8 call held against its plain version on the
+    model's inputs (flipped rows counted) and its tokens equal run to run;
+    its tokens equal to those of a run that launches no int8 kernel (plain
+    versions, K6 kept) but for the kernel's values on the rows where the
+    two outputs were not bit-equal.  The tokens' agreement between the
+    caches (the reference's criterion, ``tests/test_serving.py``) is
+    printed, not held (below).  The caches' bytes; a decode step's device
+    time on each; the int8 run's own bytes (its peak less what it was
+    given: weights, cache, prompt) against the dry run's at its shapes,
+    the whole peaks printed beside.  Returns the int8 run as a path of the
+    kernels line."""
+    from repro_torch.launch.dryrun import dry_step
+    from repro_torch.lm.model import decode_step, init_cache
+    from repro_torch.lm.steps import make_generate
+    L, steps = cfg.n_layers, LM_GEN
+    prompt = torch.from_numpy(np.random.default_rng(27).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(DEV)
+    generate = make_generate(cfg, steps)
+    weights = _tree_bytes(params)
+    runs = {}
+    for tag, kvd in (("f32", None), ("int8", torch.int8)):
+        cache = init_cache(cfg, LM_BATCH, INT8_MAX_LEN, DEV, kv_dtype=kvd)
+        cache_bytes = cache.kv_k.nbytes + cache.kv_v.nbytes
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, cache = generate(params, prompt, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        k7 = (("flash_attention", "decode_attention") if kvd is None
+              else INT8_KERNELS)
+        check_counts(f"{cfg.name} generate, {tag} cache", launches, {
+            "rmsnorm": (2 * L + 1) * (steps + 1), k7[0]: L,
+            k7[1]: L * steps})
+        last = cache._replace(pos=INT8_MAX_LEN - 1, pos_dev=torch.full(
+            (), INT8_MAX_LEN - 1, dtype=torch.int32, device=DEV))
+        tok = toks[:, -1:].contiguous()
+        step_ms = events_ms(lambda: decode_step(params, cfg, tok, last),
+                            reps=3)
+        runs[tag] = dict(tokens=toks.cpu(), launches=launches, wall_s=wall,
+                         cache_bytes=cache_bytes, step_ms=step_ms,
+                         own=peak - before,
+                         peak=peak - before + weights + cache_bytes
+                         + prompt.nbytes)
+        print(f"[design] {cfg.name} make_generate({steps}), {tag} cache of "
+              f"{INT8_MAX_LEN}: {cache_bytes / 1e6:.1f} MB of cache, the "
+              f"run {wall:.2f} s, a decode step at position "
+              f"{INT8_MAX_LEN - 1} {step_ms:.3f} ms (events around one "
+              f"eager step, its enqueue inside where slower); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        del cache, last
+    # every int8 call of the run held against its plain version on the
+    # model's own inputs; the same tokens (the kernels' bits do not vary)
+    with int8_held() as held:
+        again, _ = generate(params, prompt, init_cache(
+            cfg, LM_BATCH, INT8_MAX_LEN, DEV, kv_dtype=torch.int8))
+    if held["calls"] != L * (steps + 1) or held["flips"] > (
+            INT8_FLIP_SHARE * held["rows"]):
+        raise AssertionError(f"{cfg.name} int8 generate: {held}")
+    if not torch.equal(again.cpu(), runs["int8"]["tokens"]):
+        raise AssertionError(f"{cfg.name}: the int8 generate's tokens "
+                             f"differ run to run")
+    # the same generate with no int8 kernel launched: what the kernels'
+    # outputs do downstream, and anything they touch besides, shows here
+    patches = held.pop("patches")
+    reset_counts()
+    with int8_replayed(patches) as replayed:
+        swapped, _ = generate(params, prompt, init_cache(
+            cfg, LM_BATCH, INT8_MAX_LEN, DEV, kv_dtype=torch.int8))
+    if any(launch_counts().get(k) for k in INT8_KERNELS):
+        raise AssertionError("the replayed int8 generate launched an int8 "
+                             "kernel")
+    patched = sum(int(rows[0].numel()) for rows, _ in patches)
+    if replayed["calls"] != held["calls"] or not torch.equal(
+            swapped.cpu(), runs["int8"]["tokens"]):
+        raise AssertionError(
+            f"{cfg.name} int8 generate: the plain versions' tokens (K6 "
+            f"kept, the kernel's values on its {patched} rows not "
+            f"bit-equal) differ from the kernels' run's")
+    # the reference's agreement (half the tokens, tests/test_serving.py)
+    # is printed, not held: at a 512-token prompt the static-scale int8
+    # cache turns a last-bit difference into another integer (q and p
+    # are rounded to 1/32 and 1/127), and this model's random weights
+    # leave its logits nearly tied, so the reference's own tokens move
+    # (tools/int8_agreement.py).  The tokens of the same generates
+    # through the plain versions on the card show it for each cache.
+    with plain_kernels():
+        plain = {tag: generate(params, prompt, init_cache(
+            cfg, LM_BATCH, INT8_MAX_LEN, DEV, kv_dtype=kvd))[0].cpu()
+            for tag, kvd in (("f32", None), ("int8", torch.int8))}
+
+    def agree(a, b) -> float:
+        return float((a == b).float().mean())
+
+    agreement = dict(
+        int8_f32=agree(runs["int8"]["tokens"], runs["f32"]["tokens"]),
+        int8_plain=agree(runs["int8"]["tokens"], plain["int8"]),
+        f32_plain=agree(runs["f32"]["tokens"], plain["f32"]),
+        plain_int8_f32=agree(plain["int8"], plain["f32"]),
+        first_int8_f32=agree(runs["int8"]["tokens"][:, 0],
+                             runs["f32"]["tokens"][:, 0]))
+    print(f"[design] {cfg.name} int8 generate: each of its {held['calls']} "
+          f"int8 calls held against its plain version on the model's "
+          f"inputs, {held['flips']} of {held['rows']} rows flipped by a "
+          f"rounding tie (under {INT8_FLIP_SHARE:.1%}), every other element "
+          f"within {INT8_TOL} (max {held['max_abs_err']:.1e}); the tokens "
+          f"the same run to run, and all {swapped.numel()} equal to a run "
+          f"through the plain versions alone (K6 kept) that took the "
+          f"kernel's values on the {patched} rows not bit-equal.  Tokens "
+          f"agreeing (printed, not held): int8 "
+          f"cache against f32 {agreement['int8_f32']:.3f} (the first "
+          f"{agreement['first_int8_f32']:.3f}), the kernels against the "
+          f"plain versions of K6 and K7 together "
+          f"{agreement['int8_plain']:.3f} on the int8 cache "
+          f"and {agreement['f32_plain']:.3f} on the f32 one, the plain "
+          f"versions' int8 against their f32 "
+          f"{agreement['plain_int8_f32']:.3f}")
+    ratio = runs["f32"]["cache_bytes"] / runs["int8"]["cache_bytes"]
+    if ratio != 4:
+        raise AssertionError(f"the int8 cache is 1/{ratio} of the f32's")
+    # the dry run's prefill and last decode step; the bytes held are the
+    # step's own (the peak less the weights, cache and tokens it is given),
+    # the whole peaks, which share those, printed beside
+    dry = [dry_step(cfg, "prefill", LM_PROMPT, LM_BATCH, kv_dtype=torch.int8,
+                    max_len=INT8_MAX_LEN),
+           dry_step(cfg, "decode", INT8_MAX_LEN, LM_BATCH,
+                    kv_dtype=torch.int8)]
+    whole = max(d["peak_bytes"] for d in dry)
+    print(f"[dryrun] {cfg.name} int8 generate, whole peaks (weights, cache "
+          f"and prompt included; printed, not held): the dry run's "
+          f"{whole / 1e9:.3f} GB, the card's "
+          f"{runs['int8']['peak'] / 1e9:.3f} GB")
+    mem = dry_vs_card(f"{cfg.name} int8 generate, its own bytes (the peak "
+                      f"less weights, cache and prompt)",
+                      max(d["peak_bytes"] - d["base_bytes"] for d in dry),
+                      runs["int8"]["own"])
+    mem.update(whole_dry_bytes=whole, whole_card_bytes=runs["int8"]["peak"])
+    print(f"[design] {cfg.name}: the int8 cache is 1/{ratio:g} of the "
+          f"f32's; a decode step {runs['int8']['step_ms']:.3f} ms against "
+          f"{runs['f32']['step_ms']:.3f}")
+    for r in runs.values():
+        r["tokens"] = r["tokens"].tolist()
+    return dict(model=f"{cfg.name} int8 generate",
+                launches=runs["int8"]["launches"], kernels=int8_sums(rows),
+                agreement=agreement, held=held, runs=runs, memory=mem,
+                replayed=dict(calls=replayed["calls"], patched_rows=patched))
 
 
 # --------------------------------------------------------------------------
@@ -3445,19 +4006,25 @@ def plain_kernels():
     inside, on the card too (the reference run of phase 10(c) and (d))."""
     import repro_torch.lm.model as lm_model
     import repro_torch.lm.modules as lm_modules
-    from repro_torch.kernels.attention.ref import (decode_attention_ref,
+    from repro_torch.kernels.attention.ref import (decode_attention_int8_ref,
+                                                   decode_attention_ref,
+                                                   flash_attention_int8_ref,
                                                    flash_attention_ref)
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    saved = (lm_model.rmsnorm, lm_modules.flash_attention,
-             lm_modules.decode_attention)
+    names = ("flash_attention", "decode_attention", "flash_attention_int8",
+             "decode_attention_int8")
+    saved = (lm_model.rmsnorm, *(getattr(lm_modules, n) for n in names))
     lm_model.rmsnorm = lambda x, w, eps=1e-6: rmsnorm_ref(x, w, eps)
-    lm_modules.flash_attention = flash_attention_ref
-    lm_modules.decode_attention = decode_attention_ref
+    for n, ref in zip(names, (flash_attention_ref, decode_attention_ref,
+                              flash_attention_int8_ref,
+                              decode_attention_int8_ref)):
+        setattr(lm_modules, n, ref)
     try:
         yield
     finally:
-        (lm_model.rmsnorm, lm_modules.flash_attention,
-         lm_modules.decode_attention) = saved
+        lm_model.rmsnorm = saved[0]
+        for n, fn in zip(names, saved[1:]):
+            setattr(lm_modules, n, fn)
 
 
 def draw_to_card(cfg, tag: str) -> tuple[dict, float]:
@@ -4173,6 +4740,8 @@ def train_cli_run(cfg) -> dict:
     tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
     try:
         reset_counts()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         runner = train_cli.run([
@@ -4182,7 +4751,7 @@ def train_cli_run(cfg) -> dict:
             "--device", DEV])
         wall = time.perf_counter() - t0
         launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - before
         per_step = train_per_step(cfg)
         check_counts("train run", launches, per_step, TRAIN_STEPS)
         losses = [m["loss"] for m in runner.metrics_log]
@@ -4212,9 +4781,15 @@ def train_cli_run(cfg) -> dict:
               f"peak {peak / 1e9:.2f} GB allocated, the run {wall:.1f} s; "
               f"launches a step {per_step} as planned; the step-8 "
               f"checkpoint restored bit-equal to the live state")
+        from repro_torch.launch.dryrun import dry_step
+        dry = dry_step(cfg, "train", TRAIN_SEQ, TRAIN_BATCH,
+                       microbatches=1)
+        mem = dry_vs_card(f"{cfg.name} train step, {TRAIN_BATCH} x "
+                          f"{TRAIN_SEQ}, one microbatch",
+                          dry["peak_bytes"], peak)
         return dict(losses=losses, step_s=walls, tokens_per_s=tokens / steady,
                     peak_bytes=peak, saves=runner.saves, wall_s=wall,
-                    launches=launches, per_step=per_step)
+                    launches=launches, per_step=per_step, memory=mem)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4422,6 +4997,7 @@ def main() -> int:
           f"(rtol = atol = {KERNEL_TOL}) at {len(rows)} path shapes (phase "
           f"10's {len(block_calls())} among them), "
           f"{len(geometry)} head geometries and {len(edges)} edge cases")
+    int8_rows = int8_kernels(gen)
     mark("2")
 
     # 3. paths ------------------------------------------------------------
@@ -4457,7 +5033,8 @@ def main() -> int:
     del lm_keep
 
     # 9. design -----------------------------------------------------------
-    design = design_path()
+    design = design_path(int8_rows)
+    paths.append(design["big"].pop("int8"))
     mark("9")
 
     # 10. blocks ----------------------------------------------------------
@@ -4485,7 +5062,13 @@ def main() -> int:
             partition_ms=sum(r["partition_ms"] for r in mine),
             plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=sum(r["library_ms"] for r in mine)))
+            library_ms=_sum_or_none(r["library_ms"] for r in mine)))
+        if name in INT8_KERNELS:
+            kernels[-1].update(
+                bound_ms=sum(r["bound_ms"] for r in mine),
+                bound_by=mine[0]["bound_by"],
+                flips=sum(r["flips"] for r in mine),
+                rows=sum(r["rows"] for r in mine))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -4501,13 +5084,16 @@ def main() -> int:
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")
         for kname, v in p["kernels"].items():
-            b_ms, b_by = bound_ms(v["bytes"], v["flops"], v["tc_flops"])
+            b_ms, b_by = (
+                (v["bound_ms"], v["bound_by"]) if "bound_ms" in v
+                else bound_ms(v["bytes"], v["flops"], v["tc_flops"]))
+            lib = ("none" if v["library_ms"] is None
+                   else f"{v['library_ms']:.4f}")
             print(f"[report] {name}: {kname} launches {p['launches'][kname]}"
                   f", calls a request {v['calls']:g}, ms {v['ms']:.4f} "
                   f"(on its cores' partitions {v['partition_ms']:.4f}), "
                   f"bound {b_ms:.5f} ({b_by}), plain {v['plain_ms']:.4f}, "
-                  f"library {v['library_ms']:.4f}, err "
-                  f"{v['max_abs_err']:.1e}")
+                  f"library {lib}, err {v['max_abs_err']:.1e}")
     print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
           f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
           f"the kernel (an LM request: its prefill and its share of its "
@@ -4526,6 +5112,12 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _sum_or_none(values) -> float | None:
+    """The sum, or None where a value is None (no library call)."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
 
 
 def path_call_list() -> list[dict]:

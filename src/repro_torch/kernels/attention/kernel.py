@@ -41,13 +41,30 @@ ring and the dK/dV pass's pairing of key tiles and cluster.  Decode has no
 backward (no training path sends it one-row queries) and raises where
 autograd records an input that requires grad.
 
+Over an int8 KV cache (``init_cache(kv_dtype=torch.int8)``) attention
+goes to ``flash_attention_int8`` (a block of query rows, causal at
+``q_offset``) and ``decode_attention_int8`` (one row a query head, with
+``kv_len``), the port's own kernels in ``csrc/flash_attention_int8.cu``
+(the reference's int8 attention is jnp, so no TPU kernel is replaced):
+the reference's arithmetic with int8 x int8 -> s32 dots, in two passes
+over the keys, since the reference rounds the normalised probabilities;
+``plan.py``'s ``plan_flash_int8`` and ``plan_decode_int8`` pick the rows a
+block and the decode's cluster.  Their limits: D a multiple of 16 from 16
+to 128, any G; q and out f32, k and v int8 16-byte aligned.  They have no
+backward and raise where autograd records an input that requires grad.
+
 k and v may be the first Sk rows of a longer cache (a view cut along the
 sequence axis): the kernels read the cache in place.  q must be
 contiguous.  A CUDA tensor launches the kernel on the current stream (or
-raises); a CPU tensor runs the plain version from ``ref.py``.
+raises); a CPU tensor runs the plain version from ``ref.py``; a ``meta``
+tensor (the dry run, ``launch/dryrun.py``) launches nothing and computes
+nothing: the wrapper allocates the outputs and scratch its CUDA branch
+allocates and adds the call's operations, counted as ``chip_smoke.py``'s
+bounds count them, to the open ``meta_ops`` counters.
 ``flash_attention.launches``, ``flash_attention_bwd.launches`` (a call:
-one launch of its entry, the dQ and the dK/dV kernels) and
-``decode_attention.launches`` count the launches.
+one launch of its entry, the dQ and the dK/dV kernels),
+``decode_attention.launches``, ``flash_attention_int8.launches`` and
+``decode_attention_int8.launches`` count the launches.
 """
 from __future__ import annotations
 
@@ -55,12 +72,18 @@ import math
 
 import torch
 
-from repro_torch.kernels.attention.plan import (plan_decode, plan_flash,
-                                                plan_flash_bwd)
-from repro_torch.kernels.attention.ref import (decode_attention_ref,
+from repro_torch.kernels.attention.plan import (plan_decode,
+                                                plan_decode_int8, plan_flash,
+                                                plan_flash_bwd,
+                                                plan_flash_int8)
+from repro_torch.kernels.attention.ref import (decode_attention_int8_ref,
+                                               decode_attention_ref,
                                                flash_attention_bwd_ref,
-                                               flash_attention_ref)
-from repro_torch.kernels.util import check_cuda_operands, counted, launch
+                                               flash_attention_int8_ref,
+                                               flash_attention_ref,
+                                               visible_pairs)
+from repro_torch.kernels.util import (add_meta_ops, check_cuda_operands,
+                                      counted, launch)
 
 
 def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -75,16 +98,16 @@ def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _kv_capacity(name: str, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> int:
+                 v: torch.Tensor, dtype: torch.dtype = torch.float32) -> int:
     """Rows per (batch, kv head) of the cache k and v are cut from; raises
-    unless both are f32 on q's device with rows of D contiguous floats and
-    heads and batches evenly strided (a contiguous tensor, or one cut
-    along the sequence axis)."""
+    unless both are ``dtype`` on q's device with rows of D contiguous
+    elements and heads and batches evenly strided (a contiguous tensor, or
+    one cut along the sequence axis)."""
     b, hkv, sk, d = k.shape
     for key, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.float32:
+        if t.device != q.device or t.dtype != dtype:
             raise TypeError(f"{name}: {key} is {t.dtype} on {t.device}, "
-                            f"expected float32 on {q.device}")
+                            f"expected {dtype} on {q.device}")
         st = t.stride()
         if (st[3] != 1 or (sk > 1 and st[2] != d) or st[1] % d
                 or st[1] // d < sk or (b > 1 and st[0] != hkv * st[1])):
@@ -106,6 +129,13 @@ def _flash_forward(q, k, v, causal, q_offset, sk_valid, with_lse: bool):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    sk_valid=sk_valid, with_lse=with_lse)
+    if q.device.type == "meta":
+        add_meta_ops("flash_attention", 4 * d * b * hq * visible_pairs(
+            sq, sk, causal, q_offset, sk_valid))
+        out = torch.empty_like(q)
+        if not with_lse:
+            return out
+        return out, torch.empty((b, hq, sq), device=q.device)
     check_cuda_operands("flash_attention", q.device, q=q)
     plan = plan_flash(b, hq, hkv, sq, sk, d, bool(causal), int(q_offset),
                       None if sk_valid is None else int(sk_valid))
@@ -174,6 +204,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                        causal=causal, q_offset=q_offset,
                                        sk_valid=sk_valid)
+    if q.device.type == "meta":
+        add_meta_ops("flash_attention_bwd", 10 * d * b * hq * visible_pairs(
+            sq, sk, causal, q_offset, sk_valid))
+        dq = torch.empty_like(q)
+        dk = torch.empty((b, hkv, sk, d), device=q.device)
+        dv = torch.empty_like(dk)
+        torch.empty((2, b, hq, sq), device=q.device)      # the scratch
+        return dq, dk, dv
     check_cuda_operands("flash_attention_bwd", q.device, q=q, out=out,
                         dout=dout, lse=lse)
     if d > 128:
@@ -212,6 +250,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"expected ({b},)")
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len)
+    if q.device.type == "meta":
+        add_meta_ops("decode_attention", 4 * hq * d * b * sk)
+        return torch.empty_like(q)
     check_cuda_operands("decode_attention", q.device, q=q)
     plan = plan_decode(b, hq, hkv, sk, d)
     if kv_len is not None and (kv_len.device != q.device
@@ -229,6 +270,89 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _int8_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> int:
+    """The int8 kernels' checks on the card; returns the cache's rows per
+    (batch, kv head)."""
+    check_cuda_operands(name, q.device, q=q)
+    kv_cap = _kv_capacity(name, q, k, v, torch.int8)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+    return kv_cap
+
+
+def _int8_checks(name: str, q, k, v) -> tuple[int, int, int, int, int, int]:
+    shape = _shapes(name, q, k, v)
+    if _records(q):
+        raise RuntimeError(f"{name} has no backward: q requires grad while "
+                           f"autograd records")
+    return shape
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int = 0,
+                         sk_valid: int | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D) float32 against an int8 cache k, v (B, Hkv, Sk,
+    D), Hq % Hkv == 0, with the reference's static scales
+    (``ref.int8_attention_ref``).  Query row i sits at key position
+    ``q_offset + i``; keys at or past ``sk_valid`` (default Sk) are
+    masked; a row that sees no key is 0.  Returns (B, Hq, Sq, D) f32."""
+    b, hq, hkv, sq, sk, d = _int8_checks("flash_attention_int8", q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_int8: q_offset {q_offset} < 0")
+    if q.device.type == "cpu":
+        return flash_attention_int8_ref(q, k, v, causal=causal,
+                                        q_offset=q_offset, sk_valid=sk_valid)
+    plan = plan_flash_int8(b, hq, hkv, sq, sk, d)
+    if q.device.type == "meta":
+        add_meta_ops("flash_attention_int8", 4 * d * b * hq * visible_pairs(
+            sq, sk, causal, q_offset, sk_valid))
+        return torch.empty_like(q)
+    kv_cap = _int8_operands("flash_attention_int8", q, k, v)
+    out = torch.empty_like(q)
+    launch("repro_flash_attention_int8", q.device, q, k, v, out, b, hq, hkv,
+           sq, sk, d, kv_cap, int(causal), int(q_offset),
+           sk if sk_valid is None else int(sk_valid), math.sqrt(d),
+           plan.rows, plan.smem_bytes)
+    flash_attention_int8.launches += 1
+    return out
+
+
+def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Single-token decode over an int8 cache: q (B, Hq, 1, D) float32
+    against k/v (B, Hkv, S, D) int8, the reference's static scales.
+    ``kv_len`` (B,) int32, optional, masks each row's cache to its first
+    ``kv_len[b]`` positions; a row with ``kv_len`` 0 is 0."""
+    b, hq, hkv, sq, sk, d = _int8_checks("decode_attention_int8", q, k, v)
+    if sq != 1:
+        raise ValueError(f"decode_attention_int8: Sq {sq} != 1")
+    if kv_len is not None and tuple(kv_len.shape) != (b,):
+        raise ValueError(f"decode_attention_int8: kv_len "
+                         f"{tuple(kv_len.shape)}, expected ({b},)")
+    if q.device.type == "cpu":
+        return decode_attention_int8_ref(q, k, v, kv_len)
+    plan = plan_decode_int8(b, hq, hkv, sk, d)
+    if q.device.type == "meta":
+        add_meta_ops("decode_attention_int8", 4 * hq * d * b * sk)
+        return torch.empty_like(q)
+    kv_cap = _int8_operands("decode_attention_int8", q, k, v)
+    if kv_len is not None and (kv_len.device != q.device
+                               or kv_len.dtype != torch.int32
+                               or not kv_len.is_contiguous()):
+        raise TypeError(f"decode_attention_int8: kv_len must be contiguous "
+                        f"int32 on {q.device}")
+    out = torch.empty_like(q)
+    launch("repro_decode_attention_int8", q.device, q, k, v, kv_len, out, b,
+           hq, hkv, sk, d, kv_cap, math.sqrt(d), plan.rows, plan.cluster,
+           plan.smem_bytes)
+    decode_attention_int8.launches += 1
+    return out
+
+
 counted(flash_attention)
 counted(flash_attention_bwd)
 counted(decode_attention)
+counted(flash_attention_int8)
+counted(decode_attention_int8)

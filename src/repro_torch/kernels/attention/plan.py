@@ -49,6 +49,14 @@ plans this way at the LM paths' shapes.  One block serves one query head:
 the heads of a GQA group each stage the group's K / V tiles themselves
 (from L2), which keeps the kernel's work items small enough to balance.
 
+``plan_flash_int8`` and ``plan_decode_int8`` choose, for the int8
+kernels of ``csrc/flash_attention_int8.cu``, the rows a block takes (16,
+32 or 64 of a (batch row, kv head)'s G x Sq query rows, the fewest that
+hold them, at most 64) and, for the decode, a thread-block cluster that
+splits a (batch row, kv head)'s 64-key tiles: enough ranks to put about
+two blocks on each of the 132 SMs, at most one a key tile and 16.  The
+prefill has blocks enough without one.
+
 ``plan_flash_bwd`` chooses, for the flash backward's two kernels, each
 pass's warps and ring (the dQ pass: 64 or 128 query rows a block, heaviest
 q tiles first, as the forward) and the dK/dV pass's balance: 16 keys a
@@ -634,3 +642,78 @@ def plan_flash_bwd(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
     hkv, sk, d)."""
     return min(flash_bwd_candidates(b, hq, hkv, sq, sk, d, causal, q_offset,
                                     sk_valid), key=lambda kp: kp[0])[1]
+
+
+# --------------------------------------------------------------------------
+# the int8 kernels
+# --------------------------------------------------------------------------
+INT8_TK = 64                # keys a tile
+INT8_ROWS = (16, 32, 64)    # rows a block
+INT8_PW = INT8_TK // 4 + 4  # words a row of P and of V^T
+
+
+@dataclass(frozen=True)
+class Int8Plan:
+    """One int8 call's plan: ``rows`` query rows a block (``tiles`` of them
+    a (batch row, kv head)), ``cluster`` ranks splitting the keys, and the
+    dynamic shared memory."""
+    rows: int
+    tiles: int
+    cluster: int
+    smem_bytes: int
+
+
+def int8_smem_bytes(rows: int, d: int, cluster: int) -> int:
+    """Shared memory of the int8 kernel in bytes (``i8::smem_bytes``):
+    qq [rows][D/4 + 4] words, the K and V tiles [64][D/4 + 4], V^T [D][20],
+    P [rows][20], the rows' (m, l) [rows][2]; with a cluster the partial
+    outputs [rows][D]."""
+    rw = d // 4 + 4
+    words = rows * rw + 2 * INT8_TK * rw + d * INT8_PW + rows * INT8_PW \
+        + 2 * rows
+    if cluster > 1:
+        words += rows * d
+    return 4 * words
+
+
+def _int8_check(b: int, hq: int, hkv: int, sq: int, d: int) -> None:
+    if b < 1 or hkv < 1 or hq % hkv or sq < 1:
+        raise ValueError(f"int8 attention: shape B={b} Hq={hq} Hkv={hkv} "
+                         f"Sq={sq}")
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"int8 attention: D={d} is past the kernel: a "
+                         f"multiple of 16 from 16 to 128")
+    if b * hkv > 65535 or _cdiv(hq // hkv * sq, INT8_ROWS[-1]) > 65535:
+        raise ValueError(f"int8 attention: B={b} Hkv={hkv} G x Sq="
+                         f"{hq // hkv * sq} is past the grid")
+
+
+def _int8_rows(n: int) -> int:
+    return next((r for r in INT8_ROWS if n <= r), INT8_ROWS[-1])
+
+
+@functools.cache
+def plan_flash_int8(b: int, hq: int, hkv: int, sq: int, sk: int,
+                    d: int) -> Int8Plan:
+    """The int8 flash kernel's plan for q (b, hq, sq, d) against (b, hkv,
+    sk, d): no cluster."""
+    _int8_check(b, hq, hkv, sq, d)
+    rows = _int8_rows(hq // hkv * sq)
+    return Int8Plan(rows=rows, tiles=_cdiv(hq // hkv * sq, rows), cluster=1,
+                    smem_bytes=int8_smem_bytes(rows, d, 1))
+
+
+@functools.cache
+def plan_decode_int8(b: int, hq: int, hkv: int, sk: int,
+                     d: int) -> Int8Plan:
+    """The int8 decode kernel's plan for q (b, hq, 1, d) against (b, hkv,
+    sk, d): a cluster of up to 16 ranks (one a 64-key tile at most) that
+    brings the blocks to about two an SM."""
+    _int8_check(b, hq, hkv, 1, d)
+    rows = _int8_rows(hq // hkv)
+    tiles = _cdiv(hq // hkv, rows)
+    blocks = b * hkv * tiles
+    cl = max(1, min(MAX_CLUSTER, _cdiv(max(sk, 1), INT8_TK),
+                    _cdiv(2 * SMS, blocks)))
+    return Int8Plan(rows=rows, tiles=tiles, cluster=cl,
+                    smem_bytes=int8_smem_bytes(rows, d, cl))

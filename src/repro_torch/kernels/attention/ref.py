@@ -14,7 +14,13 @@ Counterpart of ``repro/kernels/attention/ref.py`` and of the jnp
   kernels of flash (dq, dk, dv from the forward's log-sum-exp);
 - ``masked_decode_ref``: the reference's ragged-decode fallback;
 - ``decode_attention_ref``: the plain version of the decode kernel, the
-  mask built from the per-row ``kv_len``.
+  mask built from the per-row ``kv_len``;
+- ``flash_attention_int8_ref`` and ``decode_attention_int8_ref``: the
+  plain versions of the int8 kernels, over an int8 cache with the
+  reference's static scales (``int8_attention_ref``: the reference's
+  ``_attn_block`` with int8 k/v, step by step);
+- ``visible_pairs``: the (query, key) pairs the flash kernels compute,
+  from the shape alone.
 """
 from __future__ import annotations
 
@@ -24,6 +30,14 @@ import torch
 
 NEG_INF = -1e30
 BLOCK_K = 64          # the flash kernel's key tile
+
+# The reference's static symmetric scales of the int8 KV cache
+# (``repro/lm/modules.py``): k and v are stored as round(x * KV_SCALE), q
+# and the probabilities are quantized on the fly, so both products are
+# int8 x int8 -> s32.
+KV_SCALE = 32.0
+Q_SCALE = 32.0
+P_SCALE = 127.0
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,3 +184,89 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         >= lens[:, None, None]
     out = masked_decode_ref(q, k, v, mask)
     return torch.where((lens > 0)[:, None, None, None], out, 0.0).to(q.dtype)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, q_offset: int,
+                  sk_valid: int | None) -> int:
+    """The (query row, key) pairs :func:`visible` marks, for one (batch,
+    head), in closed form (``q_offset`` >= 0): row i sees
+    ``min(kv_end, q_offset + i + 1)`` keys when causal, ``kv_end``
+    otherwise."""
+    kv_end = sk if sk_valid is None else max(0, min(sk, sk_valid))
+    if not causal:
+        return sq * kv_end
+    first = q_offset + 1                  # keys row 0 sees, before the cap
+    under = max(0, min(sq, kv_end - first + 1))   # rows below the cap
+    return under * first + under * (under - 1) // 2 + (sq - under) * kv_end
+
+
+def _ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c in x's dtype, rounded once (IEEE division).  A Python scalar
+    divisor would let PyTorch's CUDA kernel multiply by its reciprocal."""
+    return x / torch.full((1,), c, dtype=x.dtype, device=x.device)
+
+
+def int8_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       vis: torch.Tensor, with_probs: bool = False):
+    """The reference's int8 attention (``_attn_block`` with an int8 cache,
+    reached from ``attention_scores``), step by step: qf = q / sqrt(D) (a
+    division), qq = clip(round(qf * Q_SCALE), -127, 127), s = (qq . k) /
+    (Q_SCALE KV_SCALE), masked to -1e30 where ``vis`` is False, p =
+    exp(s - max) / sum, pq = round(p * P_SCALE), out = (pq . v) / (P_SCALE
+    KV_SCALE).  Rounding is half to even, as ``jnp.round``'s.
+
+    q: (B, Hq, Sq, D) float32; k, v: (B, Hkv, Sk, D) int8, Hq % Hkv == 0;
+    vis: bool, broadcastable to (B, 1, 1, Sq, Sk) (the key is visible to
+    the query row).  The integer products run in float64, where int8
+    operands are exact in any order (int8 @ int8 would wrap on the CPU, and
+    the card has no integer matmul).  A row that sees no key is 0 (the
+    reference's -1e30 fill would average every key there; the model never
+    sends such a row).  ``with_probs`` also returns p * P_SCALE before
+    rounding (B, Hq, Sq, Sk), where a rounding tie shows."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = _ieee_div(q.float(), math.sqrt(d))
+    qq = torch.clamp(torch.round(qf * Q_SCALE), -127, 127)
+    qg = qq.reshape(b, hkv, g, sq, d).double()
+    s = torch.matmul(qg, k.double()[:, :, None].transpose(-1, -2))
+    s = (s / (Q_SCALE * KV_SCALE)).float()          # exact: s32 / 2^10
+    s = torch.where(vis, s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    p127 = p * P_SCALE
+    pq = torch.round(p127)
+    acc = torch.matmul(pq.double(), v.double()[:, :, None]).float()
+    out = _ieee_div(acc, P_SCALE * KV_SCALE)
+    out = torch.where(vis.any(dim=-1, keepdim=True), out, 0.0)
+    out = out.reshape(b, hq, sq, d)
+    if with_probs:
+        return out, p127.reshape(b, hq, sq, sk)
+    return out
+
+
+def flash_attention_int8_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             q_offset: int = 0, sk_valid: int | None = None,
+                             with_probs: bool = False):
+    """The plain version of ``flash_attention_int8``: q (B, Hq, Sq, D) f32
+    against int8 k/v (B, Hkv, Sk, D), the mask of :func:`visible`."""
+    vis = visible(q.shape[2], k.shape[2], causal, q_offset, sk_valid,
+                  q.device)
+    return int8_attention_ref(q, k, v, vis[None, None, None],
+                              with_probs=with_probs)
+
+
+def decode_attention_int8_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              kv_len: torch.Tensor | None = None, *,
+                              with_probs: bool = False):
+    """The plain version of ``decode_attention_int8``: q (B, Hq, 1, D) f32
+    against the first ``kv_len[b]`` rows of int8 k/v (B, Hkv, S, D) (all S
+    when ``kv_len`` is None); a row with ``kv_len`` 0 is 0."""
+    b, s = k.shape[0], k.shape[2]
+    lens = (torch.full((b,), s, device=q.device) if kv_len is None
+            else kv_len.to(q.device).long().clamp(0, s))
+    vis = torch.arange(s, device=q.device)[None, :] < lens[:, None]
+    return int8_attention_ref(q, k, v, vis[:, None, None, None, :],
+                              with_probs=with_probs)

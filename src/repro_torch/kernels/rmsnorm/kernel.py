@@ -26,7 +26,10 @@ reads only the partials after ``griddepcontrol.wait``.  So no K6 launch
 reads a ``w`` that the kernel it overlaps may write.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
-tensor runs the plain version from ``ref.py``.  ``rmsnorm.launches`` and
+tensor runs the plain version from ``ref.py``; a ``meta`` tensor (the dry
+run) allocates what the CUDA branch allocates and counts the call's
+operations in the open ``meta_ops`` counters, launching nothing.
+``rmsnorm.launches`` and
 ``rmsnorm_bwd.launches`` count the launches (a backward call is one launch
 of its entry: the rows pass, a warp a row where d % 4 == 0 and d <= 1024,
 and the dw pass spread over the card, a programmatic dependent launch
@@ -37,8 +40,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
-from repro_torch.kernels.util import (cdiv, check_cuda_operands, counted,
-                                      launch)
+from repro_torch.kernels.util import (add_meta_ops, cdiv,
+                                      check_cuda_operands, counted, launch)
 
 #: the backward's rows pass where d % 4 == 0 and d <= VEC_MAX_D (the
 #: warp-per-row kernel, 16-byte aligned operands): blocks of BWD_WARPS
@@ -64,9 +67,12 @@ def _forward(x: torch.Tensor, w: torch.Tensor, eps: float,
              pdl: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
-    check_cuda_operands("rmsnorm", x.device, x=x, w=w)
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
+    if x.device.type == "meta":
+        add_meta_ops("rmsnorm", 4 * rows * d)
+        return torch.empty_like(x)
+    check_cuda_operands("rmsnorm", x.device, x=x, w=w)
     out = torch.empty_like(x)
     if rows == 0:
         return out
@@ -155,15 +161,19 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, w, dy, eps)
-    check_cuda_operands("rmsnorm_bwd", x.device, x=x, w=w, dy=dy)
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
+    if x.device.type != "meta":
+        check_cuda_operands("rmsnorm_bwd", x.device, x=x, w=w, dy=dy)
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
     blocks = bwd_blocks(rows, d)
     part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        add_meta_ops("rmsnorm_bwd", 11 * rows * d)
+        return dx, dw
     launch("repro_rmsnorm_bwd", x.device, x, w, dy, dx, part, dw, rows, d,
            blocks, float(eps))
     rmsnorm_bwd.launches += 1

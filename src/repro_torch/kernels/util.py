@@ -24,6 +24,7 @@ or without.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -77,13 +78,16 @@ def act_code(act: str | None) -> int:
 def resolve_device(device: str | torch.device) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` needs a card and
     raises without one: entry points run on the CPU only when the caller
-    passes ``device="cpu"``."""
+    passes ``device="cpu"``, and on ``meta`` (shapes and counts, no
+    memory: the dry run, ``launch/dryrun.py``) only when it passes
+    ``device="meta"``."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
                            "run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         f"'meta'")
     if dev.type == "cuda" and dev.index is None:
         # name the card by index, so it compares equal to a tensor's device
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -214,6 +218,8 @@ SIGNATURES = {
     "repro_flash_attention": "p" * 5 + "i" * 10 + "f" + "i" * 5 + "s",
     "repro_flash_attention_bwd": "p" * 10 + "i" * 10 + "f" + "i" * 8 + "s",
     "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
+    "repro_flash_attention_int8": "p" * 4 + "i" * 10 + "f" + "i" * 2 + "s",
+    "repro_decode_attention_int8": "p" * 5 + "i" * 6 + "f" + "i" * 3 + "s",
     "repro_sm_probe": "p" + "i" * 2 + "l" + "s",
     "repro_sm_probe_clusters": "i" + "p" + "s",
 }
@@ -324,6 +330,45 @@ def counted(fn: Callable) -> Callable:
 def launch_counts() -> dict[str, int]:
     """Each registered wrapper's launch count, by name."""
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+# --------------------------------------------------------------------------
+# operations of the kernels on ``meta``
+# --------------------------------------------------------------------------
+class MetaOps:
+    """The operations the kernels' wrappers would have launched on
+    ``meta`` tensors while this counter is open (:func:`meta_ops`), by
+    wrapper, each counted as ``chip_smoke.py``'s bounds count it."""
+
+    def __init__(self):
+        self.by_kernel: dict[str, int] = {}
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_kernel.values())
+
+
+_OPEN_META_OPS: list[MetaOps] = []
+
+
+@contextlib.contextmanager
+def meta_ops():
+    """Open a :class:`MetaOps` counter for the body; counters nest, and
+    every open one counts."""
+    ops = MetaOps()
+    _OPEN_META_OPS.append(ops)
+    try:
+        yield ops
+    finally:
+        _OPEN_META_OPS.remove(ops)
+
+
+def add_meta_ops(name: str, ops: int) -> None:
+    """Count ``ops`` operations of wrapper ``name`` in every open counter:
+    a wrapper's ``meta`` branch, which allocates its outputs and launches
+    nothing."""
+    for counter in _OPEN_META_OPS:
+        counter.by_kernel[name] = counter.by_kernel.get(name, 0) + int(ops)
 
 
 class CountedGraph:

@@ -489,21 +489,29 @@ def cache_capacity(cache: DecodeCache) -> int | None:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda",
                memory: torch.Tensor | None = None,
-               params: dict | None = None) -> DecodeCache:
+               params: dict | None = None,
+               kv_dtype: torch.dtype | None = None) -> DecodeCache:
     """An empty cache for ``batch`` rows of up to ``max_len`` positions.
     Whisper needs the encoder's output ``memory`` (B, M, D) and the
-    ``params``: its cross-attention K/V are projected here, once."""
+    ``params``: its cross-attention K/V are projected here, once.
+    ``kv_dtype=torch.int8`` stores the transformer blocks' self-attention
+    KV (``kv_k``, ``kv_v``; Whisper's decoder's too) quantized with the
+    reference's static scale (``lm/modules.py`` ``quantize_kv``); every
+    other field (Zamba2's shared caches, Whisper's cross K/V, the SSM
+    states) stays float32, as in the reference."""
     check_supported(cfg)
     dev = resolve_device(device)
     L = cfg.n_layers
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev)
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     rows: dict[str, torch.Tensor] = {}
     if cfg.block_type == "transformer":
         shape = (L, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-        rows.update(kv_k=zeros(*shape), kv_v=zeros(*shape))
+        kvd = kv_dtype or torch.float32
+        rows.update(kv_k=zeros(*shape, dtype=kvd),
+                    kv_v=zeros(*shape, dtype=kvd))
     elif cfg.block_type == "mlstm":
         hp = cfg.d_inner // cfg.ssm_heads
         rows["ssm"] = zeros(L, batch, cfg.ssm_heads, hp + 1, hp)

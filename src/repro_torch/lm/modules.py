@@ -27,6 +27,13 @@ copy at that position (the counterpart of ``dynamic_update_slice``), and
 K7 decode runs over the whole cache with ``kv_len = position + 1``, so a
 decode step has the same shapes at every position and can be captured
 once and replayed.
+
+An int8 cache (``init_cache(kv_dtype=torch.int8)``, the reference's
+static-scale KV quantization) stores ``quantize_kv(k)`` and
+``quantize_kv(v)`` in both branches, and its attention goes to the int8
+kernels (``flash_attention_int8`` at the host offset,
+``decode_attention_int8`` at a :class:`DecodePosition`), whose dots are
+int8 x int8 -> s32 as the reference's: no f32 copy of the cache is made.
 """
 from __future__ import annotations
 
@@ -35,7 +42,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.attention.kernel import (decode_attention,
-                                                  flash_attention)
+                                                  decode_attention_int8,
+                                                  flash_attention,
+                                                  flash_attention_int8)
+# the reference's names of the int8 cache's scales, kept here with it
+from repro_torch.kernels.attention.ref import (  # noqa: F401
+    KV_SCALE, P_SCALE, Q_SCALE)
 
 
 # --------------------------------------------------------------------------
@@ -119,6 +131,13 @@ class DecodePosition(NamedTuple):
     kv_len: torch.Tensor
 
 
+def quantize_kv(x: torch.Tensor) -> torch.Tensor:
+    """x as the int8 cache stores it: clip(round(x * KV_SCALE), -127, 127),
+    rounding half to even as ``jnp.round``."""
+    return torch.clamp(torch.round(x.float() * KV_SCALE), -127,
+                       127).to(torch.int8)
+
+
 def decode_position(pos: torch.Tensor, batch: int) -> DecodePosition:
     """The :class:`DecodePosition` of the device int32 scalar ``pos``."""
     return DecodePosition(pos.reshape(1).long(),
@@ -176,22 +195,30 @@ def gqa_attention(params: dict, x: torch.Tensor, cfg,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    int8 = cache is not None and cache.k.dtype == torch.int8
+    if int8:
+        k, v = quantize_kv(k), quantize_kv(v)
     if cache is not None and isinstance(cache_pos, DecodePosition):
         if s != 1:
             raise ValueError(f"gqa_attention: a device position takes one "
                              f"token, got {s}")
         cache.k.index_copy_(2, cache_pos.at, k)
         cache.v.index_copy_(2, cache_pos.at, v)
-        out = decode_attention(q.contiguous(), cache.k, cache.v,
-                               cache_pos.kv_len)
+        decode = decode_attention_int8 if int8 else decode_attention
+        out = decode(q.contiguous(), cache.k, cache.v, cache_pos.kv_len)
     elif cache is not None:
         if cache_pos is None:
             raise ValueError("gqa_attention: a cache needs cache_pos")
         end = cache_pos + s
         cache.k[:, :, cache_pos:end] = k
         cache.v[:, :, cache_pos:end] = v
-        out = attention_scores(q, cache.k[:, :, :end], cache.v[:, :, :end],
-                               causal=causal, q_offset=cache_pos)
+        ck, cv = cache.k[:, :, :end], cache.v[:, :, :end]
+        if int8:
+            out = flash_attention_int8(q.contiguous(), ck, cv, causal=causal,
+                                       q_offset=cache_pos)
+        else:
+            out = attention_scores(q, ck, cv, causal=causal,
+                                   q_offset=cache_pos)
     else:
         out = attention_scores(q, k.contiguous(), v.contiguous(),
                                causal=causal, q_offset=0)

@@ -98,16 +98,22 @@ def loss_and_grads(params, cfg: ArchConfig, batch: dict,
 
 
 def make_train_step(cfg: ArchConfig, optimizer: AdamW,
-                    microbatches: int = 1, remat: bool = True):
+                    microbatches: int = 1, remat: bool = True,
+                    grad_dtype: torch.dtype | None = None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     With microbatches > 1 the global batch is split along axis 0 and the
-    gradients are accumulated in f32: the activations of only one
-    microbatch are ever live.  (The reference's ``grad_dtype``, which only
-    its dry-run tooling passes, has no counterpart yet.)  ``remat``
+    gradients are accumulated in ``grad_dtype`` (default f32; bf16 is the
+    reference's ``grads_bf16`` policy, which ``launch/dryrun.py``'s
+    ``--grads-bf16`` asks for as the reference's dry run does: each
+    microbatch's f32 gradient is cast to it and added, and the sum divided
+    by the count in it), so the activations of only one microbatch are ever live; the
+    optimizer takes the gradients in that dtype.  With one microbatch
+    ``grad_dtype`` changes nothing, as in the reference.  ``remat``
     recomputes each layer in the backward pass.  The update is in place
     (``AdamW.apply``): the returned state holds the same parameter and
     moment tensors."""
+    gdt = grad_dtype or torch.float32
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
@@ -121,14 +127,15 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
             loss = torch.zeros((), device=first.device)
-            grads = tree_map(torch.zeros_like, params)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
+                                                   device=p.device), params)
             size = b // microbatches
             for i in range(microbatches):
                 mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
                 l, g = loss_and_grads(params, cfg, mb, remat)
                 loss = loss + l
                 for acc, gi in zip(leaves(grads), leaves(g)):
-                    acc.add_(gi)
+                    acc.add_(gi.to(gdt))
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
         lr = optimizer.schedule(state.opt.step)

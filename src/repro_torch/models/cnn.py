@@ -24,7 +24,8 @@ from repro_torch.dualcore.program import build_program
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models.zoo import get_graph
 
-__all__ = ["FORWARDS", "build_model", "init_params", "params_from_numpy"]
+__all__ = ["FORWARDS", "build_model", "init_params", "params_from_numpy",
+           "run_pipelined"]
 
 Params = dict[str, dict[str, torch.Tensor]]
 NumpyParams = dict[str, dict[str, np.ndarray]]
@@ -90,3 +91,23 @@ def build_model(name: str, seed: int = 0,
     dev = resolve_device(device)
     g = get_graph(name)
     return params_from_numpy(init_params(g, seed), dev), FORWARDS[name], g
+
+
+def run_pipelined(name: str, params: Params, schedule, images, *,
+                  device: str | torch.device = "cuda",
+                  fuse: bool | str = "group", jit_groups: bool = True,
+                  record: list | None = None) -> list[torch.Tensor]:
+    """Execute ``schedule`` for real: pipeline ``images`` through the
+    alternating c/p-core group chain with the paper's one-slot offset
+    (Fig.4b) and return the per-image logits in submission order.  The
+    reference's compatibility wrapper over
+    ``repro_torch.dualcore.runtime.DualCoreRunner.run_pipelined``
+    (continuous serving goes through ``repro_torch.serving``'s
+    ``DualCoreEngine``); ``device`` takes the place of the reference's
+    ``devices`` and ``use_pallas`` (the kernels run on the card, the plain
+    versions on the CPU).  ``record=[]`` captures the execution trace."""
+    from repro_torch.dualcore.runtime import DualCoreRunner
+
+    runner = DualCoreRunner(name, params, schedule, device=device,
+                            fuse=fuse, jit_groups=jit_groups)
+    return runner.run_pipelined(images, record=record)

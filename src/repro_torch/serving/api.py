@@ -25,7 +25,7 @@ import dataclasses
 import random
 import time
 from collections import deque
-from typing import Any, Protocol, Sequence
+from typing import Any, Protocol, Sequence, runtime_checkable
 
 import torch
 
@@ -424,6 +424,33 @@ class ShedPolicy:
 # --------------------------------------------------------------------------
 # the engine protocol
 # --------------------------------------------------------------------------
+@runtime_checkable
+class Engine(Protocol):
+    """The shared serving surface (module docstring): what every engine,
+    the CNN's, the LM's and the fleet's, offers its caller."""
+
+    def submit(self, request: Request | Any) -> Ticket:
+        """Enqueue one request and return its ticket."""
+        ...
+
+    def step(self) -> list[Completion]:
+        """Advance the pipeline one slot; return newly finished work."""
+        ...
+
+    def drain(self) -> ServeResult:
+        """Step until idle, then return the full result."""
+        ...
+
+    def result(self) -> ServeResult:
+        """Snapshot of completions and metrics so far."""
+        ...
+
+    @property
+    def has_work(self) -> bool:
+        """True while any queued or in-flight work remains."""
+        ...
+
+
 class EngineBase:
     """Queue / ticket / metrics bookkeeping shared by every engine:
     the bounded pending queue, rid assignment, ticket and metrics stamping

@@ -1371,3 +1371,83 @@ def test_train_step_on_card_matches_plain(arch, card):
         assert bool(torch.isfinite(g).all())
         top = p.abs().max().item()
         assert (g - p).abs().max().item() <= 1e-3 * top
+
+
+# --------------------------------------------------------------------------
+# the int8 KV cache's kernels and the meta branches
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["path_prefill", "path_decode", "g1_chunk",
+                                   "g12_ragged"])
+def test_int8_kernels_on_card(which, card):
+    """The int8 kernels against their plain versions (chip_smoke's check:
+    every element within 1e-5 but the rows a rounding tie flips, each such
+    row explained by its ties): Qwen2.5-14B's 2 x 512 prefill and a decode
+    at kv_len 545 over the cache of 576; a G 1 chunk at q_offset 63; a G
+    12 decode at ragged kv_len down to 5.  One launch a call, the same
+    bits on two other streams."""
+    from repro_torch.kernels.attention.kernel import (decode_attention_int8,
+                                                      flash_attention_int8)
+    i8 = chip_smoke._i8
+    calls = dict(
+        path_prefill=i8("flash_attention_int8", 2, 40, 8, 128, 512, 576,
+                        sq=512),
+        path_decode=i8("decode_attention_int8", 2, 40, 8, 128, 576, 576,
+                       kv_len=[545, 545]),
+        g1_chunk=i8("flash_attention_int8", 1, 4, 4, 128, 100, 160, sq=37,
+                    q_offset=63),
+        g12_ragged=i8("decode_attention_int8", 2, 96, 8, 128, 576, 576,
+                      kv_len=[576, 5]))
+    call = calls[which]
+    fn = (flash_attention_int8 if call["kernel"] == "flash_attention_int8"
+          else decode_attention_int8)
+    before = fn.launches
+    row = chip_smoke.int8_check(call, np.random.default_rng(23), False)
+    assert fn.launches == before + 1
+    assert row["flips"] <= max(1, 1e-3 * row["rows"])
+    case = chip_smoke.int8_case(call, np.random.default_rng(23))
+    first, outs = _on_two_streams(case)
+    assert all(torch.equal(first, o) for o in outs)
+
+
+@pytest.mark.cuda
+def test_meta_branches_match_cuda_outputs(card):
+    """Each LM kernel's meta branch returns what its CUDA branch returns:
+    the same shapes and dtypes."""
+    from repro_torch.kernels.attention.kernel import (decode_attention_int8,
+                                                      flash_attention_bwd,
+                                                      flash_attention_int8)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd
+    rng = np.random.default_rng(29)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(card) for s in ((2, 6, 33, 64), (2, 2, 40, 64),
+                                        (2, 2, 40, 64), (2, 6, 33, 64)))
+    k8 = torch.clamp(torch.round(k * 32), -127, 127).to(torch.int8)
+    v8 = torch.clamp(torch.round(v * 32), -127, 127).to(torch.int8)
+    x, w = q.reshape(-1, 64).contiguous(), v[0, 0, 0].contiguous()
+    lens = torch.tensor([40, 7], dtype=torch.int32, device=card)
+
+    def calls(dev):
+        t = {n: a.to(dev) for n, a in dict(q=q, k=k, v=v, dout=dout, k8=k8,
+                                           v8=v8, x=x, w=w,
+                                           lens=lens).items()}
+        from repro_torch.kernels.attention.kernel import _flash_forward
+        out, lse = _flash_forward(t["q"], t["k"], t["v"], True, 7, None,
+                                  True)
+        return [out, lse,
+                *flash_attention_bwd(t["q"], t["k"], t["v"], out,
+                                     t["dout"], lse, q_offset=7),
+                decode_attention(t["q"][:, :, :1].contiguous(), t["k"],
+                                 t["v"], t["lens"]),
+                flash_attention_int8(t["q"], t["k8"], t["v8"], q_offset=7),
+                decode_attention_int8(t["q"][:, :, :1].contiguous(),
+                                      t["k8"], t["v8"], t["lens"]),
+                rmsnorm(t["x"], t["w"]),
+                *rmsnorm_bwd(t["x"], t["w"], t["x"])]
+
+    on_card = calls(card)
+    on_meta = calls(torch.device("meta"))
+    assert len(on_card) == len(on_meta)
+    for a, b in zip(on_card, on_meta):
+        assert b.device.type == "meta"
+        assert (a.shape, a.dtype) == (b.shape, b.dtype)
