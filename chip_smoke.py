@@ -304,7 +304,21 @@ any failure raises and the script exits non-zero:
             gradient norm 1e-4, each leaf within 1e-3 of its largest
             magnitude); (d) recovery at the smoke config, a fault at step
             6, against a clean run;
-12. report  one ``[report]`` line for each path and kernel (launches,
+12. cache   the plan cache (``kernels/autotune.py``) in a temporary
+            file: (a) every K1-K5 signature of the zoo's programs and the
+            runner's group-fused plans at 224 px, batch 2, tuned on the
+            whole card and under each core's stream of the split at theta
+            0.5 (``CACHE_REPS`` runs of each candidate); (b) a line a
+            signature: the planner's pick's device µs and the winner's on
+            each SM count, the candidates that beat the pick and the runs'
+            spread, then per kind the sums; (c) MobileNet v1, v2 and
+            SqueezeNet ``balanced`` served with the cache on graphs on the
+            split cores, eagerly and on shared cores, every K1-K5 lookup a
+            hit, every output bit-equal to the same requests served
+            without the cache, a request's lane device ms with and without
+            it; (d) a config planted outside its signature's candidates
+            raises;
+13. report  one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line; the host seconds of each phase.
@@ -318,6 +332,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -368,6 +383,7 @@ MIXED_INTERVAL = 4
 MIXED_SLO_MS = 100.0
 CNN_KERNELS = ("matmul_bias_act", "depthwise_conv2d", "conv2d_implicit_gemm",
                "fused_dw_pw_conv", "fused_pw_dw_pw_conv")      # K1-K5
+CACHE_REPS = 2                  # phase 12: timing runs of each candidate
 LM_ARCH = "qwen2_0_5b"
 LM_REQUESTS = 8
 LM_BATCH = 2
@@ -4906,6 +4922,209 @@ def train_path() -> dict:
                 rows=list(rows.values()))
 
 
+# --------------------------------------------------------------------------
+# phase 12: the plan cache on the card
+# --------------------------------------------------------------------------
+def cache_streams() -> list[tuple[str, torch.cuda.Stream]]:
+    """The streams phase 12 tunes under: the whole card's, then each
+    core's of the split at ``SPLIT_THETA``, labelled by their SMs."""
+    from repro_torch.kernels.green import split_sms
+    from repro_torch.kernels.util import resolve_device
+    split = split_sms(resolve_device(DEV), SPLIT_THETA)
+    return [(f"sms{split.total}", torch.cuda.current_stream()),
+            *((f"sms{split.sms(c)} ({c})", split.parts[c].stream)
+              for c in "cp")]
+
+
+def cache_row(at, sig, tag: str) -> dict:
+    """One signature's sweep on one SM count, from its cache entry: the
+    planner's pick's and the winner's device µs (best of its runs), the
+    candidates that beat the pick, and the runs' spread (the largest
+    (max - min) / min of a candidate's runs)."""
+    entry = at.load_cache()["entries"][sig.entry_key(tag)]
+    runs = entry["candidates_us"]
+    if None in runs:
+        raise AssertionError(f"cache: a candidate of {sig.entry_key(tag)} "
+                             f"failed: {runs}")
+    pick, best = min(runs[0]), entry["us"]
+    spread = max((max(r) - min(r)) / min(r) for r in runs)
+    return dict(key=sig.key(), kind=sig.kind, tag=tag, pick_us=pick,
+                best_us=best, candidates=len(entry["candidates_us"]),
+                beat=sum(min(r) < pick for r in runs), spread=spread,
+                won=entry["config"] != at.heuristic_config(sig),
+                beyond_noise=(pick - best) / pick > spread)
+
+
+def cache_sweep(at, sigs) -> dict:
+    """12(a), (b): every signature tuned on each SM count, rows printed one
+    a signature with the three counts side by side."""
+    rows: dict[str, list[dict]] = {}
+    for label, stream in cache_streams():
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            tag = at.device_tag(DEV)
+            for sig in sigs:
+                at.tune_layer(sig, device=DEV, reps=CACHE_REPS)
+            stream.synchronize()
+            rows[label] = [cache_row(at, s, tag) for s in sigs]
+        print(f"[cache] tuned {len(sigs)} signatures on {label}, "
+              f"{CACHE_REPS} runs of {at.CALLS} calls a candidate, in "
+              f"{time.perf_counter() - t0:.1f} s")
+    for i, sig in enumerate(sigs):
+        print(f"[cache] {sig.entry_key('')[:-1]}: " + " | ".join(
+            f"{label.split()[0]} pick {r[i]['pick_us']:.3f} best "
+            f"{r[i]['best_us']:.3f} us, {r[i]['beat']} of "
+            f"{r[i]['candidates'] - 1} beat it, spread "
+            f"{100 * r[i]['spread']:.1f}%" for label, r in rows.items()))
+    summary = {}
+    for label, r in rows.items():
+        kinds = {}
+        for kind in dict.fromkeys(x["kind"] for x in r):
+            mine = [x for x in r if x["kind"] == kind]
+            kinds[kind] = dict(
+                signatures=len(mine),
+                pick_ms=sum(x["pick_us"] for x in mine) / 1e3,
+                cached_ms=sum(x["best_us"] for x in mine) / 1e3,
+                won=sum(x["won"] for x in mine),
+                beyond_noise=sum(x["beyond_noise"] for x in mine))
+        summary[label] = kinds
+        print(f"[cache] {label}: " + "; ".join(
+            f"{k} {v['signatures']} signatures, pick {v['pick_ms']:.4f} "
+            f"ms, cached {v['cached_ms']:.4f} ms, a candidate won "
+            f"{v['won']} ({v['beyond_noise']} beyond the runs' spread)"
+            for k, v in kinds.items()))
+    return dict(rows=rows, summary=summary)
+
+
+def cache_serve(at, model: str, gen, cache: str, empty: str) -> dict:
+    """12(c): ``model``'s ``balanced`` serving path without the cache, then
+    with it on graphs and split cores (and eagerly, where every K1-K5
+    call resolves a plan) and on shared cores: every lookup a hit, every
+    output bit-equal to the uncached run's; a request's lane device ms
+    with and without the cache, in turns."""
+    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.dualcore.runtime import DualCoreRunner, DualCores
+    from repro_torch.models.cnn import build_model
+    from repro_torch.kernels.util import resolve_device
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+    params, _, graph = build_model(model, seed=0, device=DEV)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+    images = [rand(gen, (BATCH, IMAGE, IMAGE, 3)) for _ in range(REQUESTS)]
+    dev = resolve_device(DEV)
+
+    def served(path: str, **kw):
+        os.environ[at.CACHE_ENV] = path
+        at.reset_lookups()
+        r = DualCoreRunner(model, params, sched, device=DEV,
+                           theta=SPLIT_THETA, **kw)
+        r.run_pipelined(images)                 # warm: lanes captured
+        reset_counts()
+        res = replay(DualCoreEngine(r), [Request(x) for x in images])
+        launches = sum(launch_counts()[k] for k in CNN_KERNELS)
+        return r, res.outputs, dict(at.LOOKUPS), launches
+
+    plain, want, _, _ = served(empty)
+    runs = {"graphs split": served(cache),
+            "eager split": served(cache, jit_groups=False),
+            "graphs shared": served(cache, cores=DualCores(
+                dev, sm_split=False))}
+    out = {}
+    for name, (r, outs, lookups, launches) in runs.items():
+        if lookups["miss"] or not lookups["hit"]:
+            raise AssertionError(f"cache: {model} on {name}: lookups "
+                                 f"{lookups}, every one should hit")
+        if name.startswith("eager") and lookups["hit"] != 2 * launches:
+            raise AssertionError(f"cache: {model} eager: {lookups['hit']} "
+                                 f"hits for {launches} served launches "
+                                 f"and as many warm ones")
+        for i, (a, b) in enumerate(zip(outs, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"cache: {model} request {i} on "
+                                     f"{name} differs from the uncached "
+                                     f"run")
+        out[name] = dict(lookups=lookups, launches=launches)
+    lane = {"without": [], "with": []}
+    for name in ("without", "with", "with", "without"):       # in turns
+        r = plain if name == "without" else runs["graphs split"][0]
+        lane[name].append(lane_device_ms(r))
+    print(f"[cache] {model}: every K1-K5 lookup hit ("
+          + ", ".join(f"{n} {v['lookups']['hit']}"
+                      for n, v in out.items())
+          + f"; eager: {out['eager split']['launches']} served launches, "
+          f"as many warm); outputs bit-equal to the uncached run on split "
+          f"and shared cores; a request's lane device ms without the cache "
+          + ", ".join(f"{t:.4f}" for t in lane["without"]) + ", with "
+          + ", ".join(f"{t:.4f}" for t in lane["with"]))
+    return dict(runs=out, lane_device_ms=lane)
+
+
+def cache_refuses(at) -> str:
+    """12(d): a config planted outside its signature's candidates makes
+    the lookup raise, naming the entry."""
+    from repro_torch.kernels.util import resolve_device
+    sig = at.LayerSig("pointwise", 56, 56, 64, 128, N=BATCH)
+    tag = at.device_tag(DEV)
+    data = at.load_cache()
+    key = sig.entry_key(tag)
+    kept = data["entries"].get(key)
+    bad = dict(at.heuristic_config(sig), bm=48)
+    data["entries"][key] = {"config": bad, "us": 1.0, "backend": tag}
+    at.save_cache(data)
+    try:
+        at.resolve(sig, resolve_device(DEV))
+    except ValueError as err:
+        if key not in str(err):
+            raise AssertionError(f"cache: the refusal does not name {key}: "
+                                 f"{err}") from err
+        msg = str(err)
+    else:
+        raise AssertionError(f"cache: a planted config {bad} was launched")
+    finally:
+        if kept is None:
+            del data["entries"][key]
+        else:
+            data["entries"][key] = kept
+        at.save_cache(data)
+    print(f"[cache] a planted config outside the candidates raised: {msg}")
+    return msg
+
+
+def cache_path_run() -> dict:
+    """Phase 12: the plan cache on the card, in a temporary file."""
+    import tempfile
+    from repro_torch.kernels import autotune as at
+    t0 = time.perf_counter()
+    free_card("before phase 12")
+    before = os.environ.get(at.CACHE_ENV)
+    tmp = Path(tempfile.mkdtemp(prefix="repro_torch_plans_"))
+    cache, empty = str(tmp / "plans.json"), str(tmp / "none.json")
+    os.environ[at.CACHE_ENV] = cache
+    at.clear_memory_cache()
+    try:
+        sigs = at.zoo_signatures(IMAGE, SERVED, BATCH)
+        print(f"[cache] {len(sigs)} signatures of the zoo's programs and "
+              f"group-fused plans at {IMAGE} px, batch {BATCH} "
+              f"({time.perf_counter() - t0:.1f} s on the host)")
+        sweep = cache_sweep(at, sigs)
+        gen = np.random.default_rng(12)
+        serve = {m: cache_serve(at, m, gen, cache, empty) for m in SERVED}
+        os.environ[at.CACHE_ENV] = cache
+        at.clear_memory_cache()
+        refusal = cache_refuses(at)
+    finally:
+        if before is None:
+            os.environ.pop(at.CACHE_ENV, None)
+        else:
+            os.environ[at.CACHE_ENV] = before
+        at.clear_memory_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[cache] {time.perf_counter() - t0:.1f} s")
+    return dict(signatures=len(sigs), sweep=sweep, serve=serve,
+                refusal=refusal)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4929,9 +5148,14 @@ def main() -> int:
         phase_s[phase] = time.perf_counter() - t_start - sum(
             phase_s.values())
 
+    from repro_torch.kernels.autotune import CACHE_ENV
     from repro_torch.kernels.green import split_sms
     from repro_torch.kernels.util import (ptxas_report, resolve_device,
                                           timed_build)
+    # phases 1-11 launch the planner's picks, whatever plan cache the
+    # checkout holds (the worker processes of phase 7 inherit this);
+    # phase 12 points the cache at a file of its own
+    os.environ[CACHE_ENV] = os.devnull
 
     # 1. setup ------------------------------------------------------------
     card = card_line()
@@ -5047,7 +5271,11 @@ def main() -> int:
     paths.append(train)
     mark("11")
 
-    # 12. report ----------------------------------------------------------
+    # 12. cache -----------------------------------------------------------
+    cache = cache_path_run()
+    mark("12")
+
+    # 13. report ----------------------------------------------------------
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
@@ -5078,6 +5306,7 @@ def main() -> int:
         paths=paths, granite=granite, split=split, workers=workers,
         control=control, design=design, blocks=blocks,
         train={k: v for k, v in train.items() if k != "kernels"},
+        cache=cache,
         phase_s=phase_s,
         kernels=kernels),
         indent=1))

@@ -3,14 +3,16 @@
 Counterpart of ``repro/kernels/conv_gemm/ops.py``, with its rule: a 1x1 conv
 with stride 1 and pad 0 (every pointwise conv, and the fc head on its 1x1
 map) flattens pixels and runs the GEMM (K1); any other conv runs the
-implicit GEMM (K3).  The reference's autotune cache has no counterpart:
-K1 and K3 take their tilings from ``plan.py`` (deterministic from the
-shape).
+implicit GEMM (K3).  As in the reference, each call builds its layer
+signature and consults the plan cache (``kernels/autotune.py``) first: a
+cached entry for the card and the SMs of the current stream gives the
+tiling, a miss the planner's pick (``plan.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.conv_gemm.kernel import (conv2d_implicit_gemm,
                                                   matmul_bias_act)
 
@@ -25,7 +27,13 @@ def conv2d_gemm(x: torch.Tensor, w: torch.Tensor,
     kh, kw, ci, co = w.shape
     if kh == 1 and kw == 1 and stride == 1 and pad == 0:
         return pointwise_conv(x, w.reshape(ci, co), bias, act=act)
-    return conv2d_implicit_gemm(x, w, bias, stride=stride, pad=pad, act=act)
+    n, h, wd, _ = x.shape
+    sig = autotune.LayerSig(
+        kind="conv", H=h, W=wd, C_i=ci, C_o=co, K_h=kh, K_w=kw,
+        stride=stride, pad=pad, dtype=autotune.dtype_name(x.dtype), N=n,
+        vec=ci % 4 == 0 and x.data_ptr() % 16 == 0)
+    return conv2d_implicit_gemm(x, w, bias, stride=stride, pad=pad, act=act,
+                                plan=autotune.resolve(sig, x.device))
 
 
 def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
@@ -35,5 +43,8 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
     C_o)."""
     n, h, wd, ci = x.shape
     co = w.shape[-1]
-    out = matmul_bias_act(x.reshape(n * h * wd, ci), w, bias, act=act)
+    sig = autotune.LayerSig(kind="pointwise", H=h, W=wd, C_i=ci, C_o=co,
+                            dtype=autotune.dtype_name(x.dtype), N=n)
+    out = matmul_bias_act(x.reshape(n * h * wd, ci), w, bias, act=act,
+                          plan=autotune.resolve(sig, x.device))
     return out.reshape(n, h, wd, co)

@@ -26,9 +26,11 @@ simple cost model thinks fastest (the busiest SM's blocks times a block's
 staged steps, products, cluster reduction, stores and fixed cost, or the
 bytes the whole call moves, whichever is longer), then smaller clusters,
 larger tiles and the longer step.  The ring is the deepest (2-4 stages)
-its steps use that still lets two blocks share an SM.  No timing and no
-autotune cache: a shape's plan is only memoised, since the serving path
-asks for it at every launch.
+its steps use that still lets two blocks share an SM.  No timing here: a
+shape's plan is only memoised, since the serving path asks for it at every
+launch.  The plan cache (``kernels/autotune.py``) times the best-ranked
+``candidates`` that keep the pick's ``k_splits`` on the card, and the ops
+launch its measured winner where it holds one.
 
 ``plan_k3`` tiles K3's implicit GEMM (M = N*Ho*Wo pixels, K = Kh*Kw*Ci, N =
 Co) the same way: both kernels run ``gemm_tile`` of ``csrc/tc_common.cuh``.

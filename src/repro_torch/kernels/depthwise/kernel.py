@@ -5,8 +5,9 @@ replaces the TPU kernel ``repro/kernels/depthwise/kernel.py::
 depthwise_conv2d``; the source says what bounds it on an H100 (bytes) and
 how its shared-memory halo tiles stand in for the line buffer.  ``plan.py``
 chooses each call's tiling (pixel tile, channel block, outputs a thread,
-shared memory) from its shape; the wrapper passes it to the kernel, which
-trusts it.
+shared memory) from its shape, unless the caller passes a plan (the plan
+cache's, ``kernels/autotune.py``); the wrapper passes it to the kernel,
+which trusts it.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``depthwise_conv2d.launches``
@@ -24,8 +25,11 @@ from repro_torch.kernels.util import (act_code, check_cuda_operands, counted,
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor | None = None, *, stride: int = 1,
-                     pad: int = 1, act: str | None = None) -> torch.Tensor:
-    """NHWC depthwise conv.  x: (N,H,W,C); w: (K_h,K_w,C); bias: (C,)."""
+                     pad: int = 1, act: str | None = None,
+                     plan=None) -> torch.Tensor:
+    """NHWC depthwise conv.  x: (N,H,W,C); w: (K_h,K_w,C); bias: (C,).
+    ``plan``: a DwPlan of this call (the plan cache's); ``plan_k2``'s pick
+    when None."""
     if x.dim() != 4 or w.dim() != 3 or w.shape[2] != x.shape[3]:
         raise ValueError(f"depthwise_conv2d: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
@@ -42,7 +46,8 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
         return depthwise_conv2d_ref(x, w, bias, stride=stride, pad=pad,
                                     act=act)
     check_cuda_operands("depthwise_conv2d", x.device, x=x, w=w, bias=bias)
-    plan = plan_k2(n, h, wd, c, kh, kw, stride, pad)
+    if plan is None:
+        plan = plan_k2(n, h, wd, c, kh, kw, stride, pad)
     out = torch.empty((n, ho, wo, c), device=x.device, dtype=torch.float32)
     vec = int(c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (
         x, w, out, *(() if bias is None else (bias,)))))

@@ -21,8 +21,10 @@ threads, shared memory), the plans that put at least one block on each of the 13
 SMs are preferred when any does, then the one a simple cost model thinks
 fastest (the blocks an SM runs at once, a block's staged bytes and fixed
 cost, or the bytes the whole call moves, whichever is longer), then more
-outputs a thread and larger tiles.  No timing and no autotune cache: a
-shape's plan is only memoised.
+outputs a thread and larger tiles.  No timing here: a shape's plan is only
+memoised.  The plan cache (``kernels/autotune.py``) times the best-ranked
+``candidates`` on the card, and the ops launch its measured winner where
+it holds one.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ Wrappers of the hand-written CUDA kernels ``csrc/fused_dw_pw_conv.cu`` and
 ``::fused_pw_dw_pw_conv``; each source says what bounds it on an H100 and
 how it tiles space and channels so that the intermediate maps live only in
 shared memory.  ``plan.py`` chooses each call's tiling (pixel tile, cluster
-size and channel split, grid, shared memory) from its shape; the wrapper
-passes it to the kernel, which trusts it.
+size and channel split, grid, shared memory) from its shape, unless the
+caller passes a plan (the plan cache's, ``kernels/autotune.py``); the
+wrapper passes it to the kernel, which trusts it.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``fused_dw_pw_conv.launches``
@@ -31,11 +32,13 @@ def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
                      residual: torch.Tensor | None = None, *,
                      stride: int = 1, pad: int = 1,
                      dw_act: str | None = "relu6",
-                     pw_act: str | None = None) -> torch.Tensor:
+                     pw_act: str | None = None, plan=None) -> torch.Tensor:
     """dw(KhxKw, stride) -> pw(1x1) in one launch.
 
     x: (N,H,W,C); dw_w: (Kh,Kw,C); pw_w: (C,Co); biases (C,)/(Co,) or None;
-    residual: (N,Ho,Wo,Co) or None (added after pw_act).
+    residual: (N,Ho,Wo,Co) or None (added after pw_act).  ``plan``: a
+    FusedPlan of this call (the plan cache's); ``plan_k4``'s pick when
+    None.
     """
     if (x.dim() != 4 or dw_w.dim() != 3 or pw_w.dim() != 2
             or dw_w.shape[2] != x.shape[3] or pw_w.shape[0] != x.shape[3]):
@@ -59,7 +62,8 @@ def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
                                pw_act=pw_act)
     check_cuda_operands("fused_dw_pw_conv", x.device, x=x, dw_w=dw_w,
                         dw_b=dw_b, pw_w=pw_w, pw_b=pw_b, residual=residual)
-    plan = plan_k4(n, h, wd, c, co, kh, stride, pad, kw)
+    if plan is None:
+        plan = plan_k4(n, h, wd, c, co, kh, stride, pad, kw)
     out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
     launch("repro_fused_dw_pw_conv", x.device, x, dw_w, dw_b, pw_w, pw_b,
            residual, out, n, h, wd, c, co, kh, kw, stride, pad, ho, wo,
@@ -81,12 +85,15 @@ def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
                         stride: int = 1, pad: int = 1,
                         exp_act: str | None = "relu6",
                         dw_act: str | None = "relu6",
-                        proj_act: str | None = None) -> torch.Tensor:
+                        proj_act: str | None = None,
+                        plan=None) -> torch.Tensor:
     """pw-expand -> dw(KhxKw, stride) -> pw-project in one launch (the
     MobileNet v2 inverted residual; ``residual`` is added after proj_act).
 
     x: (N,H,W,Ci); exp_w: (Ci,Cm); dw_w: (Kh,Kw,Cm); proj_w: (Cm,Co);
     biases (Cm,)/(Cm,)/(Co,) or None; residual: (N,Ho,Wo,Co) or None.
+    ``plan``: a FusedPlan of this call (the plan cache's); ``plan_k5``'s
+    pick when None.
     """
     if (x.dim() != 4 or exp_w.dim() != 2 or dw_w.dim() != 3
             or proj_w.dim() != 2 or exp_w.shape[0] != x.shape[3]
@@ -116,7 +123,8 @@ def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
     check_cuda_operands("fused_pw_dw_pw_conv", x.device, x=x, exp_w=exp_w,
                         exp_b=exp_b, dw_w=dw_w, dw_b=dw_b, proj_w=proj_w,
                         proj_b=proj_b, residual=residual)
-    plan = plan_k5(n, h, wd, ci, cm, co, kh, stride, pad, kw)
+    if plan is None:
+        plan = plan_k5(n, h, wd, ci, cm, co, kh, stride, pad, kw)
     out = torch.empty((n, ho, wo, co), device=x.device, dtype=torch.float32)
     launch("repro_fused_pw_dw_pw_conv", x.device, x, exp_w, exp_b, dw_w,
            dw_b, proj_w, proj_b, residual, out, n, h, wd, ci, cm, co, kh,

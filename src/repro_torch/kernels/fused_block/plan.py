@@ -24,9 +24,11 @@ each of the 132 SMs are preferred when any does, then the one a simple
 cost model thinks fastest (the busiest SM's blocks times a block's staged
 steps, products, bytes, cluster reduction and fixed cost), then smaller
 clusters and larger tiles.  The ring is the deepest (2-4 stages) its steps use that
-still lets two blocks share an SM.  No timing and no autotune cache: a
-shape's plan is only memoised, since the serving path asks for it at
-every launch.
+still lets two blocks share an SM.  No timing here: a shape's plan is only
+memoised, since the serving path asks for it at every launch.  The plan
+cache (``kernels/autotune.py``) times the best-ranked ``candidates`` that
+keep the pick's ``channel_splits`` (and K5's ``expand_sets``) on the card,
+and the ops launch its measured winner where it holds one.
 """
 from __future__ import annotations
 
@@ -99,6 +101,16 @@ def channel_splits(channels: int, cluster: int) -> tuple[tuple[int, int], ...]:
     return tuple((r * nch // cluster * CK,
                   min((r + 1) * nch // cluster * CK, channels))
                  for r in range(cluster))
+
+
+def expand_sets(th: int, tw: int, kh: int, kw: int, stride: int,
+                group: int) -> int:
+    """The accumulator sets K5's expand alternates its k-steps between
+    (``ExpandShare::PAR`` in the source): two where a warp holds one
+    n-tile (a halo of at most 4 m-tiles, one chunk a pass), else one.
+    Plans with the same ``channel_splits`` and sets sum in one order."""
+    hh, hw = _halo(th, tw, kh, kw, stride)
+    return 2 if _cdiv(hh * hw, 16) <= 4 and group == 1 else 1
 
 
 def _product_shape(tp: int, co: int) -> tuple[int, int]:

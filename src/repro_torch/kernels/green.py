@@ -26,6 +26,11 @@ streams that share the card's SMs.  The split asks for groups that keep
 clusters of 16 blocks (``SPLIT_FLAGS``), so every kernel plan, keyed to
 the whole card, launches in either partition with the same bits.
 
+Each partition's SM count is recorded against its two streams' handles
+(:func:`stream_sms`), so the plan cache (``kernels/autotune.py``) keys a
+call by the SMs of the stream it is enqueued on; its plans for a
+partition sum in the planner's order, so they keep those bits.
+
 ``torch.cuda.synchronize()`` does not wait for a graph replayed on a
 partition's stream: wait on the stream (``DualCores.synchronize``) or on
 an event recorded there.
@@ -202,6 +207,15 @@ class SmSplit:
 #: each split made, by (device ordinal, split flags, c-core SMs asked):
 #: made once, kept for the life of the process
 _SPLITS: dict[tuple[int, int, int], SmSplit] = {}
+#: the SMs of the partition each split's stream runs on, by the stream's
+#: handle (``cuda_stream``): a core's stream and its capture stream
+_STREAM_SMS: dict[int, int] = {}
+
+
+def stream_sms(handle: int) -> int | None:
+    """The SMs of the partition whose stream has handle ``handle``, or
+    None for a stream no split made (it runs on the whole card)."""
+    return _STREAM_SMS.get(handle)
 
 
 def _external_stream(handle: int, device: torch.device):
@@ -232,14 +246,15 @@ def _make_split(lib, dev: ctypes.c_int, whole, device: torch.device,
                                          CU_GREEN_CTX_DEFAULT_STREAM),
                "cuGreenCtxCreate")
         pair = []
+        sms = _sm_count(res)
         for _ in range(2):
             s = ctypes.c_void_p()
             _check(lib, lib.cuGreenCtxStreamCreate(
                 ctypes.byref(s), ctx, CU_STREAM_NON_BLOCKING, 0),
                 "cuGreenCtxStreamCreate")
             pair.append(_external_stream(s.value, device))
-        parts[core] = Partition(sms=_sm_count(res), stream=pair[0],
-                                capture=pair[1])
+            _STREAM_SMS[s.value] = sms
+        parts[core] = Partition(sms=sms, stream=pair[0], capture=pair[1])
     return SmSplit(device, total, asked, parts)
 
 

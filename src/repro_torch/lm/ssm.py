@@ -75,7 +75,10 @@ def chunked_gla_scan(log_a: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
         total = cum[:, -1]                                   # (B, H)
         # intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) <c_i, b_j> u_j
         decay = cum[:, :, None, :] - cum[:, None, :, :]      # (B, i, j, H)
-        w = torch.where(mask, torch.exp(decay), 0.0)
+        # the reference's where(mask, exp(decay), 0), the mask applied
+        # before the exp: the same values, and no 0 * inf = NaN in the
+        # backward where a masked decay (j > i, positive) overflows
+        w = torch.exp(decay.masked_fill(~mask, float("-inf")))
         scores = torch.einsum("bihn,bjhn->bijh", c_, b_) * w
         y = torch.einsum("bijh,bjhp->bihp", scores, u_)
         # inter-chunk: y_i += exp(cum_i) <c_i, s_prev>

@@ -1451,3 +1451,105 @@ def test_meta_branches_match_cuda_outputs(card):
     for a, b in zip(on_card, on_meta):
         assert b.device.type == "meta"
         assert (a.shape, a.dtype) == (b.shape, b.dtype)
+
+
+# --------------------------------------------------------------------------
+# the plan cache (kernels/autotune.py)
+# --------------------------------------------------------------------------
+#: one signature of each kind K1-K5 at a path shape (224 px, batch 2)
+TUNE_SIGS = {
+    "K1": dict(kind="pointwise", H=56, W=56, C_i=64, C_o=128, N=2),
+    "K2": dict(kind="depthwise", H=112, W=112, C_i=32, C_o=32, K_h=3,
+               K_w=3, stride=1, pad=1, N=2),
+    "K3": dict(kind="conv", H=55, W=55, C_i=16, C_o=64, K_h=3, K_w=3,
+               stride=1, pad=1, N=2, vec=True),
+    "K4": dict(kind="fused_dw_pw", H=14, W=14, C_i=512, C_o=512, K_h=3,
+               K_w=3, stride=1, pad=1, N=2),
+    "K5": dict(kind="fused_pw_dw_pw", H=28, W=28, C_i=192, C_o=32, K_h=3,
+               K_w=3, stride=1, pad=1, N=2, C_e=32),
+}
+
+
+@pytest.fixture
+def plan_cache(tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune
+    path = str(tmp_path / "plans.json")
+    monkeypatch.setenv(autotune.CACHE_ENV, path)
+    autotune.clear_memory_cache()
+    yield autotune, path
+    autotune.clear_memory_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(TUNE_SIGS))
+def test_tune_layer_on_card(kernel, card, plan_cache):
+    """One signature a kind tuned on the whole card and on a core: every
+    candidate launches and is timed, the entry carries the card's tag with
+    the stream's SMs, and the lookup then launches the winner."""
+    at, path = plan_cache
+    sig = at.LayerSig(**TUNE_SIGS[kernel])
+    split = green.split_sms(resolve_device(card), 0.5)
+    for stream, sms in ((torch.cuda.current_stream(), None),
+                        (split.parts["c"].stream, split.sms("c"))):
+        with torch.cuda.stream(stream):
+            tag = at.device_tag(card)
+            assert tag.endswith(f"/sms{sms or split.total}")
+            cfg = at.tune_layer(sig, device=card, reps=1)
+            entry = at.load_cache()["entries"][sig.entry_key(tag)]
+            assert entry["us"] > 0 and entry["backend"] == tag
+            assert None not in entry["candidates_us"]
+            assert cfg in at.candidates(sig)
+            at.reset_lookups()
+            assert at.knobs(sig, at.resolve(sig, resolve_device(card))) \
+                == cfg
+            assert at.LOOKUPS == {"hit": 1, "miss": 0}
+        stream.synchronize()
+    assert json.load(open(path))["version"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(TUNE_SIGS))
+def test_every_candidate_gives_the_planners_bits_on_card(kernel, card):
+    """Each candidate's plan launched gives the planner's pick's bits."""
+    from repro_torch.kernels import autotune as at
+    sig = at.LayerSig(**TUNE_SIGS[kernel])
+    call = at.operands(sig, card)
+    want = call(at.planner_plan(sig))()
+    assert torch.isfinite(want).all()
+    for cfg in at.candidates(sig):
+        got = call(at.plan_of(sig, cfg))()
+        assert torch.equal(got, want), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mobilenet_v2", "mobilenet_v1",
+                                   "squeezenet"])
+def test_split_bit_equal_shared_warmed_cache_on_card(model, card,
+                                                     plan_cache):
+    """``test_split_bit_equal_shared_on_card`` with a cache warmed for the
+    model on the whole card and on each core at 0.25 and 0.5: every K1-K5
+    call hits it, and split, shared and uncached runs give the same
+    bits."""
+    at, _ = plan_cache
+    dev = resolve_device(card)
+    images = [t.to(card) for t in _arrays(13, *[(2, 64, 64, 3)] * 3)]
+    plain, _, _ = _runners(model, card, cores=DualCores(dev, sm_split=False))
+    want = stream_images(plain, images).outputs          # no cache yet
+    sigs = at.zoo_signatures(64, (model,), 2)
+    streams = [torch.cuda.current_stream()]
+    for theta in (0.25, 0.5):
+        split = green.split_sms(dev, theta)
+        streams += [split.parts[c].stream for c in "cp"]
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            for sig in sigs:
+                at.tune_layer(sig, device=card, reps=1)
+        stream.synchronize()
+    for cores in [DualCores(dev, sm_split=False), DualCores(dev, 0.25),
+                  DualCores(dev, 0.5)]:
+        at.reset_lookups()
+        runner, _, _ = _runners(model, card, cores=cores)
+        got = stream_images(runner, images).outputs
+        assert at.LOOKUPS["miss"] == 0 and at.LOOKUPS["hit"] > 0
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

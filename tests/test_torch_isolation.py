@@ -58,9 +58,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert out[1] == "[]"
 
 
+#: the port's examples, beside the reference's four
+EXAMPLES = ("quickstart_torch", "serve_dualmesh_torch", "train_lm_torch",
+            "design_space_search_torch")
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "examples" / f"{e}.py" for e in EXAMPLES)]))
 def test_no_source_imports_jax_or_reference(path):
     """Covers imports inside functions too, which the probe above cannot
     see unless they run."""

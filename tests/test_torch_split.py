@@ -133,6 +133,7 @@ def fake_driver(monkeypatch):
         fake = FakeDriver(split_rc, missing)
         monkeypatch.setattr(green, "_DRIVER", [])
         monkeypatch.setattr(green, "_SPLITS", {})
+        monkeypatch.setattr(green, "_STREAM_SMS", {})
         monkeypatch.setattr(green.ctypes, "CDLL", lambda path: fake)
         monkeypatch.setattr(green, "_external_stream",
                             lambda handle, device: ("stream", handle))
@@ -173,6 +174,10 @@ def test_a_count_split_before_gives_back_its_split(fake_driver):
     assert (half.asked, half.sms("c"), half.sms("p")) == (64, 64, 68)
     assert [half.parts[c].stream for c in "cp"] == [("stream", 1),
                                                       ("stream", 3)]
+    # each stream's handle, the core's and its capture stream's, names
+    # the partition's SMs (the plan cache's key); another stream none
+    assert [green.stream_sms(h) for h in (1, 2, 3, 4, 5)] == \
+        [64, 64, 68, 68, None]
     made = len(fake.calls)
     assert green.split_sms(dev, 0.48) is half         # 63 SMs -> 64
     assert [c for c in fake.calls[made:]

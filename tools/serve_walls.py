@@ -7,7 +7,10 @@ default the one holding this script) and, for MobileNet v2, MobileNet v1
 and SqueezeNet under ``balanced`` (8 requests of batch 2 at 224 px, as
 ``chip_smoke.py`` serves them), prints one JSON line: the pipelined and
 the sequential wall (best of 3, in turns, after a warm-up run of each) and
-the host's enqueue time a request (``chip_smoke.host_enqueue_ms``).  No
+the host's enqueue time a request (``chip_smoke.host_enqueue_ms``), on
+compiled groups and, as ``eager_host_enqueue_ms``, on eager ones
+(``jit_groups=False``: every launch through the ops and their plan
+lookup).  No
 check is made here: ``chip_smoke.py`` holds the same paths to their
 plain versions.  Run it on two trees alternately, several times, in one
 call: the walls are host-bound and spread widely from run to run.  A
@@ -51,9 +54,14 @@ def main() -> int:
         walls = {"pipelined": [], "sequential": []}
         for mode in ("pipelined", "sequential") * 4:     # the first: warm-up
             walls[mode].append(runner.timed(images, mode)[1] * 1e3)
+        eager = DualCoreRunner(model, params, sched, device="cuda",
+                               jit_groups=False)
+        eager.run_sequential(images[:1])                 # warm-up
         out[model] = dict(pipelined_ms=min(walls["pipelined"][1:]),
                           sequential_ms=min(walls["sequential"][1:]),
-                          host_enqueue_ms=cs.host_enqueue_ms(runner, images))
+                          host_enqueue_ms=cs.host_enqueue_ms(runner, images),
+                          eager_host_enqueue_ms=cs.host_enqueue_ms(eager,
+                                                                   images))
     print(json.dumps(out))
     return 0
 
