@@ -1,0 +1,4 @@
+"""Plain PyTorch references of the benchmark's models: ``plain.py`` runs
+a layer table, and each architecture is a module here, named by its
+configuration's ``reference`` key, whose ``layers(cfg)`` gives the table.
+Nothing here imports the program under test or JAX."""
