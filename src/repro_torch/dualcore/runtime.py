@@ -65,6 +65,7 @@ from repro_torch.dualcore.program import (Env, Params, Program, Step,
 from repro_torch.kernels.green import SmSplit, split_sms
 from repro_torch.kernels.util import (CountedGraph, capture_graph,
                                      resolve_device)
+from repro_torch.obs import Registry, SpanRecorder
 
 #: env key of the CUDA event that marks the env's tensors as written
 READY = "ready_event"
@@ -364,8 +365,8 @@ class GroupHandle:
     index: int
     core: str
 
-    def __call__(self, env: Env) -> Env:
-        return self.runner._run_group(self.index, env)
+    def __call__(self, env: Env, rid: int | None = None) -> Env:
+        return self.runner._run_group(self.index, env, rid)
 
 
 class DualCoreRunner:
@@ -389,6 +390,11 @@ class DualCoreRunner:
     cloned out of the lane, so an env a caller holds stays valid.  Neither
     changes anything on the CPU.  ``lanes`` is the :class:`LanePool`, and
     ``capture_s`` the host seconds spent capturing lanes.
+
+    ``spans`` and ``obs`` are the span recorder and the registry the
+    runner reports to (``runner.group``, ``runner.clone_out``,
+    ``runner.load``, ``runner.capture``; ``runner_lane_captures_total``);
+    disabled until an engine hands the runner its own.
     """
 
     def __init__(self, graph: LayerGraph | str, params: Params,
@@ -421,6 +427,8 @@ class DualCoreRunner:
         self.lanes = LanePool(self._new_lane)
         self._warmed: set[tuple] = set()     # input keys run eagerly once
         self.capture_s = 0.0
+        self.spans = SpanRecorder()
+        self.obs = Registry(enabled=False)
 
     def _check_cores(self, cores: DualCores) -> None:
         if cores.device != self.device:
@@ -454,20 +462,26 @@ class DualCoreRunner:
         live = self.plan.live_after[gi]
         return {k: v for k, v in env.items() if k in live}
 
-    def _run_group(self, gi: int, env: Env) -> Env:
-        """Run exec group ``gi`` on its core.  On CUDA: wait for the env's
+    def _run_group(self, gi: int, env: Env, rid: int | None = None) -> Env:
+        """Run exec group ``gi`` on its core, for request ``rid`` (the
+        spans' id; None outside an engine).  On CUDA: wait for the env's
         ready event on the core's stream, mark the incoming tensors as used
         there, run the group (its lane's graph, or eagerly), and record the
         new env's ready event.  The last group clones ``"out"`` out of
         the lane and retires the lane behind that event."""
-        stream = self.cores.streams[self.groups[gi].core]
+        core = self.groups[gi].core
+        stream = self.cores.streams[core]
         if stream is None:
-            return self._eager(gi, env)
+            with self.spans.span("runner.group", rid=rid, group=gi,
+                                 core=core, graph=False):
+                return self._eager(gi, env)
         env = dict(env)
         ready = env.pop(READY, None)
         lane = env.pop(LANE, None)
         last = gi == len(self.groups) - 1
-        with torch.cuda.stream(stream):
+        with self.spans.span("runner.group", rid=rid, group=gi, core=core,
+                             graph=lane is not None), \
+                torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
             for v in env.values():
@@ -476,8 +490,12 @@ class DualCoreRunner:
                 out = self._eager(gi, env)
             else:
                 lane.graphs[gi].replay()
-                out = {k: v.clone() if last or not self.donate else v
-                       for k, v in lane.envs[gi].items()}
+                if last:
+                    with self.spans.span("runner.clone_out"):
+                        out = {k: v.clone() for k, v in lane.envs[gi].items()}
+                else:
+                    out = {k: v if self.donate else v.clone()
+                           for k, v in lane.envs[gi].items()}
             done = torch.cuda.Event()
             done.record(stream)
         if lane is not None:
@@ -495,6 +513,14 @@ class DualCoreRunner:
         """Capture a lane for inputs of ``key`` (shape, dtype): every
         exec group in chain order, from one new private pool.  The first
         lane of a key first runs the chain eagerly on the cores' streams."""
+        with self.spans.span("runner.capture"):
+            lane = self._capture_lane(key)
+        self.obs.counter("runner_lane_captures_total",
+                         "lanes captured (the lane pool grew)",
+                         "wall").inc()
+        return lane
+
+    def _capture_lane(self, key: tuple) -> Lane:
         shape, dtype = key
         x = torch.zeros(shape, dtype=dtype, device=self.device)
         if key not in self._warmed:
@@ -560,15 +586,16 @@ class DualCoreRunner:
         device, with a ready event recorded on the caller's stream (the
         first group's core waits on it).  With compiled groups the input
         is copied into a lane the request holds until its last group."""
-        if x.device != self.device:
-            x = x.to(self.device)
-        if not self._compiled:
-            return self._eager_input(x.contiguous())
-        lane = self.lanes.acquire((tuple(x.shape), x.dtype))
-        env = lane.load(x)
-        env[READY] = self._record_ready()
-        env[LANE] = lane
-        return env
+        with self.spans.span("runner.load"):
+            if x.device != self.device:
+                x = x.to(self.device)
+            if not self._compiled:
+                return self._eager_input(x.contiguous())
+            lane = self.lanes.acquire((tuple(x.shape), x.dtype))
+            env = lane.load(x)
+            env[READY] = self._record_ready()
+            env[LANE] = lane
+            return env
 
     def _eager_input(self, x: torch.Tensor) -> Env:
         env: Env = {"h": x}

@@ -29,6 +29,8 @@ from typing import Any, Protocol, Sequence, runtime_checkable
 
 import torch
 
+from repro_torch.obs import Registry, SpanRecorder
+
 
 class QueueFull(RuntimeError):
     """``submit`` refused: the engine's bounded request queue is full.
@@ -455,13 +457,21 @@ class EngineBase:
     """Queue / ticket / metrics bookkeeping shared by every engine:
     the bounded pending queue, rid assignment, ticket and metrics stamping
     at submit, admission order and shedding, completion stamping in
-    :meth:`_finish`, and the :meth:`result` snapshot."""
+    :meth:`_finish`, and the :meth:`result` snapshot.
 
-    def __init__(self, *, max_queue: int | None = None):
+    ``obs`` is the engine's :class:`~repro_torch.obs.Registry` and
+    ``spans`` its :class:`~repro_torch.obs.SpanRecorder`; both default to
+    disabled instances, so an engine records nothing unless asked."""
+
+    def __init__(self, *, max_queue: int | None = None,
+                 obs: Registry | None = None,
+                 spans: SpanRecorder | None = None):
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1 (got {max_queue}); "
                              f"a 0-capacity queue could never admit work")
         self.max_queue = max_queue
+        self.obs = obs if obs is not None else Registry(enabled=False)
+        self.spans = spans if spans is not None else SpanRecorder()
         self._pending: deque[tuple[Request, Ticket]] = deque()
         self._completions: dict[int, Completion] = {}
         self._order: list[int] = []
@@ -599,9 +609,13 @@ class EngineBase:
                 ready: torch.cuda.Event | None = None) -> Completion:
         """Wait for ``output``'s ready event (CUDA; none on the CPU), mark
         it used by the caller's stream, stamp the finish time, judge the
-        deadline and file the completion."""
+        deadline and file the completion.  The wait is the span
+        ``engine.ready_wait`` (recorded on the CPU too, where it waits for
+        nothing)."""
+        with self.spans.span("engine.ready_wait", rid=rid):
+            if ready is not None:
+                ready.synchronize()
         if ready is not None:
-            ready.synchronize()
             output.record_stream(torch.cuda.current_stream(output.device))
         m = self._metrics[rid]
         m.finished_at = time.perf_counter()

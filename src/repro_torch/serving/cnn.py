@@ -27,7 +27,10 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import torch
+
 from repro_torch.dualcore.runtime import READY, DualCoreRunner
+from repro_torch.obs import Registry, SpanRecorder
 from repro_torch.serving.api import (AdmissionPolicy, Completion,
                                      EngineBase, FixedRateAdmission,
                                      Metrics, RequestMetrics, ServeResult,
@@ -50,13 +53,23 @@ class DualCoreEngine(EngineBase):
 
     ``record``, when given, receives ``(slot, rid, group, core)`` tuples in
     dispatch order.
+
+    ``obs`` and ``spans`` (disabled when not given) are handed to the
+    runner too: the engine's spans (``engine.advance``, ``engine.admit``,
+    ``engine.retire``, ``engine.ready_wait``) and the
+    runner's go to one recorder, the counters to one registry, read by
+    :meth:`snapshot`.
     """
 
     def __init__(self, runner: DualCoreRunner, *,
                  policy: AdmissionPolicy | None = None,
                  max_queue: int | None = None,
-                 record: list | None = None):
-        super().__init__(max_queue=max_queue)
+                 record: list | None = None,
+                 obs: Registry | None = None,
+                 spans: SpanRecorder | None = None):
+        super().__init__(max_queue=max_queue, obs=obs, spans=spans)
+        runner.obs, runner.spans = self.obs, self.spans
+        self._allocs_seen = self._device_allocs(runner)
         self.runner = runner
         self.policy = policy or FixedRateAdmission(1)
         self.capacity = len(runner.groups)
@@ -104,11 +117,35 @@ class DualCoreEngine(EngineBase):
         lanes, whose graphs replay on the new streams."""
         self.runner.relocate(cores)
 
+    @staticmethod
+    def _device_allocs(runner: DualCoreRunner) -> int | None:
+        """The caching allocator's device allocations so far
+        (``torch.cuda.memory_stats()["num_device_alloc"]``: its
+        ``cudaMalloc`` calls on the runner's card); None on the CPU."""
+        if runner.device.type != "cuda":
+            return None
+        return torch.cuda.memory_stats(runner.device).get("num_device_alloc",
+                                                          0)
+
+    def snapshot(self) -> dict:
+        """The engine's registry (:meth:`Registry.snapshot`), with
+        ``device_allocs_total`` read now on a card (the allocator's
+        ``num_device_alloc`` since the engine was made).  Read it at the
+        edges of a window, not every slot."""
+        n = self._device_allocs(self.runner)
+        if n is not None:
+            self.obs.counter("device_allocs_total",
+                             "the caching allocator's device allocations "
+                             "(cudaMalloc calls)", "wall").inc(
+                n - self._allocs_seen)
+            self._allocs_seen = n
+        return self.obs.snapshot()
+
     def _dispatch(self, f: _Flight) -> None:
         """Run flight ``f``'s next group via the runner's group handle."""
         gi = f.next_group
         h = self._handles[gi]
-        f.env = h(f.env)
+        f.env = h(f.env, f.rid)
         if self._record is not None:
             self._record.append((self._slot, f.rid, gi, h.core))
         f.next_group = gi + 1
@@ -121,6 +158,10 @@ class DualCoreEngine(EngineBase):
         """Dispatch phase of one slot: advance every in-flight stream and
         admit into the freed group-0 slot; return the flights that cleared
         the last group without waiting for them."""
+        with self.spans.span("engine.advance", slot=self._slot):
+            return self._advance()
+
+    def _advance(self) -> list[_Flight]:
         self._start_clock()
         # shed past-deadline queue entries against the engine's own slot,
         # unless the fleet executor already swept with its slot
@@ -140,11 +181,12 @@ class DualCoreEngine(EngineBase):
         popped = self._pop_admission() if n else None
         if popped is not None:          # None: the rest of the queue shed
             req, ticket = popped
-            self._metrics[req.rid].started_at = time.perf_counter()
-            f = _Flight(rid=req.rid,
-                        env=self.runner.place_input(req.payload),
-                        next_group=0, ticket=ticket,
-                        metrics=self._metrics[req.rid])
+            with self.spans.span("engine.admit", rid=req.rid):
+                self._metrics[req.rid].started_at = time.perf_counter()
+                f = _Flight(rid=req.rid,
+                            env=self.runner.place_input(req.payload),
+                            next_group=0, ticket=ticket,
+                            metrics=self._metrics[req.rid])
             self._dispatch(f)
             if f.next_group >= self.capacity:   # single-group chain
                 finished.append(f)
@@ -160,10 +202,11 @@ class DualCoreEngine(EngineBase):
         the runner's pool: its last group cloned ``"out"`` out of it, and
         the lane's next user waits on that group's ready event on the card,
         so nothing here waits for it."""
-        out = self._take_shed()
-        out.extend(self._finish(f.rid, f.env["out"], f.env.get(READY))
-                   for f in finished)
-        return out
+        with self.spans.span("engine.retire", slot=self._slot - 1):
+            out = self._take_shed()
+            out.extend(self._finish(f.rid, f.env["out"], f.env.get(READY))
+                       for f in finished)
+            return out
 
     def _extra_stats(self, metrics: Metrics) -> dict:
         return {"engine": "dualcore", "slots": self._slot,

@@ -42,8 +42,9 @@ from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.util import resolve_device
 from repro_torch.lm.model import forward, init_params, params_from_numpy
 from repro_torch.models.cnn import build_model
+from repro_torch.obs import Registry, SpanRecorder, readings
 from repro_torch.serving.api import Request
-from repro_torch.serving.cnn import stream_images
+from repro_torch.serving.cnn import DualCoreEngine, stream_images
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -1553,3 +1554,137 @@ def test_split_bit_equal_shared_warmed_cache_on_card(model, card,
         assert at.LOOKUPS["miss"] == 0 and at.LOOKUPS["hit"] > 0
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the engine's spans and counters against the profiler's trace
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def profiled_engine():
+    """MobileNet v2 at 64 px on the split card with the engine's spans
+    and counters on: 8 requests to capture the lanes, then, under
+    ``torch.profiler``, a probe kernel on each core's stream and 8 more
+    requests.  Returns the runner, the engine, the spans of the profiled
+    run, its events, and the probes' correlation ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: python -m pytest -m cuda "
+                    "tests/test_torch_cuda.py on a machine with one")
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    card = torch.device("cuda")
+    runner, _, _ = _runners("mobilenet_v2", card)
+    spans = SpanRecorder(enabled=True)
+    eng = DualCoreEngine(runner, obs=Registry(), spans=spans)
+    images = [t.to(card) for t in _arrays(21, *[(2, 64, 64, 3)] * 8)]
+    for x in images:
+        eng.submit(x)
+    eng.drain()
+    spans.drain()
+    probe = torch.zeros(1024, device=card)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for core in "cp":
+            with torch.cuda.stream(runner.cores.streams[core]), \
+                    record_function(f"probe.{core}"):
+                probe.add_(1)
+        runner.cores.synchronize()
+        for x in images:
+            eng.submit(x)
+        eng.drain()
+        runner.cores.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    return runner, eng, spans.drain(), events
+
+
+def _launches_inside(events, a, b):
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in events
+            if e.device_type() != cuda and e.name().startswith("cu")
+            and a <= e.start_ns() and e.start_ns() + e.duration_ns() <= b]
+
+
+@pytest.mark.cuda
+def test_engine_spans_tie_each_core_to_its_streams_on_card(profiled_engine):
+    """In a profiled run on graphs, every ``cudaGraphLaunch`` lies inside
+    a ``runner.group`` span that replayed a graph, one for one; the
+    kernels each group launched, found by the launch's correlation id,
+    run on streams of the group's core alone: the two cores' streams
+    are disjoint, and a kernel launched eagerly on a core's own stream
+    lands on them."""
+    runner, _, spans, events = profiled_engine
+    cuda = torch.autograd.DeviceType.CUDA
+    groups = [s for s in spans if s.name == "runner.group"]
+    assert groups and all(s.graph for s in groups)
+    launches = [e for e in events if e.device_type() != cuda
+                and e.name().startswith("cudaGraphLaunch")]
+    inside = [[e for e in _launches_inside(events, s.start_ns, s.end_ns)
+               if e.name().startswith("cudaGraphLaunch")] for s in groups]
+    assert [len(x) for x in inside] == [1] * len(groups)
+    assert len(launches) == len(groups)
+    by_corr: dict = {}
+    for e in events:
+        if e.device_type() == cuda and not e.is_user_annotation():
+            by_corr.setdefault(e.correlation_id(), []).append(e)
+    streams: dict = {"c": set(), "p": set()}
+    for s, (launch,) in zip(groups, inside):
+        kernels = by_corr.get(launch.correlation_id(), [])
+        assert kernels, s
+        streams[s.core] |= {k.device_resource_id() for k in kernels}
+    assert streams["c"] and streams["p"]
+    assert not streams["c"] & streams["p"]
+    marks = {e.name(): e for e in events if e.name().startswith("probe.")
+             and e.device_type() != cuda}
+    for core in "cp":
+        mark = marks[f"probe.{core}"]
+        (launch,) = [e for e in _launches_inside(
+            events, mark.start_ns(), mark.start_ns() + mark.duration_ns())
+            if e.correlation_id() in by_corr]
+        (kernel,) = by_corr[launch.correlation_id()]
+        assert kernel.device_resource_id() in streams[core], core
+
+
+@pytest.mark.cuda
+def test_engine_span_stamps_agree_with_profiler_annotations_on_card(
+        profiled_engine):
+    """While a profiler runs, each span is also a ``record_function`` of
+    its name: every recorded span has its annotation, and the two agree
+    within 50 us at both ends."""
+    _, _, spans, events = profiled_engine
+    cuda = torch.autograd.DeviceType.CUDA
+    marks: dict = {}
+    for e in events:
+        if e.device_type() != cuda and e.is_user_annotation():
+            marks.setdefault(e.name(), []).append(e)
+    names = {s.name for s in spans}
+    assert {"engine.advance", "engine.retire", "engine.ready_wait",
+            "engine.admit", "runner.load", "runner.group",
+            "runner.clone_out"} <= names
+    for name in names:
+        mine = sorted((s for s in spans if s.name == name),
+                      key=lambda s: s.start_ns)
+        theirs = sorted(marks.get(name, []), key=lambda e: e.start_ns())
+        assert len(theirs) == len(mine), name
+        for s, e in zip(mine, theirs):
+            assert abs(e.start_ns() - s.start_ns) <= 50_000, (name, s)
+            assert abs(e.start_ns() + e.duration_ns() - s.end_ns) \
+                <= 50_000, (name, s)
+
+
+@pytest.mark.cuda
+def test_engine_counters_read_lanes_and_allocator_on_card(profiled_engine):
+    """``runner_lane_captures_total`` counts every lane the pool made;
+    ``device_allocs_total`` grows by the allocator's own count when a
+    fresh block must come from ``cudaMalloc``."""
+    runner, eng, _, _ = profiled_engine
+    snap = eng.snapshot()
+    assert snap["counters"]["runner_lane_captures_total"]["series"] == {
+        "": runner.lanes.count}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats()["num_device_alloc"]
+    block = torch.empty(3 << 30, dtype=torch.uint8, device="cuda")
+    grown = torch.cuda.memory_stats()["num_device_alloc"] - stats
+    after = eng.snapshot()
+    assert grown >= 1
+    assert readings.growth(snap, after, "device_allocs_total") >= grown
+    del block
