@@ -389,8 +389,8 @@ LM_REQUESTS = 8
 LM_BATCH = 2
 LM_PROMPT = 512
 LM_GEN = 64
-SPLIT_THETA = 0.5              # phases 3 and 5's split: each CNN runner's
-LM_THETA = SPLIT_THETA         # (DualCoreRunner's default) and the LM's
+SPLIT_THETA = 0.5              # phases 3-5's split: each CNN runner's
+LM_THETA = SPLIT_THETA         # (given, so none measures) and the LM's
 LM_MAX_LEN = LM_PROMPT + LM_GEN + 8    # the CLI's cache length
 LM_CHECK_PROMPT = 16                    # card against CPU, full width
 # the other registered dense configs, whose decode geometry phase 2 checks
@@ -2062,7 +2062,7 @@ def fleet_path(served: dict) -> dict:
         sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
         for name in alone:
             r = alone[name][mname] = DualCoreRunner(
-                mname, params, sched, device=DEV,
+                mname, params, sched, device=DEV, theta=SPLIT_THETA,
                 jit_groups=name == "graphs")
             r.run_pipelined(served[mname]["io"][0])   # warm, lanes grown
 

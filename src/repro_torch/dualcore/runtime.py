@@ -11,8 +11,9 @@ offset through ``repro_torch.serving.cnn.DualCoreEngine``.
 The two cores on one card (:class:`DualCores`): the c-core and the p-core
 are two disjoint sets of the card's SMs, each a green context with its own
 streams, split at ``theta`` (the Eq.10 split, the reference's ``split_mesh``
-with SMs for chips); ``sm_split=False`` keeps two plain streams on every SM
-as the baseline.  A group waits on the ready event of the env it receives,
+with SMs for chips) or, for a runner that makes its own, at a count it
+measures once (:class:`DualCoreRunner`); ``sm_split=False`` keeps two plain
+streams on every SM as the baseline.  A group waits on the ready event of the env it receives,
 runs on its core's stream, and records a new ready event; tensors handed
 across streams are marked with ``record_stream`` so the caching allocator
 never reuses their memory while the other stream may still read them.  On the
@@ -50,6 +51,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import statistics
 import time
 from collections import deque
 from typing import Callable
@@ -62,7 +64,8 @@ from repro_torch.core.latency import layer_latency
 from repro_torch.core.scheduler import Group, Schedule
 from repro_torch.dualcore.program import (Env, Params, Program, Step,
                                           build_program, regroup_fused)
-from repro_torch.kernels.green import SmSplit, split_sms
+from repro_torch.kernels.green import (GreenContextError, Probe, SmSplit,
+                                      balanced_count, split_sms)
 from repro_torch.kernels.util import (CountedGraph, capture_graph,
                                      resolve_device)
 from repro_torch.obs import Registry, SpanRecorder
@@ -71,6 +74,11 @@ from repro_torch.obs import Registry, SpanRecorder
 READY = "ready_event"
 #: env key of the :class:`Lane` a request runs on (compiled groups)
 LANE = "lane"
+#: the theta a measured split starts from, and the one kept by a runner
+#: that cannot measure (eager, the CPU)
+START_THETA = 0.5
+#: timed rounds of each core's chain at a probed count, after one untimed
+BALANCE_ROUNDS = 9
 
 
 @dataclasses.dataclass
@@ -183,7 +191,12 @@ class DualCores:
     that share every SM (theta recorded only), the baseline the split is
     measured against; ``one_stream`` one plain stream for both cores, the
     no-overlap baseline (its cores share every SM too).  On the CPU: both
-    cores alias the one eager queue (no overlap), and nothing is split."""
+    cores alias the one eager queue (no overlap), and nothing is split.
+
+    The cores split where they are asked to.  A :class:`DualCoreRunner`
+    that makes its own cores with no ``theta`` given moves them, once, to a
+    count it measures (its docstring) and records its probes in
+    ``balance`` (None on cores split at a theta asked)."""
 
     def __init__(self, device: torch.device, theta: float = 0.5,
                  one_stream: bool = False, sm_split: bool = True):
@@ -191,6 +204,7 @@ class DualCores:
         self.asked = theta
         self.theta = theta
         self.split: SmSplit | None = None
+        self.balance: list[Probe] | None = None
         self._capture: torch.cuda.Stream | None = None
         if device.type == "cuda":
             if sm_split and not one_stream:
@@ -263,10 +277,20 @@ class DualCores:
             return (f"c/p cores share one CUDA stream on one {name} "
                     f"(no overlap)")
         if self.split is not None:
-            return (f"c/p cores are two green contexts on disjoint SMs of "
+            head = (f"c/p cores are two green contexts on disjoint SMs of "
                     f"one {name}: c {self.sms('c')} SMs, p {self.sms('p')} "
-                    f"of {self.split.total} (theta {self.asked:.2f} asked, "
-                    f"{self.theta:.4f} realised)")
+                    f"of {self.split.total}")
+            if self.balance is None:
+                return (f"{head} (theta {self.asked:.2f} asked, "
+                        f"{self.theta:.4f} realised)")
+            here = next(p for p in self.balance
+                        if p.count == self.sms("c"))
+            tried = ", ".join(f"{p.count}" + (" refused" if p.refused
+                                               else f" {p.bound:.3f}")
+                              for p in self.balance)
+            return (f"{head} (c count measured: chains c {here.t_c:.3f} "
+                    f"ms, p {here.t_p:.3f} ms at it; the slot bound in ms "
+                    f"by count probed: {tried})")
         sms = torch.cuda.get_device_properties(self.device) \
             .multi_processor_count
         return (f"c/p cores are two CUDA streams on one {name}; both "
@@ -383,6 +407,34 @@ class DualCoreRunner:
     ``devices=`` taking a ``DualMesh``); without it the runner makes its
     own at ``theta``.
 
+    ``theta=None`` (the default) measures the split: a compiled runner on
+    a card that makes its own split cores then sizes the c-core from each
+    core's measured time, as the paper tunes each core's PE count.  It
+    starts at ``START_THETA`` (c 64 SMs, p 68 of an H100); at its first
+    lane capture it times the lane's c-groups replayed back to back on the
+    c-core's stream and its p-groups on the p-core's, both chains enqueued
+    together as a slot enqueues them (one untimed round, then the median
+    of ``BALANCE_ROUNDS``), then does the same at the count where the two
+    cores' measured SM-time balances
+    (:func:`~repro_torch.kernels.green.balanced_count`; ``relocate`` onto
+    ``resplit`` cores, a lane captured there).  It stays at the count with
+    the lower slot bound (the start on a tie, or where the other count's
+    split is refused), holding that count's lane only, and records the
+    probes on ``cores.balance``.  Any other failure raises.  The split is
+    decided once per runner: every later lane, of this input shape or
+    another, is captured there.  An explicit ``theta``, leased ``cores``,
+    cores with ``sm_split=False`` or ``one_stream``, ``jit_groups=False``
+    and the CPU measure nothing: they keep the split they were given
+    (``START_THETA`` for the last two without a ``theta``).
+
+    The plan cache (``kernels/autotune.py``) keys a plan by the SMs of the
+    partition a call runs on, so the search times each count with the
+    plans the cache holds for it, as it would serve there: a cache tuned
+    at one count only favours that count.  Tune the plans at the count a
+    runner measures with no cache, which its cores line names
+    (``DualCores.describe``): ``python -m repro_torch.kernels.autotune
+    --sweep-zoo --c-sms N``.
+
     ``jit_groups`` (the reference's name and default) runs each exec group
     as one CUDA graph on the card, on a :class:`Lane` the request holds
     (module docstring); ``donate`` (default: on the card) lets a group
@@ -393,13 +445,15 @@ class DualCoreRunner:
 
     ``spans`` and ``obs`` are the span recorder and the registry the
     runner reports to (``runner.group``, ``runner.clone_out``,
-    ``runner.load``, ``runner.capture``; ``runner_lane_captures_total``);
-    disabled until an engine hands the runner its own.
+    ``runner.load``, ``runner.capture``, ``runner.balance`` and its
+    ``runner.probe``; ``runner_lane_captures_total``,
+    ``runner_split_probes_total``, ``runner_split_c_sms``); disabled until
+    an engine hands the runner its own.
     """
 
     def __init__(self, graph: LayerGraph | str, params: Params,
                  schedule: Schedule, *, device: str | torch.device = "cuda",
-                 theta: float = 0.5, fuse: bool | str = "group",
+                 theta: float | None = None, fuse: bool | str = "group",
                  cores: DualCores | None = None, jit_groups: bool = True,
                  donate: bool | None = None):
         self.device = resolve_device(device)
@@ -411,8 +465,10 @@ class DualCoreRunner:
         self.plan = build_exec_plan(self.program, schedule,
                                     group_fusion=group_fusion)
         self.groups = self.plan.groups
-        if cores is None:
-            cores = DualCores(self.device, theta)
+        own = cores is None
+        if own:
+            cores = DualCores(self.device,
+                              START_THETA if theta is None else theta)
         self._check_cores(cores)
         self.cores = cores
         # one copy of the parameters, read by both cores
@@ -424,6 +480,9 @@ class DualCoreRunner:
         self.jit_groups = jit_groups
         self.donate = on_card if donate is None else donate
         self._compiled = jit_groups and on_card
+        # the split is measured once, at the first lane capture
+        self._balance = theta is None and own and self._compiled \
+            and cores.sm_split
         self.lanes = LanePool(self._new_lane)
         self._warmed: set[tuple] = set()     # input keys run eagerly once
         self.capture_s = 0.0
@@ -540,6 +599,66 @@ class DualCoreRunner:
         self.capture_s += time.perf_counter() - t0
         return Lane(key=key, x=x, graphs=graphs, envs=envs, nbytes=nbytes)
 
+    def _balance_split(self, key: tuple) -> None:
+        """Move the cores to the c-core count whose measured slot bound is
+        lower (the class docstring), a lane of ``key`` captured at each
+        count measured; keep that count's cores and its one lane."""
+        start = self.cores, self.lanes
+        total = self.cores.split.total
+
+        def measure(n: int) -> tuple[float, float] | None:
+            with self.spans.span("runner.probe"):
+                if n != self.cores.sms("c"):
+                    try:
+                        cores = self.cores.resplit(n / total)
+                    except GreenContextError:
+                        return None         # the count's split is refused
+                    self.relocate(cores)
+                lane = self.lanes.acquire(key)
+                times = self._time_chains(lane)
+                self.lanes.retire(lane, None)
+                return times
+
+        with self.spans.span("runner.balance"):
+            count, probes = balanced_count(measure, self.cores.sms("c"),
+                                           total)
+        if count != self.cores.sms("c"):
+            self.cores, self.lanes = start
+        self.cores.balance = probes
+        self.obs.gauge("runner_split_c_sms", "the c-core's SMs the "
+                       "measured split gives", "wall").set(count)
+        self.obs.counter("runner_split_probes_total", "counts the split's "
+                         "search measured beyond its start",
+                         "wall").inc(len(probes) - 1)
+
+    def _time_chains(self, lane: Lane) -> tuple[float, float]:
+        """Each core's chain of ``lane``'s graphs, replayed back to back on
+        the core's stream, both chains enqueued together round after round
+        (a round starts on both when both ended the last); the median ms of
+        each core's chain over ``BALANCE_ROUNDS`` timed rounds after one
+        untimed.
+        The lane's buffers are left holding nothing of use."""
+        streams = self.cores.streams
+        marks: dict[str, list] = {"c": [], "p": []}
+        for _ in range(1 + BALANCE_ROUNDS):
+            ends = {c: m[-1][1] for c, m in marks.items() if m}
+            for core, other in (("c", "p"), ("p", "c")):
+                stream = streams[core]
+                with torch.cuda.stream(stream):
+                    if other in ends:
+                        stream.wait_event(ends[other])
+                    t0 = torch.cuda.Event(enable_timing=True)
+                    t1 = torch.cuda.Event(enable_timing=True)
+                    t0.record(stream)
+                    for graph, group in zip(lane.graphs, self.groups):
+                        if group.core == core:
+                            graph.replay()
+                    t1.record(stream)
+                marks[core].append((t0, t1))
+        self.cores.synchronize()
+        return tuple(statistics.median(a.elapsed_time(b) for a, b in m[1:])
+                     for m in marks.values())
+
     def _warm(self, x: torch.Tensor) -> None:
         """Run the chain eagerly once on the cores' streams: it builds the
         library, sets the kernels' attributes, fills the host planners'
@@ -591,7 +710,11 @@ class DualCoreRunner:
                 x = x.to(self.device)
             if not self._compiled:
                 return self._eager_input(x.contiguous())
-            lane = self.lanes.acquire((tuple(x.shape), x.dtype))
+            key = (tuple(x.shape), x.dtype)
+            if self._balance:
+                self._balance = False
+                self._balance_split(key)
+            lane = self.lanes.acquire(key)
             env = lane.load(x)
             env[READY] = self._record_ready()
             env[LANE] = lane

@@ -690,10 +690,18 @@ def main(argv=None) -> int:
     ap.add_argument("--cache", default=None,
                     help=f"cache file (default: ${CACHE_ENV} or "
                          f"{DEFAULT_PATH})")
-    ap.add_argument("--theta", type=float, default=None,
-                    help="also tune under each core's stream of the card's "
-                         "SM split at THETA (the served path's cores: 0.5 "
-                         "is the runner's default); on the card only")
+    split_at = ap.add_mutually_exclusive_group()
+    split_at.add_argument("--theta", type=float, default=None,
+                          help="also tune under each core's stream of the "
+                               "card's SM split at THETA (a runner given "
+                               "theta=THETA serves there); on the card "
+                               "only")
+    split_at.add_argument("--c-sms", type=int, default=None,
+                          help="also tune under each core's stream of the "
+                               "split that gives the c-core C_SMS SMs (a "
+                               "runner that measures its split names its "
+                               "count on its cores line: 'c C_SMS SMs'); "
+                               "on the card only")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: needs a card) or cpu (times the "
                          "plain versions; the card never reads such "
@@ -702,11 +710,18 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     streams = [None]
-    if args.theta is not None:
+    theta = args.theta
+    if theta is not None or args.c_sms is not None:
         if dev.type != "cuda":
-            ap.error("--theta splits the card's SMs: it needs --device "
-                     "cuda")
-        split = green.split_sms(dev, args.theta)
+            ap.error("--theta and --c-sms split the card's SMs: they need "
+                     "--device cuda")
+        if theta is None:
+            total = _card(_index(dev))[1]
+            if green.granular_count(args.c_sms, total) != args.c_sms:
+                ap.error(f"--c-sms {args.c_sms} is no count of {total} "
+                         f"SMs in granules of {green.GRANULE}")
+            theta = args.c_sms / total
+        split = green.split_sms(dev, theta)
         streams += [split.parts[c].stream for c in "cp"]
     image_size = args.image_size or (64 if args.smoke else 224)
     reps = args.reps if args.reps is not None else (1 if args.smoke else 3)

@@ -26,6 +26,12 @@ streams that share the card's SMs.  The split asks for groups that keep
 clusters of 16 blocks (``SPLIT_FLAGS``), so every kernel plan, keyed to
 the whole card, launches in either partition with the same bits.
 
+:func:`balanced_count` picks the c-core's count from measured times in
+place of a theta: the search a ``DualCoreRunner`` makes once, at its
+first lane capture, over counts split here.  A count's split is the only
+thing the search may find refused: a split that is made keeps clusters of
+16, so every plan launches in it, and any other failure is a fault.
+
 Each partition's SM count is recorded against its two streams' handles
 (:func:`stream_sms`), so the plan cache (``kernels/autotune.py``) keys a
 call by the SMs of the stream it is enqueued on; its plans for a
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -102,6 +109,67 @@ def split_count(theta: float, sms: int, granule: int = GRANULE) -> int:
     if not 0.0 < theta < 1.0:
         raise ValueError(f"theta must lie in (0, 1), got {theta}")
     return granular_count(reference_count(theta, sms), sms, granule)
+
+
+# --------------------------------------------------------------------------
+# the measured count
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Probe:
+    """One c-core count the search tried: each core's chain time there
+    (``t_c``, ``t_p``, any one unit), or None for both where the count's
+    split was refused."""
+
+    count: int
+    t_c: float | None = None
+    t_p: float | None = None
+
+    @property
+    def refused(self) -> bool:
+        """True when the count could not be measured."""
+        return self.t_c is None
+
+    @property
+    def bound(self) -> float:
+        """The slot's bound at this count: the busier core's chain."""
+        return max(self.t_c, self.t_p)
+
+
+def balanced_count(measure: Callable[[int], tuple[float, float] | None],
+                   start: int, sms: int,
+                   granule: int = GRANULE) -> tuple[int, list[Probe]]:
+    """The c-core count of ``sms`` with the lower measured slot bound of
+    two, ``start`` and the count at which the two cores' SM-time measured
+    at ``start`` (``n * t``) balances: ``(count, probes made)``, the
+    start's first.
+
+    ``measure(n)`` gives each core's chain time ``(t_c, t_p)`` with the
+    c-core at ``n`` SMs, or None where the count's split is refused.  The
+    balancing count, a multiple of ``granule`` leaving each core at least
+    one, replaces the start only when its bound is lower: a tie, or a
+    refused split there, keeps the start.  Returns the start without
+    measuring further when the start itself is refused."""
+    top = granule * ((sms - granule) // granule)
+    if start % granule or not granule <= start <= top:
+        raise ValueError(f"start {start} is no count of {sms} SMs in "
+                         f"granules of {granule}")
+
+    def take(n: int) -> Probe:
+        got = measure(n)
+        return Probe(n) if got is None else Probe(n, *got)
+
+    first = take(start)
+    if first.refused:
+        return start, [first]
+    work_c, work_p = start * first.t_c, (sms - start) * first.t_p
+    if work_c + work_p <= 0:
+        return start, [first]
+    jump = granular_count(sms * work_c / (work_c + work_p), sms, granule)
+    if jump == start:
+        return start, [first]
+    second = take(jump)
+    won = not second.refused and second.bound < first.bound
+    return (jump if won else start), [first, second]
 
 
 # --------------------------------------------------------------------------

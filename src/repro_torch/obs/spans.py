@@ -30,7 +30,9 @@ The names the CNN engine records (``serving/cnn.py``,
   its lane, inside that group's ``runner.group``;
 * ``engine.admit`` (rid): one admission, holding ``runner.load`` (rid: the
   lane's acquire and the input's copy), which holds ``runner.capture``
-  (rid) when the lane pool grows (the eager warm run included);
+  (rid) when the lane pool grows (the eager warm run included) and, at a
+  measuring runner's first capture, ``runner.balance`` (rid: the search
+  for the c-core's SMs), one ``runner.probe`` (rid) in it a count tried;
 * ``engine.retire`` (slot): one slot's retirement, holding one
   ``engine.ready_wait`` (rid) around each output's ready-event wait.
 """

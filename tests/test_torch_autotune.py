@@ -449,3 +449,15 @@ def test_sweep_zoo_cli_splits_only_the_card(tmp_path):
         at.main(["--sweep-zoo", "--device", "cpu", "--theta", "0.5",
                  "--cache", str(tmp_path / "c.json")])
     assert not (tmp_path / "c.json").exists()
+
+
+@pytest.mark.parametrize("split", [["--c-sms", "80"],
+                                   ["--theta", "0.5", "--c-sms", "80"]],
+                         ids=["c-sms", "theta-and-c-sms"])
+def test_sweep_zoo_cli_takes_one_split_on_the_card(tmp_path, split):
+    """``--c-sms`` splits the card as ``--theta`` does, and the two
+    exclude each other."""
+    with pytest.raises(SystemExit):
+        at.main(["--sweep-zoo", "--device", "cpu", *split, "--cache",
+                 str(tmp_path / "c.json")])
+    assert not (tmp_path / "c.json").exists()

@@ -1056,6 +1056,87 @@ def test_a_split_libcuda_cannot_make_raises_on_card(missing, card,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mobilenet_v2", "mobilenet_v1"])
+def test_measured_split_bit_equal_half_on_card(model, card):
+    """A runner that measures its split at 224 px: it ends on the count
+    of the lower measured slot bound, which its cores realise,
+    holding one lane after the search; every lane replayed after it runs
+    its c-groups on that count's c-core SMs (a probe launched inside the
+    first c-group's graph says where); the counter and gauge agree; and
+    it serves the bits of a runner split at theta 0.5."""
+    dev = resolve_device(card)
+    params, _, graph = build_model(model, seed=1, device=card)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
+    half = DualCoreRunner(model, params, sched, device=card, theta=0.5)
+    fast = DualCoreRunner(model, params, sched, device=card)
+    assert fast.cores.sms("c") == half.cores.sms("c") == 64
+    gi = next(i for i, g in enumerate(fast.groups) if g.core == "c")
+    step = fast.groups[gi].steps[0]
+    probes = []
+
+    def probing(params, env, collect):
+        step.fn(params, env, collect)
+        probes.append(green.probe_sms(dev, 264))
+
+    fast.groups[gi].steps[0] = dataclasses.replace(step, fn=probing)
+    fast.obs = Registry()
+    images = [t.to(card) for t in _arrays(21, *[(8, 224, 224, 3)] * 6)]
+    fast.run_sequential(images[:1])
+    key = (tuple(images[0].shape), images[0].dtype)
+    assert list(fast.lanes.lanes) == [key]
+    assert len(fast.lanes.lanes[key]) == 1
+    chosen = fast.cores.sms("c")
+    tried = {p.count: p.bound for p in fast.cores.balance if not p.refused}
+    assert tried[chosen] == min(tried.values())
+    assert chosen + fast.cores.sms("p") == fast.cores.split.total
+    assert fast.cores.split is DualCores(dev, chosen /
+                                         fast.cores.split.total).split
+    assert "c count measured" in fast.cores.describe()
+    snap = fast.obs.snapshot()
+    assert snap["gauges"]["runner_split_c_sms"]["series"] == {"": chosen}
+    made = snap["counters"]["runner_split_probes_total"]["series"][""]
+    assert made == len(fast.cores.balance) - 1 <= 1
+    fast.cores.synchronize()
+    for t in probes:
+        t.fill_(-1)
+    want = stream_images(half, images).outputs
+    got = stream_images(fast, images).outputs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fast.cores.synchronize()
+    c_sms = _probe(dev, fast.cores.streams["c"])
+    assert len(c_sms) == chosen
+    written = [set(t.cpu().tolist()) for t in probes]
+    written = [w for w in written if w != {-1}]
+    assert written and all(min(w) >= 0 and w <= c_sms for w in written)
+    assert fast.cores.sms("c") == chosen        # decided once
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["theta", "leased", "shared", "eager"])
+def test_runners_that_measure_nothing_keep_their_split_on_card(how, card):
+    """An explicit theta, leased cores, cores on shared SMs and eager
+    groups: no search, the split given kept, no probe counted."""
+    dev = resolve_device(card)
+    params, _, graph = build_model("mobilenet_v1", seed=1, device=card)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
+    kw = {"theta": {"theta": 0.25},
+          "leased": {"cores": DualCores(dev, 0.75)},
+          "shared": {"cores": DualCores(dev, sm_split=False)},
+          "eager": {"jit_groups": False}}[how]
+    runner = DualCoreRunner("mobilenet_v1", params, sched, device=card, **kw)
+    before = runner.cores
+    runner.obs = Registry()
+    runner.run_sequential([t.to(card) for t in _arrays(22, (2, 64, 64, 3))])
+    assert runner.cores is before and runner.cores.balance is None
+    want = {"theta": 32, "leased": 96, "shared": None, "eager": 64}[how]
+    assert runner.cores.sms("c") == want
+    snap = runner.obs.snapshot()
+    assert "runner_split_probes_total" not in snap["counters"]
+    assert "runner_split_c_sms" not in snap["gauges"]
+
+
+@pytest.mark.cuda
 def test_lm_plan_prices_each_core_on_card(card):
     """On a split card each core's share is its SMs over the card's, and
     the plan at theta 0.25 differs from the plan at 0.75; without a split
@@ -1509,6 +1590,22 @@ def test_tune_layer_on_card(kernel, card, plan_cache):
 
 
 @pytest.mark.cuda
+def test_the_tuner_tunes_the_cores_of_a_measured_count_on_card(card,
+                                                               plan_cache):
+    """``--c-sms N`` tunes on the whole card and on both cores of the
+    split that gives the c-core N SMs, the count a measuring runner's
+    cores line names."""
+    at, path = plan_cache
+    assert at.main(["--sweep-zoo", "--smoke", "--limit", "1", "--c-sms",
+                    "80", "--device", str(card), "--cache", path]) == 0
+    total = torch.cuda.get_device_properties(
+        resolve_device(card)).multi_processor_count
+    entries = json.load(open(path))["entries"]
+    assert {k.rsplit("/sms", 1)[1] for k in entries} == {
+        str(total), "80", str(total - 80)}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(TUNE_SIGS))
 def test_every_candidate_gives_the_planners_bits_on_card(kernel, card):
     """Each candidate's plan launched gives the planner's pick's bits."""
@@ -1672,13 +1769,15 @@ def test_engine_span_stamps_agree_with_profiler_annotations_on_card(
 
 @pytest.mark.cuda
 def test_engine_counters_read_lanes_and_allocator_on_card(profiled_engine):
-    """``runner_lane_captures_total`` counts every lane the pool made;
-    ``device_allocs_total`` grows by the allocator's own count when a
-    fresh block must come from ``cudaMalloc``."""
+    """``runner_lane_captures_total`` counts every lane the pool made and
+    the lane the split's search captured at each count it measured and
+    left; ``device_allocs_total`` grows by the allocator's own count when
+    a fresh block must come from ``cudaMalloc``."""
     runner, eng, _, _ = profiled_engine
     snap = eng.snapshot()
+    left = sum(not p.refused for p in runner.cores.balance or ()) - 1
     assert snap["counters"]["runner_lane_captures_total"]["series"] == {
-        "": runner.lanes.count}
+        "": runner.lanes.count + max(left, 0)}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     stats = torch.cuda.memory_stats()["num_device_alloc"]

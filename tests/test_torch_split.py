@@ -1,12 +1,15 @@
 """The c/p split of the card's SMs (``repro_torch.kernels.green``) on the
 CPU: the c-core's count against the reference's Eq.10 split, CUDA's
 granularity and the realised theta, the ``ctypes`` plumbing against a fake
-``libcuda`` that refuses, and the cores and pools on the CPU, which split
-nothing.  The split on the card: ``tests/test_torch_cuda.py`` (``-k
-split``) and ``chip_smoke.py``.
+``libcuda`` that refuses, the cores and pools on the CPU, which split
+nothing, and the measured split: the search over synthetic chain times,
+the runner's moves through it on fake split cores, and the runners that
+measure nothing.  The split on the card: ``tests/test_torch_cuda.py``
+(``-k split``) and ``chip_smoke.py``.
 """
 import ctypes
 import math
+import types
 
 import pytest
 import torch
@@ -14,9 +17,15 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.dualmesh.partition import abstract_split
-from repro_torch.dualcore.runtime import DualCores
+from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+from repro_torch.core.scheduler import build_schedule
+from repro_torch.dualcore import runtime
+from repro_torch.dualcore.runtime import DualCoreRunner, DualCores, Lane
 from repro_torch.fleet.pool import DevicePool
 from repro_torch.kernels import green
+from repro_torch.models.cnn import init_params, params_from_numpy
+from repro_torch.models.zoo import get_graph
+from repro_torch.obs import Registry, SpanRecorder
 
 H100_SMS = 132
 
@@ -217,3 +226,234 @@ def test_pool_stats_on_the_cpu_read_as_before():
     assert pool.theta == 0.6
     assert pool.stats() == dict(want, theta=0.6)
     assert DevicePool("cpu", sm_split=False).stats()["sm_split"] is False
+
+
+# --------------------------------------------------------------------------
+# the measured split
+# --------------------------------------------------------------------------
+def _scaling(work_c, work_p, power=1.0, refuse=()):
+    """Chain times of cores whose SM-time a slot at the 64/68 split is
+    ``work_c`` and ``work_p``, scaling as SMs**``power``; None at the
+    counts in ``refuse``."""
+    def measure(n):
+        if n in refuse:
+            return None
+        return (work_c / 64 * (64 / n) ** power,
+                work_p / 68 * (68 / (H100_SMS - n)) ** power)
+    return measure
+
+
+#: MobileNet v2's and v1's SM-ms a slot by core at 64/68 on an H100
+V2, V1 = (290.0, 190.0), (588.0, 267.0)
+
+
+@pytest.mark.parametrize("measure,want,counts,swept", [
+    (_scaling(*V2), 80, [64, 80], True),
+    (_scaling(*V1), 88, [64, 88], True),
+    (_scaling(*V2, power=0.6), 80, [64, 80], False),
+    (_scaling(*V1, power=0.6), 88, [64, 88], False),
+    (_scaling(64.0, 68.0), 64, [64], True),
+    (_scaling(*V2, refuse={80}), 64, [64, 80], False),
+    (_scaling(*V1, refuse={88}), 64, [64, 88], False),
+], ids=["linear-v2", "linear-v1", "sublinear-v2", "sublinear-v1", "flat",
+        "refused-v2", "refused-v1"])
+def test_the_search_finds_the_lowest_bound(measure, want, counts, swept):
+    """Over synthetic chain times the search measures the start and the
+    count that balances the SM-time measured there, a realisable count,
+    and keeps the lower bound; a refused count keeps the start.  Where
+    time scales with the SMs (``swept``) it finds what a sweep of every
+    count would."""
+    got, probes = green.balanced_count(measure, 64, H100_SMS)
+    assert got == want and [p.count for p in probes] == counts
+    assert all(p.count % green.GRANULE == 0 and 8 <= p.count <= 120
+               for p in probes)
+    assert [p.refused for p in probes] == [measure(n) is None
+                                           for n in counts]
+    assert min((p for p in probes if not p.refused),
+               key=lambda p: p.bound).count == got
+    if swept:
+        sweep = [n for n in range(8, 121, 8) if measure(n) is not None]
+        assert want == min(sweep, key=lambda n: max(measure(n)))
+
+
+def _table(times, default=(10.0, 1.0)):
+    """A measure reading ``times[n]`` (c busier than p elsewhere)."""
+    return lambda n: times.get(n, default)
+
+
+@pytest.mark.parametrize("times,want,counts", [
+    # (10, 9.5) at 64 balances the SM-time there: no second count
+    ({64: (10.0, 9.5)}, 64, [64]),
+    # the balancing count takes 0.5% off: it wins
+    ({64: (10.0, 5.0), 88: (9.95, 7.0)}, 88, [64, 88]),
+    # an exact tie keeps the start, the count held
+    ({64: (10.0, 5.0), 88: (10.0, 7.0)}, 64, [64, 88]),
+    # the balancing count reads worse: the start stays
+    ({64: (10.0, 5.0), 88: (8.0, 10.5)}, 64, [64, 88]),
+    # MobileNet v1 as an H100 read it
+    ({64: (9.401, 4.2), 88: (7.146, 5.9)}, 88, [64, 88]),
+], ids=["balanced-start", "gain", "tie-keeps-start", "loss-keeps-start",
+        "v1-on-the-card"])
+def test_the_search_keeps_the_start_unless_the_jump_is_lower(times, want,
+                                                             counts):
+    """The balancing count replaces the start only when its bound is
+    lower; a tie is the start's."""
+    got, probes = green.balanced_count(_table(times), 64, H100_SMS)
+    assert [p.count for p in probes] == counts and got == want
+
+
+def test_the_search_keeps_a_refused_start_and_refuses_a_bad_one():
+    got, probes = green.balanced_count(lambda n: None, 64, H100_SMS)
+    assert got == 64 and probes == [green.Probe(64)]
+    assert probes[0].refused
+    for start in (60, 0, 128):
+        with pytest.raises(ValueError, match="no count"):
+            green.balanced_count(_table({}), start, H100_SMS)
+
+
+@pytest.fixture(scope="module")
+def v1_parts():
+    graph = get_graph("mobilenet_v1")
+    return (params_from_numpy(init_params(graph, 0), "cpu"),
+            build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced"))
+
+
+class FakeSplitCores:
+    """Split cores of a 132-SM card without a card: ``resplit`` gives the
+    cores of the count asked, or raises as a refused split does."""
+
+    def __init__(self, count, refuse=(), fail=None):
+        self.device = torch.device("cpu")
+        self.count, self.refuse, self.fail = count, refuse, fail
+        self.split = types.SimpleNamespace(total=H100_SMS)
+        self.balance = None
+
+    def sms(self, core):
+        return self.count if core == "c" else H100_SMS - self.count
+
+    def resplit(self, theta):
+        count = green.split_count(theta, H100_SMS)
+        if count in self.refuse:
+            raise green.GreenContextError(f"split at {count} refused")
+        if self.fail is not None:
+            raise self.fail
+        return FakeSplitCores(count, self.refuse)
+
+
+@pytest.mark.parametrize("measure,refuse,want", [
+    (_scaling(*V2, power=0.6), (), 80),
+    (_scaling(*V1), (), 88),
+    (_scaling(*V2), (80,), 64),
+    (_table({64: (10.0, 5.0), 88: (8.0, 10.5)}), (), 64),
+], ids=["sublinear-v2", "linear-v1", "refused-split", "jump-loses"])
+def test_the_runner_moves_to_the_measured_count(v1_parts, monkeypatch,
+                                                measure, refuse, want):
+    """The runner's search on fake split cores: it ends on the cores of
+    the chosen count, its lane pool holding that count's one lane (the
+    start's own where the start stays), the
+    probes on the cores, one ``runner.probe`` span a count tried inside
+    ``runner.balance``, and the gauge and counter set."""
+    runner = DualCoreRunner("mobilenet_v1", *v1_parts, device="cpu")
+    captured = []
+
+    def new_lane(key):
+        captured.append(runner.cores.count)
+        return Lane(key=key, x=torch.tensor(runner.cores.count), graphs=[],
+                    envs=[])
+
+    monkeypatch.setattr(runner, "_new_lane", new_lane)
+    monkeypatch.setattr(runner, "_time_chains",
+                        lambda lane: measure(runner.cores.count))
+    runner.cores = FakeSplitCores(64, refuse)
+    runner.lanes = runtime.LanePool(runner._new_lane)
+    runner.obs, runner.spans = Registry(), SpanRecorder(enabled=True)
+    key = ((64, 224, 224, 3), torch.float32)
+    runner._balance_split(key)
+    want_got, probes = green.balanced_count(
+        lambda n: None if n in refuse else measure(n), 64, H100_SMS)
+    assert runner.cores.count == want == want_got
+    assert runner.cores.balance == probes
+    assert captured == [p.count for p in probes if not p.refused]
+    (lane,) = runner.lanes.lanes[key]           # captured at the count
+    assert lane.x.item() == want and runner.lanes.acquire(key) is lane
+    spans = runner.spans.drain()
+    (top,) = [s for s in spans if s.name == "runner.balance"]
+    assert [s.parent for s in spans if s.name == "runner.probe"] == \
+        [top.sid] * len(probes)
+    snap = runner.obs.snapshot()
+    assert snap["gauges"]["runner_split_c_sms"]["series"] == {"": want}
+    assert snap["counters"]["runner_split_probes_total"]["series"] == \
+        {"": len(probes) - 1}
+    assert "c count measured" not in DualCores(torch.device("cpu"))\
+        .describe()
+
+
+def test_a_fault_at_the_start_split_raises(v1_parts, monkeypatch):
+    """Only another count may refuse: a failure at the split the runner
+    starts from is a fault, and raises."""
+    runner = DualCoreRunner("mobilenet_v1", *v1_parts, device="cpu")
+
+    def broken(key):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(runner, "_new_lane", broken)
+    runner.cores = FakeSplitCores(64)
+    runner.lanes = runtime.LanePool(runner._new_lane)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        runner._balance_split(((1, 32, 32, 3), torch.float32))
+
+
+@pytest.mark.parametrize("where", ["split", "capture"])
+def test_a_fault_at_another_count_raises(v1_parts, monkeypatch, where):
+    """Only a refused split makes a count no candidate: another failure
+    at the balancing count, in its split or in its lane's capture (out of
+    memory here), raises and is not read as a refusal."""
+    runner = DualCoreRunner("mobilenet_v1", *v1_parts, device="cpu")
+    oom = torch.cuda.OutOfMemoryError("out of memory at 80 SMs")
+
+    def new_lane(key):
+        if where == "capture" and runner.cores.count != 64:
+            raise oom
+        return Lane(key=key, x=torch.tensor(0), graphs=[], envs=[])
+
+    monkeypatch.setattr(runner, "_new_lane", new_lane)
+    monkeypatch.setattr(runner, "_time_chains",
+                        lambda lane: _scaling(*V2)(runner.cores.count))
+    runner.cores = FakeSplitCores(64, fail=oom if where == "split"
+                                  else None)
+    runner.lanes = runtime.LanePool(runner._new_lane)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="out of memory"):
+        runner._balance_split(((1, 32, 32, 3), torch.float32))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"theta": 0.3}, {"theta": 0.5}, {"cores": "leased"},
+    {"cores": "shared"}, {"cores": "one_stream"}, {"jit_groups": False}],
+    ids=["cpu", "theta-0.3", "theta-0.5", "leased", "sm_split-off",
+         "one_stream", "eager"])
+def test_runners_that_measure_nothing_keep_their_split(v1_parts,
+                                                       monkeypatch, kw):
+    """On the CPU, and with an explicit theta, leased cores, cores that
+    share the SMs, one stream or eager groups, a runner never searches:
+    it serves at the split it was given (theta 0.5 without one) and
+    records no probe."""
+    cpu = torch.device("cpu")
+    kw = dict(kw)
+    made = {"leased": lambda: DualCores(cpu, 0.7),
+            "shared": lambda: DualCores(cpu, 0.4, sm_split=False),
+            "one_stream": lambda: DualCores(cpu, 0.6, one_stream=True)}
+    if "cores" in kw:
+        kw["cores"] = made[kw["cores"]]()
+    monkeypatch.setattr(DualCoreRunner, "_balance_split",
+                        lambda self, key: pytest.fail("searched"))
+    runner = DualCoreRunner("mobilenet_v1", *v1_parts, device="cpu", **kw)
+    runner.obs = Registry()
+    want = kw["cores"].theta if "cores" in kw else kw.get("theta", 0.5)
+    assert runner.cores.theta == want and runner.cores.balance is None
+    if "cores" in kw:
+        assert runner.cores is kw["cores"]
+    runner.run_sequential([torch.randn(1, 32, 32, 3)])
+    assert runner.cores.theta == want and runner.cores.balance is None
+    snap = runner.obs.snapshot()
+    assert "runner_split_probes_total" not in snap["counters"]
+    assert "runner_split_c_sms" not in snap["gauges"]

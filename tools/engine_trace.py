@@ -13,7 +13,8 @@ appends it to ``--out``:
 
 * ``img_per_s`` and ``host_slot_ms`` over the window, as the benchmark
   reads them (so ``--spans on`` against ``--spans off`` is the tracing's
-  cost);
+  cost), and ``cores``, the runner's cores line (``DualCores.describe``:
+  the split it served at, measured or asked);
 * with spans on: ``advance_ms`` (mean ``engine.advance``), ``ready_wait_ms``
   (``engine.ready_wait`` summed a slot, mean over slots) and
   ``device_allocs_per_kreq`` (``device_allocs_total`` over the window per
@@ -224,7 +225,8 @@ def measure(cell: Cell, seed: int, seconds: float, on: bool,
     out = {"workload": cell.name, "seed": seed, "spans": on,
            "img_per_s": sum(r.batch for r in done) / (win.t1 - win.t0),
            "host_slot_ms": win.advance_s / win.slots * 1e3,
-           "slots": win.slots, "served": len(win.served)}
+           "slots": win.slots, "served": len(win.served),
+           "cores": program.runner.cores.describe()}
     if on:
         out.update(_traced(feeder, engine, spans, before, after, w0, w1,
                            win, device))
