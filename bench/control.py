@@ -21,17 +21,19 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def readings(cell, seed: int, device) -> dict:
     """The control's ``logit_err`` readings for ``seed``."""
-    from bench.harness.check import logit_err, reference_logits
+    from bench.harness.check import forward_of, logit_err, reference_logits
     from bench.harness.inputs import make_inputs
 
-    table = cell.part("reference", cell.config["reference"]).layers(
-        cell.config)
+    reference = cell.part("reference", cell.config["reference"])
+    table = reference.layers(cell.config)
+    forward = forward_of(reference)
     params, pool = make_inputs(table, cell.config, cell.traffic, seed,
                                device)
     idx = range(len(pool))
-    ref = reference_logits(table, params, pool, idx)
-    emulated = reference_logits(table, params, pool, idx, "tf32")
-    library = reference_logits(table, params, pool, idx, "tf32_library")
+    ref = reference_logits(forward, table, params, pool, idx)
+    emulated = reference_logits(forward, table, params, pool, idx, "tf32")
+    library = reference_logits(forward, table, params, pool, idx,
+                               "tf32_library")
     return {"seed": seed,
             "tf32_emulated": max(logit_err(emulated[i], ref[i])
                                  for i in idx),

@@ -5,7 +5,10 @@ configuration file names its program adapter (``programs/<program>.py``)
 and reference (``reference/<reference>.py``); the traffic file names its
 loop (``loops/<loop>.py``); each metric is read by ``metrics/<name>.py``.
 A new cell, mix, loop, program or metric is a new file and a new entry,
-with no edit to a file that is there."""
+with no edit to a file that is there.  So is a new reference: a module
+whose ``layers(cfg)`` gives its table and which may define its own plain
+``forward`` (``reference/plain.py`` states both contracts), named by the
+configuration that uses it."""
 from __future__ import annotations
 
 import dataclasses

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from bench.reference.plain import Layer
+from bench.reference.plain import Entry
 
 #: standard deviation of the biases (batch norm folded into them): not
 #: zero, so that the bias path is compared
@@ -19,7 +19,7 @@ def generator(seed: int, device: torch.device) -> torch.Generator:
     return g
 
 
-def make_params(table: list[Layer], g: torch.Generator,
+def make_params(table: list[Entry], g: torch.Generator,
                 device: torch.device) -> dict:
     """He-scaled float32 weights in the served layouts and biases of
     ``BIAS_STD``, ``{layer: {"w", "b"}}``: views of two buffers."""
@@ -48,7 +48,7 @@ def make_pool(n: int, batch: int, image_px: int, channels: int,
                        generator=g, device=device)
 
 
-def make_inputs(table: list[Layer], config: dict, traffic: dict, seed: int,
+def make_inputs(table: list[Entry], config: dict, traffic: dict, seed: int,
                 device: torch.device) -> tuple[dict, torch.Tensor]:
     """The run's weights and its pool of image batches."""
     g = generator(seed, device)

@@ -12,7 +12,7 @@ import time
 import torch
 
 from bench.harness.cell import Cell
-from bench.harness.check import check
+from bench.harness.check import check, forward_of
 from bench.harness.inputs import make_inputs
 from bench.harness.serve import Feeder, Phase
 from bench.harness.stats import percentile
@@ -62,7 +62,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     the isolation check, which the caller adds."""
     cfg, mix = cell.config, cell.traffic
     marks = [("imports", time.perf_counter())]
-    table = cell.part("reference", cfg["reference"]).layers(cfg)
+    reference = cell.part("reference", cfg["reference"])
+    table = reference.layers(cfg)
     params, pool = make_inputs(table, cfg, mix, seed, device)
     marks.append(("inputs", time.perf_counter()))
     program = cell.part("programs", cfg["program"]).Program(cfg, params,
@@ -123,7 +124,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    err = check(kept, table, params, pool)
+    err = check(kept, forward_of(reference), table, params, pool)
     limit = float(cfg["limits"]["logit_err"])
     correct = math.isfinite(err) and err <= limit
     result = {

@@ -1,14 +1,16 @@
 """The model's work, counted from its layer table, and the card's peaks.
 
-A request's FLOPs are twice its multiply-adds (every conv, depthwise
-conv and the classifier).  Its byte floor counts the images, the weights
-and the logits once each; activations between layers are left out, since
-a fused kernel need never write them, so no fusion can carry a share of
-the bound past 100%.  Nothing here reads the program's plans or kernels.
+A request's FLOPs are twice its multiply-adds: the sum of its table
+entries' ``flops`` (every conv, depthwise conv and the classifier; an
+entry of a reference's own class counts its own).  Its byte floor counts
+the images, the weights and the logits once each; activations between
+layers are left out, since a fused kernel need never write them, so no
+fusion can carry a share of the bound past 100%.  Nothing here reads the
+program's plans or kernels.
 """
 from __future__ import annotations
 
-from bench.reference.plain import Layer
+from bench.reference.plain import Entry
 
 #: published peaks by ``torch.cuda.get_device_name()``: NVIDIA's H100 SXM
 #: data sheet, dense, at its 700 W limit.  ``flops`` is the float32-
@@ -20,12 +22,12 @@ PEAKS = {
 }
 
 
-def flops_per_image(table: list[Layer]) -> int:
+def flops_per_image(table: list[Entry]) -> int:
     """FLOPs of one image through ``table``."""
     return sum(l.flops for l in table)
 
 
-def weight_bytes(table: list[Layer]) -> int:
+def weight_bytes(table: list[Entry]) -> int:
     """Bytes of every weight and bias, in float32."""
     n = 0
     for l in table:
@@ -36,7 +38,7 @@ def weight_bytes(table: list[Layer]) -> int:
     return 4 * n
 
 
-def request_bytes(table: list[Layer], batch: int, image_px: int,
+def request_bytes(table: list[Entry], batch: int, image_px: int,
                   channels: int) -> int:
     """Byte floor of one request: its images, the weights, its logits."""
     images = batch * image_px * image_px * channels * 4

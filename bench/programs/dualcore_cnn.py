@@ -3,10 +3,11 @@ with the port's own defaults.
 
 ``build_schedule(graph, DUAL_BASELINE, BoardModel(), scheme)``, then
 ``DualCoreRunner(model, params, schedule)`` (``fuse="group"``,
-``jit_groups=True``, green contexts split at theta 0.5 on a card), then
-``DualCoreEngine(runner)``.  The harness drives the engine's ``submit``,
-``advance`` and ``retire`` itself; it neither tunes nor writes the
-port's plan cache."""
+``jit_groups=True``; on a card green contexts whose c-core SM count the
+runner measures at its first lane capture, from a start at theta 0.5:
+``green.balanced_count``), then ``DualCoreEngine(runner)``.  The
+harness drives the engine's ``submit``, ``advance`` and ``retire``
+itself; it neither tunes nor writes the port's plan cache."""
 from __future__ import annotations
 
 import os

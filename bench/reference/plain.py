@@ -9,14 +9,51 @@ mantissa bits, to nearest even) and then multiplied in float32, which is
 what a TF32 tensor-core product computes, on any device;
 ``"tf32_library"`` lets cuBLAS and cuDNN take their own TF32 paths
 instead (on a card only).
+
+A reference module ``reference/<name>.py`` gives ``layers(cfg)``, a table
+of :class:`Entry`.  It may also define its own ``forward(table, params,
+x, precision="f32")`` with :func:`forward`'s contract: NHWC float32
+images in, logits ``(N, classes)`` out, weights in the served layouts,
+and the three precisions of ``PRECISIONS``; such a forward reuses
+:func:`to_tf32`, :func:`tf32_products` and :func:`layer_forward`.  The
+harness uses a module's own forward for the output check and the control
+where it has one, this module's :func:`forward` where it has none
+(``bench.harness.check.forward_of``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import torch
 import torch.nn.functional as F
+
+
+@runtime_checkable
+class Entry(Protocol):
+    """What the harness reads from each entry of a layer table, whatever
+    its class: ``inputs.make_params`` draws one weight of
+    ``weight_shape()``, He-scaled by ``fan_in``, and one bias of
+    ``c_out`` for each entry, under its ``name``; ``work`` sums ``flops``
+    and the weights' and biases' bytes; the last entry's ``c_out`` is the
+    number of classes.  :class:`Layer` is one; a reference with layer
+    kinds of its own (an SE gate's reduce and expand FCs) defines its own
+    class with these members."""
+
+    @property
+    def name(self) -> str: ...
+
+    @property
+    def c_out(self) -> int: ...
+
+    def weight_shape(self) -> tuple[int, ...]: ...
+
+    @property
+    def fan_in(self) -> int: ...
+
+    @property
+    def flops(self) -> int: ...
 
 
 @dataclasses.dataclass(frozen=True)

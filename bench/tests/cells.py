@@ -9,9 +9,11 @@ ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "bench"
 
 
-def tiny_root(tmp_path: Path) -> Path:
+def tiny_root(tmp_path: Path, reference: str | None = None) -> Path:
     """A checkout of the benchmark with a tiny cell added from new files
-    only: a configuration, a traffic mix, a loop and a metric."""
+    only: a configuration, a traffic mix, a loop and a metric; and, where
+    ``reference`` gives its source, a reference module
+    ``reference/tiny_ref.py`` that the configuration names."""
     root = tmp_path / "checkout"
     root.mkdir()
     shutil.copy(ROOT / "BENCHMARK.json", root)
@@ -20,6 +22,9 @@ def tiny_root(tmp_path: Path) -> Path:
     spec = json.loads((root / "BENCHMARK.json").read_text())
     cfg = json.loads((BENCH / "configs" / "mobilenet_v1.json").read_text())
     cfg["image_px"] = 32
+    if reference is not None:
+        (root / "bench/reference/tiny_ref.py").write_text(reference)
+        cfg["reference"] = "tiny_ref"
     (root / "bench/configs/tiny_v1.json").write_text(json.dumps(cfg))
     (root / "bench/traffic/tiny.json").write_text(json.dumps(
         {"loop": "alone", "clients": 3, "batch": 2, "pool": 3,

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from bench.harness.cell import Cell, load_file
-from bench.harness.check import logit_err, reference_logits
+from bench.harness.check import forward_of, logit_err, reference_logits
 from bench.harness.inputs import make_inputs
 from bench.harness.measure import run_cell
 
@@ -98,14 +98,16 @@ def test_the_control_fails_the_limit_and_the_port_passes(config):
 
     cell = tiny_cell(config, image_px=64)
     cfg = cell.config
-    table = load_file(BENCH / "reference" / f"{cfg['reference']}.py") \
-        .layers(cfg)
+    reference = load_file(BENCH / "reference" / f"{cfg['reference']}.py")
+    table = reference.layers(cfg)
+    forward = forward_of(reference)
     limit = cfg["limits"]["logit_err"]
     for seed in (1, 2, 3):
         params, pool = make_inputs(table, cfg, cell.traffic, seed,
                                    torch.device("cpu"))
-        ref = reference_logits(table, params, pool, [0])[0]
-        control = reference_logits(table, params, pool, [0], "tf32")[0]
+        ref = reference_logits(forward, table, params, pool, [0])[0]
+        control = reference_logits(forward, table, params, pool, [0],
+                                   "tf32")[0]
         port = build_program(cfg["model"]).run(params, pool[0])
         assert logit_err(control, ref) > 2 * limit
         assert logit_err(port, ref) < limit / 10

@@ -1,8 +1,10 @@
 """CPU tests of the benchmark's harness: the closed loop, the metrics'
-arithmetic, the work counts, the card check, isolation, and a cell added
-from files alone."""
+arithmetic, the work counts, the card check, isolation, a cell added
+from files alone, and a reference that brings its own forward or table
+entries."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -13,9 +15,12 @@ import torch
 
 from bench.harness import serve
 from bench.harness.cell import load_cell, load_file
+from bench.harness.check import check, forward_of
+from bench.harness.inputs import generator, make_inputs, make_params
 from bench.harness.serve import Feeder, Phase, Req
 from bench.harness.stats import percentile
-from bench.harness.work import flops_per_image, weight_bytes
+from bench.harness.work import flops_per_image, request_bytes, weight_bytes
+from bench.reference import plain
 from bench.tests.cells import tiny_root
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -188,3 +193,116 @@ def test_a_cell_added_from_new_files_runs(tmp_path, monkeypatch):
     assert set(out["metrics"]) == {"img_per_s", "setup_s"}
     assert out["check"]["logit_err"]["value"] <= \
         out["check"]["logit_err"]["limit"]
+
+
+#: a reference module of its own: MobileNet v1's table, and a forward that
+#: records each precision it is called at and scales ``plain.forward``'s
+#: logits by ``SCALE``
+OWN_FORWARD = """
+from bench.reference import plain
+from bench.reference.mobilenet_v1 import layers
+
+SCALE = {scale!r}
+CALLS = []
+
+
+def forward(table, params, x, precision="f32"):
+    CALLS.append(precision)
+    return plain.forward(table, params, x, precision) * SCALE
+"""
+
+
+def own_forward_cell(tmp_path, scale: float):
+    cell = load_cell("tiny.alone",
+                     tiny_root(tmp_path, OWN_FORWARD.format(scale=scale)))
+    return cell, cell.part("reference", "tiny_ref")
+
+
+def test_a_reference_with_its_own_forward_is_added_from_new_files(tmp_path):
+    from bench.harness.measure import run_cell
+
+    cell, ref = own_forward_cell(tmp_path, 1.0)
+    assert forward_of(ref) is ref.forward
+    out = run_cell(cell, 2 ** 31 + 13, 0.3, False, torch.device("cpu"),
+                   time.perf_counter())
+    assert out["correct"] is True
+    assert ref.CALLS and set(ref.CALLS) == {"f32"}
+
+
+def test_the_check_and_the_control_use_the_references_forward(tmp_path):
+    from bench.control import readings
+    from bench.harness.measure import run_cell
+
+    cell, ref = own_forward_cell(tmp_path, 1.01)
+    out = run_cell(cell, 2 ** 31 + 17, 0.3, False, torch.device("cpu"),
+                   time.perf_counter())
+    assert out["correct"] is False
+    # a logit 1% off its reference: at least 1% of the row's RMS
+    assert out["check"]["logit_err"]["value"] > 0.0099 > \
+        out["check"]["logit_err"]["limit"]
+    ref.CALLS.clear()
+    readings(cell, 19, torch.device("cpu"))
+    pool = cell.traffic["pool"]
+    assert ref.CALLS == ["f32"] * pool + ["tf32"] * pool + \
+        ["tf32_library"] * pool
+
+
+@dataclasses.dataclass(frozen=True)
+class GateFC:
+    """An SE gate's reduce or expand FC on a pooled map: a table entry of
+    a reference's own class, not a ``plain.Layer``."""
+
+    name: str
+    c_in: int
+    c_out: int
+
+    def weight_shape(self) -> tuple[int, ...]:
+        return (self.c_in, self.c_out)
+
+    @property
+    def fan_in(self) -> int:
+        return self.c_in
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.c_in * self.c_out
+
+
+def test_an_entry_of_its_own_class_gets_weights_flops_and_bytes():
+    cpu = torch.device("cpu")
+    t = table("mobilenet_v1", image_px=32)
+    gate = [GateFC("se_reduce", 1024, 256), GateFC("se_expand", 256, 1024)]
+    mixed = t[:-1] + gate + t[-1:]
+    assert all(isinstance(e, plain.Entry) for e in mixed)
+    assert not isinstance(gate[0], plain.Layer)
+    params = make_params(mixed, generator(2 ** 31 + 23, cpu), cpu)
+    assert set(params) == {e.name for e in mixed}
+    for e in gate:
+        w, b = params[e.name]["w"], params[e.name]["b"]
+        assert w.shape == (e.c_in, e.c_out) and b.shape == (e.c_out,)
+        assert float(w.std()) == pytest.approx((2 / e.c_in) ** 0.5,
+                                               rel=0.05)
+    gate_flops = 2 * (2 * 1024 * 256)
+    assert flops_per_image(mixed) == flops_per_image(t) + gate_flops
+    gate_bytes = 4 * (1024 * 256 + 256 + 256 * 1024 + 1024)
+    assert request_bytes(mixed, 2, 32, 3) == \
+        request_bytes(t, 2, 32, 3) + gate_bytes
+
+
+@pytest.mark.parametrize("config", ["mobilenet_v2", "mobilenet_v1"])
+def test_a_reference_without_a_forward_checks_as_plain(config):
+    cpu = torch.device("cpu")
+    cfg = json.loads((BENCH / "configs" / f"{config}.json").read_text())
+    cfg["image_px"] = 32
+    ref = load_file(BENCH / "reference" / f"{cfg['reference']}.py")
+    assert not hasattr(ref, "forward")
+    forward = forward_of(ref)
+    assert forward is plain.forward
+    t = ref.layers(cfg)
+    params, pool = make_inputs(t, cfg, {"pool": 2, "batch": 2},
+                               2 ** 31 + 29, cpu)
+    kept = [(1, plain.forward(t, params, pool[1]) * (1 + 1e-4)),
+            (0, plain.forward(t, params, pool[0], "tf32"))]
+    err = check(kept, forward, t, params, pool)
+    assert 0 < err < 1
+    assert err == check(kept, plain.forward, t, params, pool)

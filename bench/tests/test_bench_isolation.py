@@ -59,14 +59,15 @@ def test_the_reference_loads_nothing_of_either_package():
     mods = top_level_modules(
         "from bench.harness.cell import load_file\n"
         "from bench.harness.inputs import make_inputs\n"
-        "from bench.harness.check import reference_logits\n"
+        "from bench.harness.check import forward_of, reference_logits\n"
         "for name in ('mobilenet_v2', 'mobilenet_v1'):\n"
         "    cfg = json.loads(Path(f'bench/configs/{name}.json')"
         ".read_text())\n"
         "    cfg['image_px'] = 32\n"
-        "    t = load_file(Path(f'bench/reference/{name}.py')).layers(cfg)\n"
+        "    ref = load_file(Path(f'bench/reference/{name}.py'))\n"
+        "    t, fwd = ref.layers(cfg), forward_of(ref)\n"
         "    params, pool = make_inputs(t, cfg, {'pool': 1, 'batch': 2}, 1,"
         " torch.device('cpu'))\n"
-        "    reference_logits(t, params, pool, [0])\n"
-        "    reference_logits(t, params, pool, [0], 'tf32')\n", ROOT)
+        "    reference_logits(fwd, t, params, pool, [0])\n"
+        "    reference_logits(fwd, t, params, pool, [0], 'tf32')\n", ROOT)
     assert not mods & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
