@@ -1,0 +1,9 @@
+"""``device_idle_pct.offline``'s reading, for the cells of batch 16."""
+from pathlib import Path
+
+from bench.harness.cell import load_file
+
+
+def read(run):
+    path = Path(__file__).with_name("device_idle_pct.offline.py")
+    return load_file(path).read(run)

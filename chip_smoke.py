@@ -1,13 +1,14 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --only effnet   # phases 1, 13 and 14 alone
 
 Drives ``repro_torch`` (never JAX, never the reference package) in phases;
 any failure raises and the script exits non-zero:
 
 1. setup    print the card (``nvidia-smi`` name and power limit) and build
-            the CUDA kernels K1-K7 from ``src/repro_torch/csrc`` (one
-            ``nvcc`` per source, all at once);
+            the CUDA kernels K1-K7 and the SE gate from
+            ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
 2. kernels  hold every kernel against its plain PyTorch version on the card
             (TF32 off, rtol = atol = 1e-4: both are f32, only the summation
             order differs; K1, K3, K4, K5 and K7 flash run their products
@@ -318,7 +319,26 @@ any failure raises and the script exits non-zero:
             without the cache, a request's lane device ms with and without
             it; (d) a config planted outside its signature's candidates
             raises;
-13. report  one ``[report]`` line for each path and kernel (launches,
+13. effnet  EfficientNet-B4 as the benchmark cell ``effb4.offline.b16``
+            serves it, every earlier phase's tensors freed first: batch 16
+            at 380 px, ``balanced`` (29 exec groups), compiled groups on
+            the split the runner measures (``theta=None``), after one
+            untimed pipelined run of 4 requests that measures the split
+            and captures the lanes: the sequential kernel forward against
+            the all-plain forward within 1e-3 of the plain logits' RMS,
+            its launches the plan's; ``DualCoreEngine`` over 4 requests,
+            launch counts reset just before and read just after, 4 x the
+            plan's (K1, K2, K3, ``se_gate``, ``se_scale``), outputs
+            bit-equal to the sequential forward, ``runner_se_gates``
+            summing to 32, the largest group's kernel nodes the plan's;
+            every distinct call (silu epilogues on K1, K2 and K3, K2's
+            5x5 window at strides 1 and 2, the SE gate and the scale at
+            each block's map, 190x190x144 down to 12x12x2688) against its
+            plain version at rtol = atol = 1e-4, timed on the whole card
+            and on its core's partition of the measured split (bit-equal
+            there) beside the library chain and the bound; edges: sigmoid
+            on K1, K2 and K3, the SE kernels' float path;
+14. report  one ``[report]`` line for each path and kernel (launches,
             calls, ms, bound, plain and library ms a request), one JSON line
             of the kernels, the card line, and the final
             ``{"ok": true, ...}`` line; the host seconds of each phase.
@@ -423,6 +443,11 @@ VL_TEXT = 64                                    # text tokens after them
 VL_PROMPT = VL_GRID ** 2 + VL_TEXT
 VL_STEPS = 16
 VL_MAX_LEN = VL_PROMPT + VL_STEPS + 8
+EFFNET = "efficientnet_b4"              # phase 13: the benchmark cell's
+EFFNET_BATCH = 16                       # model, batch and image size
+EFFNET_IMAGE = 380
+EFFNET_REQUESTS = 4
+SE_KERNELS = ("se_gate", "se_scale")    # phase 13 only
 # NVIDIA H100 SXM data sheet (dense, no sparsity): HBM3 3.35 TB/s, f32 on
 # the CUDA cores (no tensor cores) 67 TFLOP/s, TF32 on the tensor cores 495
 # TFLOP/s, of which 3xTF32 (three products per f32 product) gets a third.
@@ -439,7 +464,7 @@ TRAINING_ONLY = ("rmsnorm_bwd", "flash_attention_bwd")
 # the sources whose -Xptxas -v report setup prints
 PTXAS_SOURCES = ("matmul_bias_act", "depthwise_conv2d",
                  "conv2d_implicit_gemm", *FUSED_KERNELS, "flash_attention",
-                 "rmsnorm", "flash_attention_int8")
+                 "rmsnorm", "flash_attention_int8", "se_gate")
 
 
 def card_line() -> str:
@@ -497,6 +522,8 @@ def kernel_table():
     from repro_torch.kernels.attention.ref import flash_attention_bwd_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+    from repro_torch.kernels.se.kernel import se_gate, se_scale
+    from repro_torch.kernels.se.ref import se_gate_ref, se_scale_ref
     return {
         "matmul_bias_act": dict(
             fn=matmul_bias_act, plain=matmul_bias_act_ref,
@@ -551,6 +578,14 @@ def kernel_table():
             fn=flash_attention_bwd, plain=flash_attention_bwd_ref,
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces="src/repro/kernels/attention/kernel.py:74"),
+        # the port's own SE gate (EfficientNet): the TPU system serves no
+        # network with SE gates, so it replaces nothing
+        "se_gate": dict(
+            fn=se_gate, plain=se_gate_ref,
+            source="src/repro_torch/csrc/se_gate.cu", replaces=None),
+        "se_scale": dict(
+            fn=se_scale, plain=se_scale_ref,
+            source="src/repro_torch/csrc/se_gate.cu", replaces=None),
     }
 
 
@@ -563,14 +598,30 @@ def plan_calls(plan, graph, batch: int) -> list[dict]:
 def step_calls(steps, graph, batch: int) -> list[dict]:
     """The kernel calls one request makes through ``steps`` (a program's
     or an exec plan's), derived from the steps and ``graph``'s layer
-    specs."""
-    return [step_call(s, graph, batch) for s in steps]
+    specs: one a step, two an SE step's."""
+    return [c for s in steps
+            for c in se_calls(s, graph, batch) or [step_call(s, graph,
+                                                             batch)]]
+
+
+def se_calls(step, graph, batch: int) -> list[dict]:
+    """An EfficientNet SE step's two kernel calls, the gate of its
+    block's depthwise output and the scale of that map in place; none for
+    another step."""
+    if not step.layers[0].endswith("_se_reduce"):
+        return []
+    r = graph.layer(step.layers[0])
+    d = graph.layer(r.name[:-len("_se_reduce")] + "_dw")
+    return [dict(kernel="se_gate", n=batch, h=d.H_out, w=d.W_out, c=r.C_i,
+                 s=r.C_o),
+            dict(kernel="se_scale", n=batch, h=d.H_out, w=d.W_out, c=r.C_i)]
 
 
 def step_call(step, graph, batch: int) -> dict:
-    """The kernel call one step of ``graph``'s program makes, as a dict."""
-    from repro_torch.dualcore.program import ACT_OF
-    act = ACT_OF[graph.name]
+    """The kernel call one step of ``graph``'s program makes, as a dict
+    (an SE step's two: :func:`se_calls`)."""
+    from repro_torch.dualcore.program import ACT_OF, family
+    act = ACT_OF[family(graph.name)]
     if len(step.layers) == 3:
         e, d, p = (graph.layer(n) for n in step.layers)
         return dict(kernel="fused_pw_dw_pw_conv", n=batch, h=e.H, w=e.W,
@@ -719,6 +770,8 @@ def make_case(call: dict, gen) -> dict:
         return _fused_ir_case(kt, call, gen)
     elif kind in ("rmsnorm", "flash_attention", "decode_attention"):
         return _lm_case(kt, call, gen)
+    elif kind in SE_KERNELS:
+        return _se_case(kt, call, gen)
     else:
         n, h, wd, c, co = call["n"], call["h"], call["w"], call["c"], \
             call["co"]
@@ -794,6 +847,39 @@ def _fused_ir_case(kt: dict, call: dict, gen) -> dict:
                 plain=lambda: kt["plain"](*args, **kw), library=library,
                 nbytes=nbytes, flops=flops,
                 tc_flops=2 * n * (h * wd * ci * cm + ho * wo * cm * co))
+
+
+def _se_case(kt: dict, call: dict, gen) -> dict:
+    """The SE kernels' cases: the gate of an NHWC map (its library chain
+    the pool, two ``addmm``, silu and sigmoid), and the scale of a map by
+    a gate in place (``fresh`` restores the map before a checked call;
+    its library an in-place multiply)."""
+    n, h, wd, c = (call[k] for k in ("n", "h", "w", "c"))
+    x = rand(gen, (n, h, wd, c))
+    if call["kernel"] == "se_gate":
+        s = call["s"]
+        w1 = rand(gen, (c, s), (2.0 / c) ** 0.5)
+        b1 = rand(gen, (s,), 0.1)
+        w2 = rand(gen, (s, c), (2.0 / s) ** 0.5)
+        b2 = rand(gen, (c,), 0.1)
+        args = (x, w1, b1, w2, b2)
+        xc = x.permute(0, 3, 1, 2)
+
+        def library():
+            pooled = F.adaptive_avg_pool2d(xc, 1).flatten(1)
+            return torch.sigmoid(torch.addmm(
+                b2, F.silu(torch.addmm(b1, pooled, w1)), w2))
+        return dict(kernel=lambda: kt["fn"](*args),
+                    plain=lambda: kt["plain"](*args), library=library,
+                    nbytes=4 * (n * h * wd * c + 2 * c * s + s + c + n * c),
+                    flops=n * h * wd * c + 4 * n * c * s)
+    gate = torch.sigmoid(rand(gen, (n, c)))
+    y, y_lib = x.clone(), x.clone()
+    return dict(kernel=lambda: kt["fn"](y, gate),
+                plain=lambda: kt["plain"](x, gate),
+                library=lambda: y_lib.mul_(gate[:, None, None, :]),
+                fresh=lambda: y.copy_(x),
+                nbytes=4 * (2 * n * h * wd * c + n * c), flops=n * h * wd * c)
 
 
 def _lm_case(kt: dict, call: dict, gen) -> dict:
@@ -877,6 +963,10 @@ def _lib_act(t: torch.Tensor, act: str | None) -> torch.Tensor:
         return torch.relu(t)
     if act == "relu6":
         return torch.clamp(t, 0.0, 6.0)
+    if act == "silu":
+        return F.silu(t)
+    if act == "sigmoid":
+        return torch.sigmoid(t)
     return t
 
 
@@ -885,10 +975,17 @@ def check_and_time(call: dict, gen, timing: bool,
     """Hold one call against its plain version; time it if asked.  On
     each of ``parts`` (core: ``green.Partition``) the call is run and
     timed again on the partition's stream (``c_ms``, ``p_ms``), its output
-    bit-equal to the whole card's."""
+    bit-equal to the whole card's.  An in-place kernel's case restores its
+    input (``fresh``) before each checked call."""
     from repro_torch.kernels.util import cuda_time_ms
     case = make_case(call, gen)
-    got = case["kernel"]()
+
+    def checked() -> torch.Tensor:
+        if "fresh" not in case:
+            return case["kernel"]()
+        case["fresh"]()
+        return case["kernel"]().clone()
+    got = checked()
     want = case["plain"]()
     torch.cuda.synchronize()
     if got.shape != want.shape:
@@ -915,7 +1012,7 @@ def check_and_time(call: dict, gen, timing: bool,
                                - cuda_time_ms(case["producer"]))
     for core, part in (parts or {}).items():
         with torch.cuda.stream(part.stream):
-            again = case["kernel"]()
+            again = checked()
             if timing:
                 row[f"{core}_ms"] = cuda_time_ms(case["kernel"])
         part.stream.synchronize()
@@ -1039,7 +1136,9 @@ KERNEL_SYMBOLS = (("fused_pw_dw_pw_kernel", "fused_pw_dw_pw_conv"),
                   ("matmul_bias_act_kernel", "matmul_bias_act"),
                   ("rmsnorm_general_kernel", "rmsnorm"),
                   ("fused_dw_pw_kernel", "fused_dw_pw_conv"),
-                  ("rmsnorm_vec_kernel", "rmsnorm"))
+                  ("rmsnorm_vec_kernel", "rmsnorm"),
+                  ("se_gate_kernel", "se_gate"),
+                  ("se_scale_kernel", "se_scale"))
 
 
 def graph_kernel_nodes(graph, name: str) -> tuple[dict[str, int], int]:
@@ -1068,7 +1167,7 @@ def graph_kernel_nodes(graph, name: str) -> tuple[dict[str, int], int]:
     return dict(ours), other
 
 
-def group_nodes(runner, graph, tag: str) -> dict:
+def group_nodes(runner, graph, tag: str, batch: int = BATCH) -> dict:
     """Capture the runner's largest exec group again with the graph kept,
     and hold its kernel nodes against the plan's kernels of the group and
     against the counts the lane's graph of the group carries."""
@@ -1078,8 +1177,8 @@ def group_nodes(runner, graph, tag: str) -> dict:
     env = {"h": lane.x} if gi == 0 else lane.envs[gi - 1]
     debug, _ = runner._capture(gi, env, torch.cuda.graph_pool_handle(),
                                debug=True)
-    want = dict(Counter(step_call(st, graph, BATCH)["kernel"]
-                        for st in runner.groups[gi].steps))
+    want = dict(Counter(c["kernel"] for c in step_calls(
+        runner.groups[gi].steps, graph, batch)))
     nodes, other = graph_kernel_nodes(debug.graph,
                                       f"{graph.name}_group{gi}")
     if nodes != want or lane.graphs[gi].launches != want \
@@ -1201,7 +1300,7 @@ def serve_path(model: str, gen, rows: dict) -> dict:
     host = {name: [] for name in runners}
     for name in (*runners, *reversed(runners)):        # in turns
         host[name].append(host_enqueue_ms(runners[name], images))
-    sums = kernel_sums(rows, calls, plan_cores(runner.plan))
+    sums = kernel_sums(rows, calls, plan_cores(runner.plan, graph))
     device_ms = sum(v["ms"] for v in sums.values())
     chain_ms = chain_device_ms(runner, eager)
     print(f"{tag} device ms a request, the whole chain on one stream with "
@@ -2393,7 +2492,7 @@ def split_path(served: dict, lm_keep: dict) -> dict:
     lm = split_lm(lm_keep)
     launches = launch_counts()
     idle = [k for k, n in launches.items()   # the int8 kernels: 9(b) only
-            if n == 0 and k not in TRAINING_ONLY + INT8_KERNELS]
+            if n == 0 and k not in TRAINING_ONLY + INT8_KERNELS + SE_KERNELS]
     if idle:
         raise AssertionError(f"split: {idle} never launched in the phase")
     print(f"[split] launches over the phase {launches} (not in the "
@@ -5125,6 +5224,141 @@ def cache_path_run() -> dict:
                 refusal=refusal)
 
 
+# --------------------------------------------------------------------------
+# phase 13: EfficientNet-B4 at the benchmark cell's shapes
+# --------------------------------------------------------------------------
+def effnet_edge_calls() -> list[dict]:
+    """Edges beside B4's path calls: sigmoid on K1, K2 and K3 (the path
+    runs it only inside the SE gate), silu without bias, K2's 5x5 window
+    on ragged tails, and the SE kernels on channels that are no multiple
+    of 4 (their float path) with a cluster of one."""
+    return [
+        dict(kernel="matmul_bias_act", m=130, k=45, n=129, act="sigmoid"),
+        dict(kernel="matmul_bias_act", m=77, k=13, n=70, act="silu",
+             bias=False),
+        dict(kernel="depthwise_conv2d", n=2, h=13, w=11, c=40, k=5,
+             stride=2, pad=2, act="sigmoid"),
+        dict(kernel="depthwise_conv2d", n=1, h=10, w=13, c=64, k=5,
+             stride=1, pad=2, act="silu", bias=False),
+        dict(kernel="conv2d_implicit_gemm", n=2, h=15, w=13, ci=5, co=70,
+             k=3, stride=2, pad=1, act="sigmoid"),
+        dict(kernel="se_gate", n=2, h=9, w=7, c=37, s=9),
+        dict(kernel="se_scale", n=2, h=9, w=7, c=37),
+    ]
+
+
+def effnet_path(gen) -> tuple[dict, dict]:
+    """EfficientNet-B4 served as the benchmark cell serves it: batch 16
+    at 380 px, ``balanced``, compiled groups on the measured split.
+    Returns the path's numbers and its kernel rows (by call)."""
+    from repro_torch.core.arch import DUAL_BASELINE, BoardModel
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.dualcore.program import build_program
+    from repro_torch.dualcore.runtime import DualCoreRunner
+    from repro_torch.models.cnn import build_model
+    from repro_torch.obs import Registry
+    from repro_torch.serving.api import Request, replay
+    from repro_torch.serving.cnn import DualCoreEngine
+
+    t0 = time.perf_counter()
+    tag = f"[{EFFNET}]"
+    torch.cuda.reset_peak_memory_stats()
+    params, _, graph = build_model(EFFNET, seed=0, device="cuda")
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), SCHEME)
+    runner = DualCoreRunner(EFFNET, params, sched, device="cuda")
+    calls = plan_calls(runner.plan, graph, EFFNET_BATCH)
+    cores = plan_cores(runner.plan, graph)
+    per_request = dict(Counter(c["kernel"] for c in calls))
+    shape = (EFFNET_BATCH, EFFNET_IMAGE, EFFNET_IMAGE, 3)
+    images = [rand(gen, shape) for _ in range(EFFNET_REQUESTS)]
+    # warm-up, untimed: the split measured, the lanes the traffic holds
+    runner.run_pipelined(images)
+    split = runner.cores.split
+    print(f"{tag} {SCHEME}: {len(runner.groups)} exec groups "
+          f"{''.join(g.core for g in runner.groups)}, the measured split c "
+          f"{split.sms('c')} / p {split.sms('p')} SMs; launches per request "
+          f"{per_request}")
+
+    # the sequential kernel forward against the all-plain forward
+    x = rand(gen, shape)
+    plain_out = build_program(EFFNET, plain=True).run(params, x)
+    reset_counts()
+    (seq_out,) = runner.run_sequential([x])
+    check_counts(f"{EFFNET} forward", launch_counts(), per_request)
+    err = (seq_out - plain_out).abs().max().item()
+    rel = err / plain_out.pow(2).mean().sqrt().item()
+    if not rel <= FORWARD_TOL:
+        raise AssertionError(f"{EFFNET}: kernel forward disagrees with the "
+                             f"plain forward: max |err| {err:.3e}, "
+                             f"{rel:.3e} of the logits' RMS")
+    print(f"{tag} kernel forward vs plain forward: max |err| {err:.2e}, "
+          f"{rel:.2e} of the logits' RMS (tol {FORWARD_TOL}: 161 f32 "
+          f"layers, each at 1e-4 against its plain version, compound)")
+
+    # serving: the engine over the two cores, launches counted
+    seq = runner.run_sequential(images)
+    eng = DualCoreEngine(runner, obs=Registry())
+    reset_counts()
+    res = replay(eng, [Request(im) for im in images])
+    served = launch_counts()
+    check_counts(f"{EFFNET} serving", served, per_request, EFFNET_REQUESTS)
+    for i, (a, b) in enumerate(zip(res.outputs, seq)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{EFFNET} request {i}: the engine differs "
+                                 f"from the sequential kernel forward")
+    gates = eng.snapshot()["gauges"]["runner_se_gates"]["series"]
+    if sum(gates.values()) != 32:
+        raise AssertionError(f"{EFFNET}: runner_se_gates {gates}")
+    nodes = group_nodes(runner, graph, tag, EFFNET_BATCH)
+    lanes = [ln for v in runner.lanes.lanes.values() for ln in v]
+    wall = res.stats["wall_s"]
+    print(f"{tag} {EFFNET_REQUESTS} requests x batch {EFFNET_BATCH} @ "
+          f"{EFFNET_IMAGE}px on graphs in {res.stats['slots']} slots: "
+          f"{wall * 1e3:.2f} ms, {EFFNET_REQUESTS * EFFNET_BATCH / wall:.1f} "
+          f"img/s (a ramp, not the cell's rate); outputs bit-equal to the "
+          f"sequential kernel forward; launches {served} (reset just before "
+          f"the engine's run); runner_se_gates {gates}; {len(lanes)} lanes "
+          f"of {sum(ln.nbytes for ln in lanes) / len(lanes) / 2 ** 30:.2f} "
+          f"GiB; group {nodes['group']} ({nodes['steps']} steps) has kernel "
+          f"nodes {nodes['kernel_nodes']} (the plan's) and "
+          f"{nodes['other_kernel_nodes']} of PyTorch's")
+
+    # every distinct call against its plain version, timed on the whole
+    # card and on its core's partition of the measured split
+    distinct: dict[str, tuple[dict, set]] = {}
+    for c, core in zip(calls, cores):
+        distinct.setdefault(json.dumps(c, sort_keys=True), (c, set()))[1].add(
+            core)
+    rows = {}
+    for key, (c, on) in distinct.items():
+        r = rows[key] = check_and_time(
+            c, gen, timing=True, parts={k: split.parts[k] for k in sorted(on)})
+        plan = "" if "plan" not in r else "  plan " + plan_str(r["plan"])
+        own = "".join(f"  {k}-core {r[k + '_ms']:.4f}" for k in sorted(on))
+        print(f"{tag} kernel {r['kernel']:<21} {_shape_str(c):<40} ms "
+              f"{r['ms']:.4f}{own}  plain {r['plain_ms']:.4f}  library "
+              f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})  err {r['max_abs_err']:.1e}{plan}")
+    for c in effnet_edge_calls():
+        r = check_and_time(c, gen, timing=False)
+        print(f"{tag} edge {r['kernel']:<21} {_shape_str(c):<40} err "
+              f"{r['max_abs_err']:.1e}")
+    sums = kernel_sums(rows, calls, cores)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} every kernel agrees with its plain version (rtol = atol "
+          f"= {KERNEL_TOL}) at the path's {len(rows)} distinct calls and "
+          f"{len(effnet_edge_calls())} edges; device ms a request "
+          f"{sum(v['ms'] for v in sums.values()):.4f} over {len(calls)} "
+          f"launches; peak memory {peak / 1e9:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(model=EFFNET, batch=EFFNET_BATCH, image=EFFNET_IMAGE,
+                groups=len(runner.groups), c_sms=split.sms("c"),
+                per_request=per_request, launches=served, kernels=sums,
+                forward_max_abs_err=err, forward_rel_err=rel, wall_s=wall,
+                se_gates=gates, group_nodes=nodes, lanes=len(lanes),
+                peak_bytes=peak), rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5133,8 +5367,14 @@ def _leaves(tree):
         yield tree
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     """Run the phases; return the exit code."""
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
+    ap.add_argument("--only", choices=("effnet",), default=None,
+                    help="run the setup, the one phase named (effnet: "
+                         "phase 13) and the report alone")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
@@ -5168,6 +5408,12 @@ def main() -> int:
         for line in ptxas_report(name):
             print(f"[setup] ptxas {name}: {line}")
     mark("1")
+    if only == "effnet":
+        effnet, effnet_rows = effnet_path(np.random.default_rng(0))
+        mark("13")
+        return report(card, kind, t_start, phase_s, [effnet],
+                      dict(effnet=effnet,
+                           effnet_rows=list(effnet_rows.values())))
 
     # 2. kernels ----------------------------------------------------------
     gen = np.random.default_rng(0)
@@ -5275,10 +5521,35 @@ def main() -> int:
     cache = cache_path_run()
     mark("12")
 
-    # 13. report ----------------------------------------------------------
+    # 13. effnet ----------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    effnet, effnet_rows = effnet_path(gen)
+    paths.append(effnet)
+    mark("13")
+
+    # 14. report ----------------------------------------------------------
+    return report(card, kind, t_start, phase_s, paths, dict(
+        rows=list(rows.values()), geometry_rows=list(geometry.values()),
+        former_decode_rows=list(former.values()),
+        granite=granite, split=split, workers=workers,
+        control=control, design=design, blocks=blocks,
+        train={k: v for k, v in train.items() if k != "kernels"},
+        cache=cache, effnet_rows=list(effnet_rows.values())))
+
+
+def report(card: str, kind: str, t_start: float, phase_s: dict,
+           paths: list[dict], doc: dict) -> int:
+    """The last phase: ``chiprun_out/chip_smoke.json`` (``doc``, the
+    paths, the phases' seconds and the kernels), a line for each path
+    and kernel, the kernels' JSON line, the card line and the final
+    ``{"ok": true, ...}`` line.  A kernel that no path ran (the phases
+    that ran were chosen by ``--only``) has no row."""
     kernels = []
     for name, kt in kernel_table().items():
         mine = [p["kernels"][name] for p in paths if name in p["kernels"]]
+        if not mine:
+            continue
         b_ms, b_by = bound_ms(*(sum(r[k] for r in mine)
                                 for k in ("bytes", "flops", "tc_flops")))
         kernels.append(dict(
@@ -5300,16 +5571,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, device=kind, torch=torch.__version__,
-        rows=list(rows.values()), geometry_rows=list(geometry.values()),
-        former_decode_rows=list(former.values()),
-        paths=paths, granite=granite, split=split, workers=workers,
-        control=control, design=design, blocks=blocks,
-        train={k: v for k, v in train.items() if k != "kernels"},
-        cache=cache,
-        phase_s=phase_s,
-        kernels=kernels),
-        indent=1))
+        card=card, device=kind, torch=torch.__version__, paths=paths,
+        **doc, phase_s=phase_s, kernels=kernels), indent=1))
     for p in paths:
         name = p["model"] + (" fuse=True" if p.get("fuse") else "")
         for kname, v in p["kernels"].items():
@@ -5324,15 +5587,16 @@ def main() -> int:
                   f"bound {b_ms:.5f} ({b_by}), plain {v['plain_ms']:.4f}, "
                   f"library {lib}, err {v['max_abs_err']:.1e}")
     print(f"[report] ms / plain_ms / bound_ms / library_ms are sums over one "
-          f"request (batch {BATCH}, {IMAGE}px) of each path that launches "
+          f"request (batch {BATCH}, {IMAGE}px; {EFFNET}'s batch "
+          f"{EFFNET_BATCH}, {EFFNET_IMAGE}px) of each path that launches "
           f"the kernel (an LM request: its prefill and its share of its "
           f"decode group's steps; Whisper's and Qwen2-VL's whole phase-10 "
           f"run; training: one step of {TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens), ms on all of the card's SMs, "
           f"partition_ms each call on its core's partition of the split at "
           f"theta {SPLIT_THETA} (the fuse=True forward's and training's "
-          f"on the whole card); launches are phases 3-5's, 10's and 11's "
-          f"counted runs; "
+          f"on the whole card; {EFFNET}'s on the measured split); launches "
+          f"are phases 3-5's, 10's, 11's and 13's counted runs; "
           f"{time.perf_counter() - t_start:.1f} s total (phases "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + " s)")
     print(json.dumps({"kernels": kernels}))
@@ -5373,7 +5637,7 @@ def path_cores() -> dict[str, set[str]]:
     pairs = []
     for model in SERVED:
         plan, graph = served_plan(model)
-        pairs += zip(plan_calls(plan, graph, BATCH), plan_cores(plan))
+        pairs += zip(plan_calls(plan, graph, BATCH), plan_cores(plan, graph))
     for size in sorted(set(lm_group_sizes())):
         pairs += zip((c for c, _ in lm_request_calls(size)),
                      lm_request_cores(size))
@@ -5382,9 +5646,11 @@ def path_cores() -> dict[str, set[str]]:
     return out
 
 
-def plan_cores(plan) -> list[str]:
-    """The core of each of ``plan_calls(plan, ...)``: its exec group's."""
-    return [g.core for g in plan.groups for _ in g.steps]
+def plan_cores(plan, graph) -> list[str]:
+    """The core of each of ``plan_calls(plan, graph, ...)``: its exec
+    group's."""
+    return [g.core for g in plan.groups
+            for _ in step_calls(g.steps, graph, 1)]
 
 
 def served_plan(model: str):

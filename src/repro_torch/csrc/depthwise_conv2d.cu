@@ -26,6 +26,8 @@
 //     (neighbouring threads, neighbouring channels: conflict-free).
 //   * Taps accumulate in (i, j) order like the TPU kernel; bias and
 //     activation are fused into 16-byte stores.
+#include <type_traits>
+
 #include "tc_common.cuh"
 
 namespace {
@@ -154,24 +156,32 @@ depthwise_conv2d_kernel(const float* __restrict__ x,
                        ? *reinterpret_cast<const float4*>(bs + c)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
   const bool full = vx && c + 4 <= cv;
+  // the stores, compiled for repro_act and for repro_act_any (common.cuh)
+  const auto store = [&](auto any) {
 #pragma unroll
-  for (int u = 0; u < OW; ++u) {
-    if (owf + u >= Wo) break;
-    float v[4] = {acc[u].x, acc[u].y, acc[u].z, acc[u].w};
-    if (bias != nullptr) {
-      v[0] += b.x, v[1] += b.y, v[2] += b.z, v[3] += b.w;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = repro_act(v[e], act);
-    float* o = out + (((size_t)n * Ho + oh) * Wo + owf + u) * C + c0 + c;
-    if (full) {
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
+    for (int u = 0; u < OW; ++u) {
+      if (owf + u >= Wo) break;
+      float v[4] = {acc[u].x, acc[u].y, acc[u].z, acc[u].w};
+      if (bias != nullptr) {
+        v[0] += b.x, v[1] += b.y, v[2] += b.z, v[3] += b.w;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (c + e < cv) o[e] = v[e];
+        v[e] = repro_act_t<decltype(any)::value>(v[e], act);
+      float* o = out + (((size_t)n * Ho + oh) * Wo + owf + u) * C + c0 + c;
+      if (full) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < cv) o[e] = v[e];
+      }
     }
-  }
+  };
+  if (act >= REPRO_ACT_SILU)
+    store(std::true_type{});
+  else
+    store(std::false_type{});
 }
 
 using Kernel = decltype(&depthwise_conv2d_kernel<3, 1, 1>);

@@ -254,8 +254,9 @@ __device__ __forceinline__ void store_partial(const float (&acc)[J][4],
 // where vec4 (the caller's promise that every row offset, cols, out, res
 // and bias are 16-byte aligned).  The fixed order makes the result the
 // same bits on every run and stream.  A cluster of one reads its own
-// shared memory and needs no cluster barrier.
-template <typename RowOut>
+// shared memory and needs no cluster barrier.  ANY: act may be silu or
+// sigmoid (repro_act_t).
+template <bool ANY = false, typename RowOut>
 __device__ __forceinline__ void cluster_reduce_store(
     cg::cluster_group& cluster, float* red, int rs, int cl, int rank,
     int rows, int cols, RowOut row_out, bool vec4,
@@ -298,7 +299,7 @@ __device__ __forceinline__ void cluster_reduce_store(
         v[0] += b.x, v[1] += b.y, v[2] += b.z, v[3] += b.w;
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = repro_act(v[u], act);
+      for (int u = 0; u < 4; ++u) v[u] = repro_act_t<ANY>(v[u], act);
       if (res != nullptr) {
         const float4 r = *reinterpret_cast<const float4*>(res + o);
         v[0] += r.x, v[1] += r.y, v[2] += r.z, v[3] += r.w;
@@ -312,7 +313,7 @@ __device__ __forceinline__ void cluster_reduce_store(
       if (c0 + u >= cols) break;
       float r = v[u];
       if (bias != nullptr) r += bias[c0 + u];
-      r = repro_act(r, act);
+      r = repro_act_t<ANY>(r, act);
       if (res != nullptr) r += res[o + u];
       out[o + u] = r;
     }
@@ -552,12 +553,16 @@ __device__ __forceinline__ void gemm_tile(
   }
   const bool vec4 = (N & 3) == 0 && aligned16(out) &&
                     (bias == nullptr || aligned16(bias));
-  cluster_reduce_store(
-      cluster, red, RS, cl, rank, rows, cols,
-      [&](int p) -> long long {
-        return static_cast<long long>(m0 + p) * N + n0;
-      },
-      vec4, bias == nullptr ? nullptr : bias + n0, nullptr, out, act);
+  const auto row_out = [&](int p) -> long long {
+    return static_cast<long long>(m0 + p) * N + n0;
+  };
+  const float* b = bias == nullptr ? nullptr : bias + n0;
+  if (act >= REPRO_ACT_SILU)
+    cluster_reduce_store<true>(cluster, red, RS, cl, rank, rows, cols,
+                               row_out, vec4, b, nullptr, out, act);
+  else
+    cluster_reduce_store<false>(cluster, red, RS, cl, rank, rows, cols,
+                                row_out, vec4, b, nullptr, out, act);
 }
 
 }  // namespace tc

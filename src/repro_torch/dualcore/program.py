@@ -1,18 +1,21 @@
 """Step-program IR: one uniform execution representation of the CNN zoo.
 
-Port of ``repro/dualcore/program.py``.  A network is a flat list of
-:class:`Step` objects; each step covers one or more graph layers (a fused
-block is one step), reads and writes named buffers in an environment dict,
-and runs itself given the parameter dict.  ``repro_torch.models.cnn`` runs
-the whole program in order (the sequential forward);
-``repro_torch.dualcore.runtime`` partitions the same steps into alternating
-c-/p-core groups and pipelines images through them, so both paths give the
-same bits.
+Port of ``repro/dualcore/program.py``, for the paper's three networks, and
+the port's own steps for EfficientNet (``models/zoo.py``).  A network is
+a flat list of :class:`Step` objects; each step covers one or more graph
+layers (a fused block is one step), reads and writes named buffers in an
+environment dict, and runs itself given the parameter dict.
+``repro_torch.models.cnn`` runs the whole program in order (the sequential
+forward); ``repro_torch.dualcore.runtime`` partitions the same steps into
+alternating c-/p-core groups and pipelines images through them, so both
+paths give the same bits.
 
 Buffer conventions: the main chain flows through ``"h"``; the final logits
 land in ``"out"``; SqueezeNet fire modules use ``"sq"``/``"e1"``; the
-MobileNet-v2 per-layer path stashes the block input in ``"res"`` for the
-residual add.  ``collect`` dicts receive activation *shapes* (as tuples).
+MobileNet-v2 and EfficientNet per-layer paths stash the block input in
+``"res"`` for the residual add; an EfficientNet block's SE step reads the
+depthwise output from ``"h"`` and writes it back gated (in place on the
+card).  ``collect`` dicts receive activation *shapes* (as tuples).
 
 The reference's ``use_pallas`` switch becomes dispatch by tensor device: a
 step calls the kernel wrappers, which launch the CUDA kernels on CUDA
@@ -40,6 +43,7 @@ from repro_torch.kernels.fused_block.ops import (fused_dw_pw,
                                                  fused_inverted_residual)
 from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
                                                  fused_pw_dw_pw_ref)
+from repro_torch.kernels.se.ops import squeeze_excite, squeeze_excite_ref
 from repro_torch.models.zoo import get_graph
 
 Params = dict[str, dict[str, torch.Tensor]]
@@ -90,11 +94,30 @@ def sqz_act(name: str) -> str | None:
     return "relu"
 
 
+def effnet_act(name: str) -> str | None:
+    """EfficientNet activation of layer ``name``: silu on every layer but
+    the projections and the classifier; the SE gate's reduce FC takes
+    silu and its expand FC sigmoid (both inside the SE kernel)."""
+    if name == "fc" or name.endswith("_project"):
+        return None
+    if name.endswith("_se_expand"):
+        return "sigmoid"
+    return "silu"
+
+
 ACT_OF: dict[str, Callable[[str], str | None]] = {
     "mobilenet_v1": mbv1_act,
     "mobilenet_v2": mbv2_act,
     "squeezenet": sqz_act,
+    "efficientnet": effnet_act,
 }
+
+
+def family(name: str) -> str:
+    """The ``ACT_OF`` and ``_BUILDERS`` key of graph ``name``: the name of
+    a paper model, or ``"efficientnet"`` for an EfficientNet at any
+    scaling (``zoo.efficientnet_graph`` names each ``efficientnet...``)."""
+    return "efficientnet" if name.startswith("efficientnet") else name
 
 
 # --------------------------------------------------------------------------
@@ -258,13 +281,14 @@ def _mbv1_steps(graph: LayerGraph, fuse: bool, plain: bool) -> list[Step]:
     return steps
 
 
-def _mbv2_layer_step(graph: LayerGraph, name: str, plain: bool) -> Step:
-    """MobileNet-v2 per-layer step with the residual stash/add protocol:
-    ``_expand`` records the block input, ``_project`` adds it back when the
+def _residual_layer_step(graph: LayerGraph, name: str,
+                         act_of: Callable[[str], str | None], stash: bool,
+                         plain: bool) -> Step:
+    """Per-layer step with the residual stash/add protocol: a ``stash``
+    step records the block input, ``_project`` adds it back when the
     graph marks the block residual."""
     l = graph.layer(name)
-    act = mbv2_act(name)
-    stash = name.endswith("_expand")
+    act = act_of(name)
     add = name.endswith("_project") and "add" in l.fused
 
     def fn(params, env, collect):
@@ -287,9 +311,57 @@ def _mbv2_layer_step(graph: LayerGraph, name: str, plain: bool) -> Step:
 def _mbv2_steps(graph: LayerGraph, fuse: bool, plain: bool) -> list[Step]:
     if fuse:
         return _fused_chain_steps(graph, mbv2_act, plain)
-    steps = [_mbv2_layer_step(graph, l.name, plain)
+    # ``_expand`` stashes the block input (MobileNet v2's t = 1 block is
+    # never residual)
+    steps = [_residual_layer_step(graph, l.name, mbv2_act,
+                                  l.name.endswith("_expand"), plain)
              for l in graph.layers[:-1]]
     steps.append(head_step(graph, "fc", mbv2_act, avgpool_first=True,
+                           plain=plain))
+    return steps
+
+
+def se_step(graph: LayerGraph, block: str, plain: bool = False) -> Step:
+    """Block ``block``'s SE gate as one step over its two FC layers: the
+    gate of the depthwise output in ``"h"``, then ``"h"`` scaled by it
+    (the SE kernel's two launches; in place on the card)."""
+    r = graph.layer(f"{block}_se_reduce")
+    e = graph.layer(f"{block}_se_expand")
+    gate = squeeze_excite_ref if plain else squeeze_excite
+
+    def fn(params, env, collect):
+        pr, pe = params[r.name], params[e.name]
+        h = env["h"]
+        env["h"] = gate(h, pr["w"].reshape(r.C_i, r.C_o), pr["b"],
+                        pe["w"].reshape(e.C_i, e.C_o), pe["b"])
+        if collect is not None:
+            collect[r.name] = (h.shape[0], 1, 1, r.C_o)
+            collect[e.name] = (h.shape[0], 1, 1, e.C_o)
+
+    return Step(name=f"{block}_se", layers=(r.name, e.name), reads=("h",),
+                writes=("h",), fn=fn)
+
+
+def _effnet_steps(graph: LayerGraph, fuse: bool, plain: bool) -> list[Step]:
+    """EfficientNet: one step a layer, one SE step a block.  Each
+    depthwise output feeds the SE gate and the projection, so the fusion
+    plan is all singles and ``fuse`` changes nothing.  A block's first
+    layer (its expansion, or its depthwise conv where t = 1) stashes the
+    block input for the projection's residual add."""
+    names = {l.name for l in graph.layers}
+    steps = []
+    for l in graph.layers[:-1]:
+        if l.name.endswith("_se_expand"):
+            continue
+        if l.name.endswith("_se_reduce"):
+            steps.append(se_step(graph, l.name[:-len("_se_reduce")], plain))
+            continue
+        block = l.name.rsplit("_", 1)[0]
+        first = l.name.endswith("_expand") or (
+            l.name.endswith("_dw") and f"{block}_expand" not in names)
+        steps.append(_residual_layer_step(graph, l.name, effnet_act, first,
+                                          plain))
+    steps.append(head_step(graph, "fc", effnet_act, avgpool_first=True,
                            plain=plain))
     return steps
 
@@ -359,6 +431,7 @@ _BUILDERS = {
     "mobilenet_v1": _mbv1_steps,
     "mobilenet_v2": _mbv2_steps,
     "squeezenet": _sqz_steps,
+    "efficientnet": _effnet_steps,
 }
 
 
@@ -385,13 +458,14 @@ def _cached_program(name: str, fuse: bool, plain: bool) -> Program:
 
 
 def _build(graph: LayerGraph, fuse: bool, plain: bool) -> Program:
+    key = family(graph.name)
     try:
-        builder = _BUILDERS[graph.name]
+        builder = _BUILDERS[key]
     except KeyError:
         raise KeyError(f"no step builder for graph {graph.name!r}; "
                        f"choices: {sorted(_BUILDERS)}") from None
     return Program(graph=graph, steps=builder(graph, fuse, plain),
-                   act_of=ACT_OF[graph.name], plain=plain)
+                   act_of=ACT_OF[key], plain=plain)
 
 
 def regroup_fused(program: Program,

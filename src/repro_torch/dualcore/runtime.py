@@ -447,8 +447,9 @@ class DualCoreRunner:
     runner reports to (``runner.group``, ``runner.clone_out``,
     ``runner.load``, ``runner.capture``, ``runner.balance`` and its
     ``runner.probe``; ``runner_lane_captures_total``,
-    ``runner_split_probes_total``, ``runner_split_c_sms``); disabled until
-    an engine hands the runner its own.
+    ``runner_split_probes_total``, ``runner_split_c_sms``,
+    ``runner_se_gates``); disabled until an engine hands the runner its
+    own (:meth:`report_plan`).
     """
 
     def __init__(self, graph: LayerGraph | str, params: Params,
@@ -488,6 +489,20 @@ class DualCoreRunner:
         self.capture_s = 0.0
         self.spans = SpanRecorder()
         self.obs = Registry(enabled=False)
+
+    def report_plan(self) -> None:
+        """Set the plan's gauge in ``obs``: ``runner_se_gates``, the SE
+        gates (layers named ``*_se_reduce``) each core's exec groups hold,
+        labelled by core; absent for a model without SE gates."""
+        gates = {core: sum(n.endswith("_se_reduce") for g in self.groups
+                           if g.core == core for n in g.layers)
+                 for core in ("c", "p")}
+        if not any(gates.values()):
+            return
+        gauge = self.obs.gauge("runner_se_gates", "SE gates the core's "
+                               "exec groups hold", "wall")
+        for core, n in gates.items():
+            gauge.set(n, {"core": core})
 
     def _check_cores(self, cores: DualCores) -> None:
         if cores.device != self.device:

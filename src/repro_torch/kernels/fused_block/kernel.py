@@ -13,7 +13,9 @@ wrapper passes it to the kernel, which trusts it.
 
 A CUDA tensor launches the kernel on the current stream (or raises); a CPU
 tensor runs the plain version from ``ref.py``.  ``fused_dw_pw_conv.launches``
-and ``fused_pw_dw_pw_conv.launches`` count the launches.
+and ``fused_pw_dw_pw_conv.launches`` count the launches.  Both take the
+paper's activations alone (``FUSED_ACTS``): their loops are compiled for
+those, and an EfficientNet's layers, which take silu, never fuse.
 """
 from __future__ import annotations
 
@@ -24,6 +26,16 @@ from repro_torch.kernels.fused_block.ref import (fused_dw_pw_ref,
                                                  fused_pw_dw_pw_ref)
 from repro_torch.kernels.util import (act_code, check_cuda_operands, counted,
                                      launch)
+
+#: the activations K4 and K5 compute (``csrc/common.cuh``'s ``repro_act``)
+FUSED_ACTS = (None, "relu", "relu6")
+
+
+def _check_acts(name: str, *acts: str | None) -> None:
+    for act in acts:
+        if act not in FUSED_ACTS:
+            raise ValueError(f"{name}: activation {act!r}; K4 and K5 take "
+                             f"{FUSED_ACTS}")
 
 
 def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
@@ -44,6 +56,7 @@ def fused_dw_pw_conv(x: torch.Tensor, dw_w: torch.Tensor,
             or dw_w.shape[2] != x.shape[3] or pw_w.shape[0] != x.shape[3]):
         raise ValueError(f"fused_dw_pw_conv: x {tuple(x.shape)}, dw_w "
                          f"{tuple(dw_w.shape)}, pw_w {tuple(pw_w.shape)}")
+    _check_acts("fused_dw_pw_conv", dw_act, pw_act)
     n, h, wd, c = x.shape
     kh, kw, _ = dw_w.shape
     co = pw_w.shape[1]
@@ -102,6 +115,7 @@ def fused_pw_dw_pw_conv(x: torch.Tensor, exp_w: torch.Tensor,
         raise ValueError(f"fused_pw_dw_pw_conv: x {tuple(x.shape)}, exp_w "
                          f"{tuple(exp_w.shape)}, dw_w {tuple(dw_w.shape)}, "
                          f"proj_w {tuple(proj_w.shape)}")
+    _check_acts("fused_pw_dw_pw_conv", exp_act, dw_act, proj_act)
     n, h, wd, ci = x.shape
     kh, kw, cm = dw_w.shape
     co = proj_w.shape[1]

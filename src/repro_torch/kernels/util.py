@@ -45,7 +45,7 @@ LIB_NAME = "librepro_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
+ACT_CODES = {None: 0, "relu": 1, "relu6": 2, "silu": 3, "sigmoid": 4}
 # cycles of ``torch.cuda._sleep`` per millisecond, at 2 GHz (above the
 # H100's top SM clock, so a sleep lasts at least as long as asked)
 SLEEP_CYCLES_PER_MS = 2_000_000
@@ -57,11 +57,16 @@ def cdiv(a: int, b: int) -> int:
 
 
 def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
-    """The shared fused-epilogue activation (None | 'relu' | 'relu6')."""
+    """The shared fused-epilogue activation (None | 'relu' | 'relu6' |
+    'silu' | 'sigmoid')."""
     if act == "relu":
         return torch.clamp_min(x, 0.0)
     if act == "relu6":
         return torch.clamp(x, 0.0, 6.0)
+    if act == "silu":
+        return torch.nn.functional.silu(x)
+    if act == "sigmoid":
+        return torch.sigmoid(x)
     if act is None:
         return x
     raise ValueError(f"unknown activation {act!r}")
@@ -220,6 +225,8 @@ SIGNATURES = {
     "repro_decode_attention": "p" * 5 + "i" * 11 + "f" + "s",
     "repro_flash_attention_int8": "p" * 4 + "i" * 10 + "f" + "i" * 2 + "s",
     "repro_decode_attention_int8": "p" * 5 + "i" * 6 + "f" + "i" * 3 + "s",
+    "repro_se_gate": "p" * 6 + "i" * 7 + "s",
+    "repro_se_scale": "p" * 2 + "i" * 4 + "s",
     "repro_sm_probe": "p" + "i" * 2 + "l" + "s",
     "repro_sm_probe_clusters": "i" + "p" + "s",
 }

@@ -1,6 +1,7 @@
-"""End-to-end PyTorch forwards of the paper's CNN workloads.
+"""End-to-end PyTorch forwards of the served CNNs.
 
-Port of ``repro/models/cnn.py``.  Every model is driven by its
+Port of ``repro/models/cnn.py`` for the paper's three workloads, and the
+port's own EfficientNet-B4 forward.  Every model is driven by its
 ``LayerGraph`` from ``repro_torch.models.zoo`` and executed as a step
 program (``repro_torch.dualcore.program``): run in order here (the
 sequential forward), or partitioned into the pipelined c/p groups of
@@ -75,11 +76,13 @@ def _make_forward(name: str) -> Callable:
 mobilenet_v1_forward = _make_forward("mobilenet_v1")
 mobilenet_v2_forward = _make_forward("mobilenet_v2")
 squeezenet_forward = _make_forward("squeezenet")
+efficientnet_b4_forward = _make_forward("efficientnet_b4")
 
 FORWARDS: dict[str, Callable] = {
     "mobilenet_v1": mobilenet_v1_forward,
     "mobilenet_v2": mobilenet_v2_forward,
     "squeezenet": squeezenet_forward,
+    "efficientnet_b4": efficientnet_b4_forward,
 }
 
 

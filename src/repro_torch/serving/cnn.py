@@ -69,6 +69,7 @@ class DualCoreEngine(EngineBase):
                  spans: SpanRecorder | None = None):
         super().__init__(max_queue=max_queue, obs=obs, spans=spans)
         runner.obs, runner.spans = self.obs, self.spans
+        runner.report_plan()
         self._allocs_seen = self._device_allocs(runner)
         self.runner = runner
         self.policy = policy or FixedRateAdmission(1)

@@ -1787,3 +1787,201 @@ def test_engine_counters_read_lanes_and_allocator_on_card(profiled_engine):
     assert grown >= 1
     assert readings.growth(snap, after, "device_allocs_total") >= grown
     del block
+
+
+# --------------------------------------------------------------------------
+# EfficientNet: the SE gate's kernels, silu and sigmoid, 5x5 depthwise
+# --------------------------------------------------------------------------
+def _b4_se_shapes():
+    """Every distinct (map side, channels, SE channels) of B4's SE gates:
+    190x190x48 through 12x12x2688."""
+    from repro_torch.models.zoo import get_graph
+
+    g = get_graph("efficientnet_b4")
+    out = []
+    for i in range(1, 33):
+        d, r = g.layer(f"b{i}_dw"), g.layer(f"b{i}_se_reduce")
+        shape = (d.H_out, d.C_o, r.C_o)
+        if shape not in out:
+            out.append(shape)
+    return out
+
+
+B4_SE = _b4_se_shapes()
+
+
+def _se_operands(n, h, c, s, seed):
+    x, w1, b1, w2, b2 = _arrays(seed, (n, h, h, c), (c, s), (s,), (s, c),
+                                (c,))
+    return x, w1 * (2 / c) ** 0.5, 0.1 * b1, w2 * (2 / s) ** 0.5, 0.1 * b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,s", B4_SE, ids=[f"{h}x{h}x{c}-se{s}"
+                                              for h, c, s in B4_SE])
+def test_se_kernels_match_plain_at_b4_shapes_on_card(h, c, s, card):
+    """The gate (cluster pool, two FCs) and the in-place scale at each of
+    B4's SE shapes, batch 2, against the plain version at 1e-4; a second
+    call gives the same bits."""
+    from repro_torch.kernels.se.kernel import se_gate, se_scale
+    from repro_torch.kernels.se.ref import se_gate_ref, se_scale_ref
+
+    args = [a.to(card) for a in _se_operands(2, h, c, s, 21)]
+    x = args[0]
+    before = (se_gate.launches, se_scale.launches)
+    gate = se_gate(*args)
+    again = se_gate(*args)
+    want = se_gate_ref(*args)
+    scaled = se_scale(x.clone(), gate)
+    torch.cuda.synchronize()
+    assert (se_gate.launches, se_scale.launches) == (before[0] + 2,
+                                                     before[1] + 1)
+    assert torch.equal(gate, again)
+    np.testing.assert_allclose(gate.cpu().numpy(), want.cpu().numpy(),
+                               **TOL)
+    assert torch.equal(scaled, se_scale_ref(x, gate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,s,offset", [
+    (16, 190, 48, 12, 0), (16, 12, 2688, 112, 0), (3, 9, 70, 5, 0),
+    (2, 13, 24, 6, 1)], ids=["b16-190", "b16-12", "ragged-C", "unaligned"])
+def test_se_kernels_batch_ragged_and_unaligned_on_card(n, h, c, s, offset,
+                                                       card):
+    """Batch 16 at the largest and the widest map, a C that is not a
+    multiple of 4 and a map 4 bytes off 16-byte alignment (the scalar
+    paths): the plain version at 1e-4, the scale in place."""
+    from repro_torch.kernels.se.kernel import se_gate, se_scale
+    from repro_torch.kernels.se.ref import se_gate_ref, se_scale_ref
+
+    x, w1, b1, w2, b2 = (a.to(card) for a in _se_operands(n, h, c, s, 22))
+    if offset:
+        buf = torch.empty(x.numel() + offset, device=card)
+        buf[offset:] = x.flatten()
+        x = buf[offset:].view(x.shape)
+        assert x.data_ptr() % 16 != 0
+    gate = se_gate(x, w1, b1, w2, b2)
+    np.testing.assert_allclose(gate.cpu().numpy(),
+                               se_gate_ref(x, w1, b1, w2, b2).cpu().numpy(),
+                               **TOL)
+    want = se_scale_ref(x, gate)
+    ptr = x.data_ptr()
+    out = se_scale(x, gate)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,s", [B4_SE[0], B4_SE[-1]],
+                         ids=["190x190x48", "12x12x2688"])
+def test_se_gate_same_bits_on_two_streams_on_card(h, c, s, card):
+    """The cluster's ranks meet in rank order: the gate on two other
+    streams, on the c-core's and the p-core's partitions, has the bits
+    of the first on the current stream."""
+    from repro_torch.kernels.se.kernel import se_gate
+
+    args = [a.to(card) for a in _se_operands(16, h, c, s, 23)]
+    first = se_gate(*args)
+    outs = []
+    cores = DualCores(resolve_device(card))
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream(),
+                   cores.streams["c"], cores.streams["p"]):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(se_gate(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "sigmoid"])
+@pytest.mark.parametrize("call", [
+    dict(kernel="matmul_bias_act", m=2 * 95 * 95, k=32, n=192),
+    dict(kernel="matmul_bias_act", m=2 * 12 * 12, k=448, n=2688),
+    dict(kernel="matmul_bias_act", m=2, k=1792, n=1000),
+    dict(kernel="depthwise_conv2d", n=2, h=48, w=48, c=336, k=5, stride=1,
+         pad=2),
+    dict(kernel="depthwise_conv2d", n=2, h=190, w=190, c=48, k=3, stride=1,
+         pad=1),
+    dict(kernel="conv2d_implicit_gemm", n=2, h=380, w=380, ci=3, co=48, k=3,
+         stride=2, pad=1)], ids=["K1-expand", "K1-wide", "K1-head",
+                                 "K2-5x5", "K2-3x3", "K3-stem"])
+def test_k1_k2_k3_silu_and_sigmoid_on_card(call, act, card):
+    """K1, K2 and K3 with the new epilogues at B4's shapes, against the
+    plain version at 1e-4."""
+    call = dict(call, act=act)
+    fn = WRAPPERS[{"matmul_bias_act": "K1", "depthwise_conv2d": "K2",
+                   "conv2d_implicit_gemm": "K3"}[call["kernel"]]]
+    case = chip_smoke.make_case(call, np.random.default_rng(24))
+    got = case["kernel"]()
+    want = case["plain"]()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+def _b4_dw5_calls():
+    """Every distinct 5x5 depthwise conv of B4 at batch 16."""
+    from repro_torch.models.zoo import get_graph
+
+    seen = []
+    for l in get_graph("efficientnet_b4").layers:
+        call = dict(kernel="depthwise_conv2d", n=16, h=l.H, w=l.W, c=l.C_i,
+                    k=l.K_h, stride=l.stride, pad=l.pad, act="silu")
+        if l.op == "dwconv" and l.K_h == 5 and call not in seen:
+            seen.append(call)
+    return seen
+
+
+B4_DW5 = _b4_dw5_calls()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", B4_DW5, ids=[
+    f"{c['h']}x{c['w']}x{c['c']}-s{c['stride']}" for c in B4_DW5])
+def test_k2_5x5_at_b4_shapes_on_card(call, card):
+    """K2's generic window (no 5x5 specialisation) at every 5x5 shape of
+    B4 at batch 16, strides 1 and 2, its planner's tiling within the
+    shared memory a block may hold: the plain version at 1e-4, the same
+    bits on a second call."""
+    from repro_torch.kernels.depthwise.plan import MAX_SMEM, plan_k2
+
+    plan = plan_k2(call["n"], call["h"], call["w"], call["c"], 5, 5,
+                   call["stride"], call["pad"])
+    assert plan.ow == 1 and plan.smem_bytes <= MAX_SMEM
+    case = chip_smoke.make_case(call, np.random.default_rng(25))
+    got = case["kernel"]()
+    again = case["kernel"]()
+    want = case["plain"]()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_effnet_graphs_bit_equal_eager_and_near_the_reference_on_card(card):
+    """A small EfficientNet (width 0.25, depth 0.5, 64 px) served on
+    graphs on the split cores gives the eager engine's bits, counts two SE
+    launches a block an image, and stays within 1e-3 of the plain
+    reference (3xTF32 products against f32 ones)."""
+    from repro_torch.kernels.se.kernel import se_gate, se_scale
+    from repro_torch.models.cnn import init_params, params_from_numpy
+    from repro_torch.models.efficientnet_ref import efficientnet_forward_ref
+    from repro_torch.models.zoo import efficientnet_graph
+
+    graph = efficientnet_graph(0.25, 0.5, 64, name="efficientnet_small")
+    params = params_from_numpy(init_params(graph, 2), card)
+    sched = build_schedule(graph, DUAL_BASELINE, BoardModel(), "balanced")
+    fast = DualCoreRunner(graph, params, sched, device=card)
+    eager = DualCoreRunner(graph, params, sched, device=card,
+                           jit_groups=False)
+    images = [t.to(card) for t in _arrays(8, *[(2, 64, 64, 3)] * 4)]
+    want = stream_images(eager, images).outputs
+    fast.run_sequential(images[:1])                    # warm-up and capture
+    before = (se_gate.launches, se_scale.launches)
+    got = stream_images(fast, images).outputs
+    assert (se_gate.launches - before[0], se_scale.launches - before[1]) \
+        == (4 * 10, 4 * 10)
+    for x, a, b in zip(images, got, want):
+        assert torch.equal(a, b)
+        ref = efficientnet_forward_ref(params, x, 0.25, 0.5)
+        assert float((a - ref).abs().max() / ref.pow(2).mean().sqrt()) < 1e-3
